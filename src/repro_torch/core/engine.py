@@ -1,0 +1,291 @@
+"""Multi-round engine: run chunks of R federated rounds with the
+participation and deadline masks precomputed on the host and every
+per-round metric kept on the device, so a chunk costs ONE device -> host
+sync instead of one per round.
+
+- Participation replays the eager path's ``default_rng([seed, step])``
+  sampling and its float64 ``T > deadline`` comparison on the host
+  (:meth:`ScanEngine._host_masks`), so who participates is identical to
+  the eager path by construction; the chunk's masks go to the device in
+  one copy per cohort.
+- Each round runs every cohort's step (a cohort nobody joined adds exact
+  zeros), then the aggregation, then the server update — skipped, by a
+  host-side check, in a round nobody joined.
+- Loss sum, Eq. (1) wall-clock (a masked max) and upload bytes are f32
+  on the device, as in the reference's compiled engine: those two record
+  fields carry f32 rounding against the eager path's float64.
+
+Aggregation backends (``agg``; the one actually used is ``agg_backend``):
+
+- ``"sequential"``: the eager accumulate/scatter -> finalize chain.
+- ``"pallas"`` (the reference's name; in the port, the hand-written CUDA
+  kernels): masked fleets stack the cohorts on a tier axis and run
+  ``grad_aggregate`` on every >=2-D leaf (1-D leaves keep the chain);
+  fleets with a real width slice run ``structured_scatter`` on EVERY
+  leaf, leaves of one signature batched into one launch. Reported
+  ``"pallas"`` / ``"pallas_structured"``. Both kernels fold the tiers in
+  cohort order with the chain's exact arithmetic, so the fused backends
+  are bitwise the sequential one.
+
+A CUDA-graph capture of the chunk is later work (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
+                                          scatter_accumulate, zeros_like_acc)
+from repro_torch.core.federated import (CohortFLServer, _apply_fns,
+                                        _init_cohort_ef, _local_param_struct,
+                                        cohort_step_fn)
+
+AGG_BACKENDS = ("sequential", "pallas")
+
+
+def _stack_masks(ms: list[torch.Tensor], shape: tuple) -> torch.Tensor:
+    """Per-tier masks of one leaf on a tier axis: ``(T,)`` when every
+    mask is a scalar, else ``(T, *shape)``."""
+    if all(m.dim() == 0 for m in ms):
+        return torch.stack(ms)
+    return torch.stack([m.expand(shape) for m in ms])
+
+
+@dataclass
+class ScanEngine:
+    """Runs chunks of ``CohortFLServer`` rounds. The server stays the
+    source of truth: the engine advances its ``params`` / ``opt_state`` /
+    ``step`` / EF buffers and appends eager-schema records to its
+    ``history``. ``chunk_rounds=0`` runs the whole request as one chunk."""
+    server: CohortFLServer
+    chunk_rounds: int = 0
+    agg: str = "sequential"
+
+    def __post_init__(self):
+        if not isinstance(self.server, CohortFLServer):
+            raise TypeError(f"{type(self.server).__name__} is not a "
+                            "CohortFLServer; the engine runs cohort rounds only")
+        if self.agg not in AGG_BACKENDS:
+            raise ValueError(f"agg must be one of {AGG_BACKENDS}, got {self.agg!r}")
+        if self.chunk_rounds < 0:
+            raise ValueError("chunk_rounds must be >= 0 (0 = one chunk per run)")
+        srv = self.server
+        self._steps = [cohort_step_fn(srv.model.loss_fn, c.plan, srv.mode,
+                                      srv.local_steps, srv.local_lr,
+                                      srv.upload_quant)
+                       for c in srv.cohorts]
+        self._specs = [srv.cohort_spec(ci) for ci in range(len(srv.cohorts))]
+        self._local_structs = [_local_param_struct(srv.params, c.plan)
+                               for c in srv.cohorts]
+        # only REAL slices route agg="pallas" to the prefix-block kernel;
+        # a width=1.0 fleet has identity specs and takes the masked path
+        self._any_sliced = any(s is not None and not s.is_identity
+                               for s in self._specs)
+        self._times = [srv.cohort_times(ci, c.data["x"].shape[1])
+                       for ci, c in enumerate(srv.cohorts)]
+        dev = srv.device
+        self._T_dev = [torch.as_tensor(t["T"], dtype=torch.float32).to(dev)
+                       for t in self._times]
+        self._payload_dev = [torch.as_tensor(t["payload_bytes"],
+                                             dtype=torch.float32).to(dev)
+                             for t in self._times]
+        self._apply = _apply_fns(srv.optimizer, srv.mode, srv.server_lr)
+
+    @property
+    def agg_backend(self) -> str:
+        if self.agg != "pallas":
+            return "sequential"
+        return "pallas_structured" if self._any_sliced else "pallas"
+
+    # ------------------------------------------------------- aggregation
+
+    def _aggregate_sequential(self, params, per_cohort):
+        acc = zeros_like_acc(params, dense_den=self.server.any_structured)
+        for ci, (g_sum, masks, weight, count) in enumerate(per_cohort):
+            acc = scatter_accumulate(acc, g_sum, masks, self._specs[ci],
+                                     weight, count)
+        return finalize(acc)
+
+    @staticmethod
+    def _weights(per_cohort):
+        """Numerator weights ``w`` and denominator weights ``w·n_part``,
+        the latter rounded one multiply early like the chain's."""
+        wn = [f32(w) for (_, _, w, _) in per_cohort]
+        wd = [f32(f32(w) * f32(c)) for (_, _, w, c) in per_cohort]
+        return wn, wd
+
+    def _aggregate_structured(self, params, per_cohort):
+        """``structured_scatter`` on every leaf; leaves whose (global
+        shape, per-tier local shapes, per-tier mask kinds) signature
+        repeats — the hidden layers and their biases — go in one batched
+        launch."""
+        from repro_torch.kernels.structured_scatter import (
+            structured_scatter, structured_scatter_batched)
+        wn, wd = self._weights(per_cohort)
+        names = list(params)
+        groups: dict = {}
+        for k in names:
+            sig = (tuple(params[k].shape),
+                   tuple(tuple(g[k].shape) for (g, _, _, _) in per_cohort),
+                   tuple(m[k].dim() == 0 for (_, m, _, _) in per_cohort))
+            groups.setdefault(sig, []).append(k)
+        out = {}
+        for (shape, _, _), ks in groups.items():
+            if len(ks) == 1:
+                k = ks[0]
+                out[k] = structured_scatter(
+                    [g[k] for (g, _, _, _) in per_cohort],
+                    [m[k] for (_, m, _, _) in per_cohort],
+                    wn, wd, out_shape=shape)
+                continue
+            res = structured_scatter_batched(
+                [torch.stack([g[k] for k in ks]) for (g, _, _, _) in per_cohort],
+                [torch.stack([m[k] for k in ks]) for (_, m, _, _) in per_cohort],
+                wn, wd, out_shape=shape)
+            for j, k in enumerate(ks):
+                out[k] = res[j]
+        return {k: out[k] for k in names}
+
+    def _aggregate_fused(self, params, per_cohort):
+        """Masked fleets: ``grad_aggregate`` per >=2-D leaf over the
+        stacked cohorts; 1-D leaves (scalar denominators) replay the
+        chain leaf-wise. Sliced fleets: :meth:`_aggregate_structured`."""
+        if self._any_sliced:
+            return self._aggregate_structured(params, per_cohort)
+        from repro_torch.kernels.grad_aggregate import grad_aggregate
+        wn, wd = self._weights(per_cohort)
+        out = {}
+        for k, p in params.items():
+            g_t = [g[k] for (g, _, _, _) in per_cohort]
+            m_t = [m[k] for (_, m, _, _) in per_cohort]
+            if p.dim() >= 2:
+                out[k] = grad_aggregate(torch.stack(g_t),
+                                        _stack_masks(m_t, tuple(p.shape)),
+                                        wn, w_den=wd)
+                continue
+            acc = ({"x": torch.zeros_like(p)},
+                   {"x": torch.zeros((), dtype=torch.float32, device=p.device)})
+            for t, (_, _, w, count) in enumerate(per_cohort):
+                acc = accumulate_cohort(acc, {"x": g_t[t]}, {"x": m_t[t]},
+                                        w, count)
+            out[k] = finalize(acc)["x"]
+        return out
+
+    # ------------------------------------------------------------ rounds
+
+    def _round(self, r: int, xs: dict, efs: list):
+        """One round on the device; returns its (loss_sum, wall,
+        upload_bytes) device scalars."""
+        srv = self.server
+        params = srv.params
+        per_cohort = []
+        loss_sum = torch.zeros((), dtype=torch.float32, device=srv.device)
+        wall = torch.full((), -np.inf, dtype=torch.float32, device=srv.device)
+        up_bytes = torch.zeros((), dtype=torch.float32, device=srv.device)
+        for ci, step in enumerate(self._steps):
+            part = xs["part"][ci][r]
+            ef = efs[ci]
+            if srv.upload_quant is not None and not srv.error_feedback:
+                ef = _init_cohort_ef(srv.cohorts[ci].size,
+                                     self._local_structs[ci])
+            g_sum, masks, l_sum, new_ef = step(params, srv.cohorts[ci].data,
+                                               part, ef)
+            if srv.error_feedback:
+                efs[ci] = new_ef
+            per_cohort.append((g_sum, masks, srv.cohorts[ci].plan.weight,
+                               xs["count"][r][ci]))
+            loss_sum = loss_sum + l_sum
+            wall = torch.maximum(wall, torch.max(
+                torch.where(part > 0, self._T_dev[ci], -np.inf)))
+            up_bytes = up_bytes + torch.dot(part, self._payload_dev[ci])
+        if xs["has"][r]:
+            agg = (self._aggregate_fused(params, per_cohort)
+                   if self.agg == "pallas"
+                   else self._aggregate_sequential(params, per_cohort))
+            srv.params, srv.opt_state = self._apply(
+                agg, srv.opt_state, params, xs["step"][r])
+        return loss_sum, wall, up_bytes
+
+    def _host_masks(self, R: int):
+        """The chunk's participation, replaying the eager round's
+        sampling and float64 deadline drop on the host. Returns per-round
+        lists of per-cohort bool masks and per-round drop counts."""
+        srv = self.server
+        parts, dropped = [], []
+        for r in range(R):
+            rng = np.random.default_rng([srv.seed, srv.step + r])
+            sampled = srv._sample_participation(rng)
+            n_dropped = 0
+            cur = []
+            for ci in range(len(srv.cohorts)):
+                part = np.asarray(sampled[ci], bool).copy()
+                if srv.straggler == "drop":
+                    late = self._times[ci]["T"] > srv.deadline
+                    n_dropped += int(np.sum(part & late))
+                    part &= ~late
+                cur.append(part)
+            parts.append(cur)
+            dropped.append(n_dropped)
+        return parts, dropped
+
+    def _ef_state(self) -> list:
+        srv = self.server
+        if srv.upload_quant is None:
+            return [{} for _ in srv.cohorts]
+        return [c.ef_buffer if (c.ef_buffer is not None and srv.error_feedback)
+                else _init_cohort_ef(c.size, self._local_structs[ci])
+                for ci, c in enumerate(srv.cohorts)]
+
+    def _run_chunk(self, R: int) -> list[dict]:
+        srv = self.server
+        step0 = srv.step
+        parts, dropped = self._host_masks(R)
+        xs = {
+            "step": list(range(step0, step0 + R)),
+            "has": [any(p.any() for p in parts[r]) for r in range(R)],
+            "count": [[float(p.sum()) for p in parts[r]] for r in range(R)],
+            # one host -> device copy per cohort for the whole chunk
+            "part": [torch.as_tensor(np.stack([parts[r][ci] for r in range(R)]),
+                                     dtype=torch.float32).to(srv.device)
+                     for ci in range(len(srv.cohorts))],
+        }
+        efs = self._ef_state()
+        metrics = [self._round(r, xs, efs) for r in range(R)]
+        srv.step = step0 + R
+        if srv.upload_quant is not None and srv.error_feedback:
+            for c, ef in zip(srv.cohorts, efs):
+                c.ef_buffer = ef
+        # the chunk's single device -> host sync
+        m = torch.stack([torch.stack(x) for x in metrics]).cpu().numpy()
+        recs = []
+        for r in range(R):
+            n_p = int(sum(p.sum() for p in parts[r]))
+            wall = float(m[r, 1])
+            rec = {
+                "step": step0 + r + 1,
+                "loss": float(m[r, 0]) / n_p if n_p else None,
+                "n_participants": n_p,
+                "n_dropped": dropped[r],
+                "round_wall_time": (
+                    srv.deadline if srv.straggler == "drop" and dropped[r]
+                    else (wall if np.isfinite(wall) else 0.0)),
+                "total_upload_bytes": float(m[r, 2]),
+            }
+            srv.history.append(rec)
+            recs.append(rec)
+        return recs
+
+    def run(self, rounds: int) -> list[dict]:
+        """Advance the server ``rounds`` rounds in chunks of
+        ``chunk_rounds`` (0 = one chunk); returns the new records."""
+        if rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {rounds}")
+        chunk = self.chunk_rounds or rounds
+        recs, done = [], 0
+        while done < rounds:
+            r = min(chunk, rounds - done)
+            recs += self._run_chunk(r)
+            done += r
+        return recs

@@ -1,0 +1,514 @@
+"""Declarative scenario API: one frozen ``FLScenario`` assembled from
+small policy objects — fleet x local training x upload compression x
+participation x timing — with the reference's JSON wire format
+(``to_dict``/``from_dict``), so one scenario file drives both packages.
+
+:func:`build_server` assembles the runtime and :func:`simulate` runs it,
+returning a :class:`RunResult` of typed :class:`RoundRecord` s. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
+GPU and no CPU request they raise.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the async runtime (``AsyncBuffered`` parses but does not run),
+``runtime="client"``, fault policies, fleet topologies and meshes,
+checkpointing, ``scenario_census`` and ``partition="dirichlet"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import types
+from dataclasses import dataclass
+from typing import Any, ClassVar
+
+import torch
+
+from repro_torch.core.compression import DEVICE_TIERS
+from repro_torch.core.heterogeneity import PROFILES
+from repro_torch.numerics import FORMATS
+
+__all__ = [
+    "FleetSpec", "LocalTraining", "UploadPolicy", "ParticipationPolicy",
+    "TimingPolicy", "SyncWait", "SyncDrop", "AsyncBuffered", "FLScenario",
+    "RoundRecord", "RunResult", "build_server", "simulate",
+    "timing_from_dict", "resolve_device", "scenario_census",
+]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet "
+        f"(ROADMAP.md queue 1, item '{item}')")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda``. Never drops to the CPU on its
+    own: without a GPU the caller must ask for ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return torch.device("cuda")
+
+
+def _fields_dict(obj) -> dict:
+    """Shallow dataclass -> dict with tuples downgraded to JSON lists."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
+# --------------------------------------------------------------- fleet
+
+@dataclass(frozen=True)
+class FleetSpec:
+    """Who trains: one device tier per client (plan + Eq. (1) profile)
+    plus the data partition that feeds them. The port draws its default
+    data from a ``torch.Generator`` seeded with ``data_seed`` (other
+    numbers than the reference's ``jax.random`` draws, by design)."""
+    tiers: tuple[str, ...]
+    profiles: tuple[str, ...] | None = None
+    n_samples: int = 0              # total dataset size; validated at build
+    partition: str = "iid"          # iid | dirichlet
+    alpha: float = 0.5              # dirichlet concentration
+    data_seed: int = 0
+    topology: Any = None            # reference wire field; not ported
+
+    def __post_init__(self):
+        object.__setattr__(self, "tiers", tuple(self.tiers))
+        if self.profiles is not None:
+            object.__setattr__(self, "profiles", tuple(self.profiles))
+        if self.topology is not None:
+            raise _not_ported("FleetSpec.topology (hierarchical fleets)",
+                              "Topology")
+        if not self.tiers:
+            raise ValueError("FleetSpec needs at least one client tier")
+        for t in self.tiers:
+            if t not in DEVICE_TIERS:
+                raise ValueError(f"unknown tier {t!r}; known: {sorted(DEVICE_TIERS)}")
+        for p in self.profiles or ():
+            if p not in PROFILES:
+                raise ValueError(f"unknown profile {p!r}; known: {sorted(PROFILES)}")
+        if self.profiles is not None and len(self.profiles) != len(self.tiers):
+            raise ValueError("profiles must match tiers length")
+        if self.partition not in ("iid", "dirichlet"):
+            raise ValueError(f"partition must be iid|dirichlet, got {self.partition!r}")
+
+    @classmethod
+    def cycling(cls, tiers, n_clients: int, *, profiles=None,
+                samples_per_client: int = 16, **kw) -> "FleetSpec":
+        """``n_clients`` cycling over a short tier (and optionally
+        profile) pattern, equal IID-able shards."""
+        t = tuple(tiers[i % len(tiers)] for i in range(n_clients))
+        p = (None if profiles is None else
+             tuple(profiles[i % len(profiles)] for i in range(n_clients)))
+        return cls(tiers=t, profiles=p,
+                   n_samples=n_clients * samples_per_client, **kw)
+
+    @property
+    def n_clients(self) -> int:
+        return len(self.tiers)
+
+    @property
+    def client_profiles(self) -> tuple[str, ...]:
+        return self.profiles if self.profiles is not None else self.tiers
+
+    def build_clients(self, shards: list[dict] | None = None) -> list:
+        """Materialize the fleet: partition the dataset (or take the
+        given ``shards``, host tensors or numpy arrays) and attach plan +
+        profile per client."""
+        from repro_torch.core.federated import Client
+        from repro_torch.data import make_gaussian_dataset, partition_iid
+        if shards is None:
+            if self.partition != "iid":
+                raise _not_ported("partition='dirichlet'", "Dirichlet partition")
+            if self.n_samples < self.n_clients:
+                raise ValueError(
+                    f"n_samples={self.n_samples} cannot cover "
+                    f"{self.n_clients} clients")
+            gen = torch.Generator().manual_seed(self.data_seed)
+            data = make_gaussian_dataset(gen, self.n_samples)
+            shards = partition_iid(gen, data, self.n_clients)
+        elif len(shards) != self.n_clients:
+            raise ValueError(f"{len(shards)} shards for {self.n_clients} clients")
+        shards = [{"x": torch.as_tensor(s["x"], dtype=torch.float32),
+                   "y": torch.as_tensor(s["y"]).to(torch.int64)}
+                  for s in shards]
+        return [Client(i, DEVICE_TIERS[t], shards[i], profile_name=p)
+                for i, (t, p) in enumerate(zip(self.tiers,
+                                               self.client_profiles))]
+
+    def to_dict(self) -> dict:
+        return _fields_dict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FleetSpec":
+        d = dict(d)
+        d["tiers"] = tuple(d["tiers"])
+        if d.get("profiles") is not None:
+            d["profiles"] = tuple(d["profiles"])
+        return cls(**d)
+
+
+# ------------------------------------------------------------- policies
+
+@dataclass(frozen=True)
+class LocalTraining:
+    """How a sampled client trains (paper §4.2), plus the sub-model axis:
+    ``submodel="mask"`` emulates each tier's compression on full-shape
+    arrays; ``"width"`` spends each tier's density budget as a dense
+    width slice (``plan.as_width_sliced()``)."""
+    mode: str = "fedsgd"            # fedsgd | fedavg
+    local_steps: int = 5            # fedavg steps per round
+    local_lr: float = 0.1           # fedavg on-device lr
+    server_lr: float = 1.0          # fedavg server-side delta scale
+    submodel: str = "mask"          # mask | width
+
+    def __post_init__(self):
+        if self.mode not in ("fedsgd", "fedavg"):
+            raise ValueError(f"mode must be fedsgd|fedavg, got {self.mode!r}")
+        if self.local_steps < 1:
+            raise ValueError("local_steps must be >= 1")
+        if self.submodel not in ("mask", "width"):
+            raise ValueError(f"submodel must be mask|width, "
+                             f"got {self.submodel!r}")
+
+    def to_dict(self) -> dict:
+        return _fields_dict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LocalTraining":
+        return cls(**d)
+
+
+@dataclass(frozen=True)
+class UploadPolicy:
+    """Optional gradient/delta quantization with per-client error
+    feedback (beyond-paper, off by default)."""
+    quant: str | None = None        # a FORMATS name
+    error_feedback: bool = False
+
+    def __post_init__(self):
+        if self.quant is not None and self.quant not in FORMATS:
+            raise ValueError(f"unknown quant format {self.quant!r}; "
+                             f"known: {sorted(FORMATS)}")
+        if self.error_feedback and self.quant is None:
+            raise ValueError("error_feedback without quant has nothing to feed back")
+
+    def to_dict(self) -> dict:
+        return _fields_dict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "UploadPolicy":
+        return cls(**d)
+
+
+@dataclass(frozen=True)
+class ParticipationPolicy:
+    """Per-round uniform sampling without replacement of
+    ``max(1, round(fraction * n_clients))`` clients, drawn from
+    ``np.random.default_rng([seed, step])`` as in the reference."""
+    fraction: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(f"fraction must be in (0, 1], got {self.fraction}")
+
+    def to_dict(self) -> dict:
+        return _fields_dict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ParticipationPolicy":
+        return cls(**d)
+
+
+class TimingPolicy:
+    """When the server aggregates: :class:`SyncWait`, :class:`SyncDrop`,
+    or :class:`AsyncBuffered` (parsed, not yet run by the port)."""
+    kind: ClassVar[str] = ""
+    _KINDS: ClassVar[dict[str, type]] = {}
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if cls.kind:
+            TimingPolicy._KINDS[cls.kind] = cls
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, **_fields_dict(self)}
+
+
+def timing_from_dict(d: dict) -> TimingPolicy:
+    d = dict(d)
+    kind = d.pop("kind")
+    try:
+        cls = TimingPolicy._KINDS[kind]
+    except KeyError:
+        raise ValueError(f"unknown timing kind {kind!r}; "
+                         f"known: {sorted(TimingPolicy._KINDS)}") from None
+    return cls(**d)
+
+
+@dataclass(frozen=True)
+class SyncWait(TimingPolicy):
+    kind: ClassVar[str] = "sync_wait"
+
+
+@dataclass(frozen=True)
+class SyncDrop(TimingPolicy):
+    deadline: float = 1.0           # seconds of analytic Eq. (1) time
+
+    kind: ClassVar[str] = "sync_drop"
+
+    def __post_init__(self):
+        if self.deadline <= 0:
+            raise ValueError("deadline must be > 0 seconds")
+
+
+@dataclass(frozen=True)
+class AsyncBuffered(TimingPolicy):
+    buffer_size: int = 1            # uploads per aggregation (K of FedBuff)
+    staleness_exp: float = 0.5      # a in (1+s)^-a; 0 turns the discount off
+    time_jitter: float = 0.0        # lognormal sigma on per-dispatch times
+
+    kind: ClassVar[str] = "async_buffered"
+
+    def __post_init__(self):
+        if self.buffer_size < 1:
+            raise ValueError("buffer_size must be >= 1")
+        if self.staleness_exp < 0:
+            raise ValueError("staleness_exp must be >= 0")
+        if self.time_jitter < 0:
+            raise ValueError("time_jitter must be >= 0")
+
+
+# ------------------------------------------------------------- scenario
+
+@dataclass(frozen=True)
+class FLScenario:
+    """One experiment: fleet x local x upload x participation x timing,
+    plus the execution substrate (the port runs ``"cohort"``)."""
+    fleet: FleetSpec
+    local: LocalTraining = LocalTraining()
+    upload: UploadPolicy = UploadPolicy()
+    participation: ParticipationPolicy = ParticipationPolicy()
+    timing: TimingPolicy = SyncWait()
+    runtime: str = "cohort"         # cohort | client
+    faults: Any = None              # reference wire field; not ported
+
+    def __post_init__(self):
+        if self.runtime not in ("cohort", "client"):
+            raise ValueError(f"runtime must be cohort|client, got {self.runtime!r}")
+        if (isinstance(self.timing, AsyncBuffered)
+                and self.participation.fraction < 1.0):
+            raise ValueError("AsyncBuffered schedules every client on the "
+                             "virtual clock; partial participation is a "
+                             "sync-only knob")
+
+    def to_dict(self) -> dict:
+        d = {"fleet": self.fleet.to_dict(),
+             "local": self.local.to_dict(),
+             "upload": self.upload.to_dict(),
+             "participation": self.participation.to_dict(),
+             "timing": self.timing.to_dict(),
+             "runtime": self.runtime}
+        if self.faults is not None:
+            d["faults"] = self.faults
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FLScenario":
+        return cls(fleet=FleetSpec.from_dict(d["fleet"]),
+                   local=LocalTraining.from_dict(d["local"]),
+                   upload=UploadPolicy.from_dict(d["upload"]),
+                   participation=ParticipationPolicy.from_dict(
+                       d["participation"]),
+                   timing=timing_from_dict(d["timing"]),
+                   runtime=d.get("runtime", "cohort"),
+                   faults=d.get("faults"))
+
+
+# ------------------------------------------------------- typed records
+
+@dataclass(frozen=True)
+class RoundRecord:
+    """One sync round, typed (the reference's schema; fields the port's
+    sync runtime does not produce stay ``None``). ``loss`` is ``None``
+    for a zero-participant round."""
+    step: int
+    loss: float | None
+    round_wall_time: float | None = None    # Eq. (1) round wall-clock
+    t: float | None = None                  # async virtual clock
+    total_upload_bytes: float = 0.0
+    n_participants: int | None = None
+    n_dropped: int | None = None            # by the SyncDrop deadline
+    client_losses: tuple[float, ...] | None = None
+    n_updates: int | None = None
+    staleness_mean: float | None = None
+    staleness_max: int | None = None
+    n_versions_live: int | None = None
+    n_dropouts: int | None = None
+    n_corrupt: int | None = None
+
+    @classmethod
+    def from_history(cls, rec: dict) -> "RoundRecord":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in rec.items() if k in known})
+
+
+@dataclass
+class RunResult:
+    """What :func:`simulate` returns: the scenario, its round records,
+    the final model, the live runtime, and the aggregation backend the
+    run actually used."""
+    scenario: FLScenario
+    records: tuple[RoundRecord, ...]
+    params: dict
+    opt_state: Any
+    server: Any
+    agg_backend: str = "sequential"
+
+    @property
+    def final(self) -> RoundRecord:
+        return self.records[-1]
+
+    @property
+    def losses(self) -> tuple[float, ...]:
+        return tuple(r.loss for r in self.records)
+
+    @property
+    def sim_time(self) -> float:
+        """Simulated seconds: the sum of per-round Eq. (1) wall times."""
+        return sum(r.round_wall_time for r in self.records)
+
+
+# ------------------------------------------------------------- factory
+
+def _check_ported(scenario: FLScenario) -> None:
+    if scenario.faults is not None:
+        raise _not_ported("FLScenario.faults (fault injection)", "Faults")
+    if scenario.runtime == "client":
+        raise _not_ported("runtime='client' (the per-client FLServer)",
+                          "Per-client runtime")
+    if isinstance(scenario.timing, AsyncBuffered):
+        raise _not_ported("AsyncBuffered timing (the async runtime)",
+                          "Async runtime")
+
+
+def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
+                 clients: list | None = None, shards: list | None = None,
+                 device=None):
+    """Assemble the cohort runtime a scenario calls for on ``device``.
+    ``clients``/``shards`` override the fleet's data build."""
+    from repro_torch.core.federated import CohortFLServer
+    _check_ported(scenario)
+    dev = resolve_device(device)
+    if clients is None:
+        clients = scenario.fleet.build_clients(shards)
+    if scenario.local.submodel == "width":
+        clients = [dataclasses.replace(c, plan=c.plan.as_width_sliced())
+                   for c in clients]
+    timing = scenario.timing
+    kw = dict(model=model, optimizer=optimizer,
+              params={k: v.to(dev) for k, v in params.items()},
+              mode=scenario.local.mode,
+              local_steps=scenario.local.local_steps,
+              local_lr=scenario.local.local_lr,
+              server_lr=scenario.local.server_lr,
+              upload_quant=scenario.upload.quant,
+              error_feedback=scenario.upload.error_feedback,
+              sample_fraction=scenario.participation.fraction,
+              seed=scenario.participation.seed)
+    if isinstance(timing, SyncDrop):
+        return CohortFLServer.from_clients(clients, dev, straggler="drop",
+                                           deadline=timing.deadline, **kw)
+    if isinstance(timing, SyncWait):
+        return CohortFLServer.from_clients(clients, dev, straggler="wait",
+                                           **kw)
+    raise TypeError(f"unknown timing policy {type(timing).__name__}")
+
+
+def _default_bundle(model, optimizer, params, init_seed: int, device):
+    """Fill unspecified (model, optimizer, params) with the paper's MLP
+    task: MLP loss + SGD(1.0) + seeded init (a ``torch.Generator``, so
+    other numbers than the reference's init)."""
+    from repro_torch import optim
+    from repro_torch.configs.paper_mlp import config as mlp_config
+    from repro_torch.models import mlp
+    if model is None:
+        model = types.SimpleNamespace(loss_fn=mlp.loss_fn)
+    if optimizer is None:
+        optimizer = optim.sgd(1.0)
+    if params is None:
+        params = mlp.init(torch.Generator().manual_seed(init_seed),
+                          mlp_config(), device)
+    return model, optimizer, params
+
+
+ENGINES = ("eager", "scan", "scan_pallas")
+
+
+def simulate(scenario: FLScenario, rounds: int, *, model=None,
+             optimizer=None, params=None, clients: list | None = None,
+             shards: list | None = None, init_seed: int = 0,
+             engine: str = "eager", chunk_rounds: int | None = None,
+             device=None, mesh=None, checkpoint_every: int | None = None,
+             checkpoint_dir: str | None = None,
+             resume_from: str | None = None) -> RunResult:
+    """Build the scenario's runtime on ``device`` (default ``cuda``) and
+    advance it ``rounds`` federated rounds. With no model/optimizer/
+    params it runs the paper's MLP task.
+
+    ``engine`` keeps the reference's names, so a call and its record read
+    the same in both packages:
+
+    - ``"eager"``: one ``round()`` per round, one host sync each.
+    - ``"scan"``: :class:`~repro_torch.core.engine.ScanEngine` runs
+      chunks of ``chunk_rounds`` rounds (default: all) with participation
+      precomputed on the host and per-round metrics kept on the device,
+      one host sync per chunk; sequential aggregation.
+    - ``"scan_pallas"``: ``"scan"`` with fused aggregation. In the port
+      these are the hand-written CUDA kernels (``csrc/``): masked fleets
+      run ``grad_aggregate`` on each >=2-D leaf (``agg_backend ==
+      "pallas"``), width-sliced fleets run ``structured_scatter`` on
+      every leaf (``"pallas_structured"``). Both are bitwise the
+      sequential chain.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if mesh is not None and mesh is not False:
+        raise _not_ported("mesh= (sharded edge fleets)", "Topology")
+    if (checkpoint_every is not None or checkpoint_dir is not None
+            or resume_from is not None):
+        raise _not_ported("checkpointing", "Checkpointing")
+    _check_ported(scenario)
+    dev = resolve_device(device)
+    model, optimizer, params = _default_bundle(model, optimizer, params,
+                                               init_seed, dev)
+    srv = build_server(scenario, model, optimizer, params, clients=clients,
+                       shards=shards, device=dev)
+    agg_backend = "sequential"
+    if engine == "eager":
+        for _ in range(rounds):
+            srv.round()
+    else:
+        from repro_torch.core.engine import ScanEngine
+        eng = ScanEngine(srv, chunk_rounds=chunk_rounds or 0,
+                         agg="pallas" if engine == "scan_pallas"
+                         else "sequential")
+        agg_backend = eng.agg_backend
+        eng.run(rounds)
+    return RunResult(scenario=scenario,
+                     records=tuple(RoundRecord.from_history(h)
+                                   for h in srv.history),
+                     params=srv.params, opt_state=srv.opt_state, server=srv,
+                     agg_backend=agg_backend)
+
+
+def scenario_census(scenario: FLScenario, params=None) -> dict:
+    """The reference's host-only fleet / payload / Eq. (1) table."""
+    raise _not_ported("scenario_census", "Scenario census")
