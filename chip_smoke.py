@@ -2,17 +2,28 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the compiler's resource
    report.
-2. Phase "kernels": calls every kernel of the FL round's path at the
-   shapes that path gives it (the paper MLP, the 256-wide width-fleet
-   MLP, a ragged size, scalar masks) and holds it against its plain
-   PyTorch version on the card — structured_scatter bitwise,
-   grad_aggregate bitwise against the port's accumulate_cohort ->
-   finalize chain and to atol 1e-6 against its plain version — then
-   times kernel and plain version with CUDA events (median) beside the
-   bound (bytes / 3.35 TB/s).
+2. Phase "kernels": calls every kernel at the shapes its paths give it
+   and holds it against its plain PyTorch version on the card:
+   - grad_aggregate and structured_scatter at the FL round's shapes (the
+     paper MLP, the 256-wide width-fleet MLP, a ragged size, scalar
+     masks): structured_scatter bitwise, grad_aggregate bitwise against
+     the port's accumulate_cohort -> finalize chain and to atol 1e-6
+     against its plain version;
+   - fake_quant bitwise against the plain ``quantize_em`` for every
+     format with e > 0, at every compressible leaf shape of llama3.2-3b
+     (full config) and the paper MLP's leaf and upload shapes, with
+     specials and f32 subnormals mixed in;
+   - flash_attention at the train shape (B 2, T = S 1024, H 24, Hkv 8,
+     hd 128) in f32 (atol/rtol 2e-5) and bf16 (one bf16 quantum of the
+     plain version's f32 result, plus 2e-5), and with a window, a
+     q_offset and a ragged S;
+   then times kernel and plain version with CUDA events (median), the
+   kernel's device time from the profiler, the bound (the larger of
+   bytes / 3.35 TB/s and operations / 989 TFLOP/s) and, for attention,
+   PyTorch's scaled_dot_product_attention as a yardstick.
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
    width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
@@ -21,14 +32,33 @@
    just after; scan_pallas must equal scan bitwise on the masked and
    width fleets; losses must be finite and fall; a small run must agree
    with the port's CPU path.
+4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
+   compute), compressed for each tier hub / high / mid / low / embedded
+   through ``repro_torch.launch.serve``: batch 4, prompt 64, 32 greedy
+   tokens; fake_quant must launch 10 times per quantized tier and never
+   for the hub. At 2 layers of full width in f32, the decode replay of the
+   prompt must agree with prefill's last-token logits.
+5. Phase "train": llama3.2-3b at full width cut to 4 layers, bf16,
+   ``use_flash``, through ``repro_torch.launch.train``: 4 tiers,
+   AdamW(warmup_cosine(3e-4, 2, 5)), global batch 8, seq 1024, 5 steps;
+   flash_attention must launch 16 and fake_quant 30 times per step; the
+   mean loss and each tier's must fall at each of the last two steps
+   (after the jump that AdamW's first updates make at this width, as in
+   the reference), and the same run without flash must give the same
+   losses to rtol 1e-3. On the llama smoke
+   config the card's f32 step must agree with the port's CPU path over 2
+   steps.
 
 Prints the card's name and power limit, per-kernel times, launches per
-round and ms per round, then the kernels JSON line and, last, the
+round and per step, ms per round, prefill s, decode tokens/s, sec/step
+and peak memory, a profiled window of each FL fleet, one serve call and
+one train step, then the kernels JSON line and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,7 +68,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
+F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
+LM_ARCH = "llama3.2-3b"
+TRAIN_LAYERS = 4                    # the train phase's depth cut (of 28)
+TRAIN_STEPS = 5
 BENCH_TIERS = ("hub", "high", "mid", "low")
 QUICKSTART_TIERS = ("hub", "high", "mid", "mid", "low", "embedded")
 
@@ -71,8 +106,11 @@ def time_ms(fn, reps: int = 15, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int) -> float:
-    return n_bytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(n_bytes: int, flops: float = 0.0,
+             flop_rate: float = BF16_FLOP_PER_S) -> float:
+    """The least time for the work: the larger of moving ``n_bytes`` at
+    the memory rate and doing ``flops`` at ``flop_rate``."""
+    return max(n_bytes / HBM_BYTES_PER_S, flops / flop_rate) * 1e3
 
 
 def device_events(prof) -> list:
@@ -240,6 +278,207 @@ def phase_kernels(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------- LM kernels
+
+def _fq_input(shape, device, seed: int):
+    """Normals over ~170 binades with specials and f32 subnormals mixed
+    in, made on the card from a seed."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device)
+    x *= torch.exp(torch.empty(shape, device=device).uniform_(
+        -60.0, 60.0, generator=gen))
+    flat = x.view(-1)
+    n = flat.numel()
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                             float("nan"), 1e-45, -1e-45, 3e38, -3e38, 481.0,
+                             65520.0], device=device)
+    k = min(n, specials.numel())
+    flat[:k] = specials[:k]
+    m = min(n - k, 1000)
+    if m > 0:
+        idx = torch.randint(k, n, (m,), generator=gen, device=device)
+        flat[idx] = torch.randn((m,), generator=gen, device=device) * 1e-40
+    return x
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    return bool(torch.all((a.view(torch.int32) == b.view(torch.int32))
+                          | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _max_abs_err(a, b) -> float:
+    """Largest |a - b| over the elements where a and b are not both NaN
+    (equal infinities count 0, a NaN against a number counts inf)."""
+    import torch
+    d = torch.where(a == b, 0.0, (a - b).abs())
+    d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0,
+                    d.nan_to_num(nan=float("inf")))
+    return d.max().item()
+
+
+def _fq_shapes() -> dict:
+    """shape -> label: every compressible leaf shape of llama3.2-3b at its
+    full config (the serve phase checks the table against the real
+    params), and the paper MLP's leaf shapes and upload shapes (a
+    256-client axis in front of every leaf)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.core.compression import compressible
+    shapes = {}
+    for name, shape in _lm_leaf_shapes(get_config(LM_ARCH)).items():
+        if compressible(name, torch.empty(shape, device="meta")):
+            shapes.setdefault(shape, f"llama {name}")
+    for name, p in _mlp_params(config(), "cpu").items():
+        shapes.setdefault(tuple(p.shape), f"paper-mlp {name}")
+        shapes.setdefault((256,) + tuple(p.shape), f"paper-mlp upload {name}")
+    return shapes
+
+
+def _lm_leaf_shapes(cfg) -> dict:
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
+    return {"embed": (cfg.vocab_size, d), "final_norm": (d,),
+            "layers.attn.wk.w": (L, d, cfg.num_kv_heads, hd),
+            "layers.attn.wo.w": (L, cfg.num_heads * hd, d),
+            "layers.attn.wq.w": (L, d, cfg.num_heads, hd),
+            "layers.attn.wv.w": (L, d, cfg.num_kv_heads, hd),
+            "layers.ln1": (L, d), "layers.ln2": (L, d),
+            "layers.mlp.wg.w": (L, d, cfg.d_ff),
+            "layers.mlp.wi.w": (L, d, cfg.d_ff),
+            "layers.mlp.wo.w": (L, cfg.d_ff, d)}
+
+
+def _flash_cases(device):
+    """(label, q, k, v, kwargs) at llama3.2-3b's attention widths: the
+    train phase's shape in bf16 and f32, then a window, a q_offset with
+    a ragged S, and a ragged non-causal case."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def qkv(b, t, s, dtype):
+        return [torch.randn(shape, generator=gen, device=device).to(dtype)
+                for shape in ((b, t, cfg.num_heads, cfg.head_dim),
+                              (b, s, cfg.num_kv_heads, cfg.head_dim),
+                              (b, s, cfg.num_kv_heads, cfg.head_dim))]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("train_bf16", *qkv(2, 1024, 1024, bf16), {}),
+            ("train_f32", *qkv(2, 1024, 1024, f32), {}),
+            ("window_f32", *qkv(1, 300, 300, f32), dict(window=100)),
+            ("q_offset_ragged_s_f32", *qkv(1, 64, 1000, f32),
+             dict(q_offset=936)),
+            ("noncausal_ragged_f32", *qkv(2, 77, 333, f32),
+             dict(causal=False))]
+
+
+def flash_work(q, k, causal=True, window=0, q_offset=0):
+    """(bytes, flops) of one attention call: q, k, v read and o written
+    once; 4*hd flops per (query, key) pair that this call's masks let
+    through, counted from the masks."""
+    import numpy as np
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    qp = q_offset + np.arange(t)[:, None]
+    kp = np.arange(s)[None, :]
+    mask = np.ones((t, s), bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return n_bytes, 4.0 * b * h * hd * int(mask.sum())
+
+
+def phase_lm_kernels(device) -> dict:
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention.ops import flash_attention_forward
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.numerics import FORMATS, quantize_em
+    rows = {}
+    fmts = {n: f for n, f in FORMATS.items() if f.e_bits > 0}
+    shapes = sorted(_fq_shapes().items(), key=lambda kv: math.prod(kv[0]))
+    fq_err = 0.0
+    for i, (shape, label) in enumerate(shapes):
+        x = _fq_input(shape, device, seed=10 + i)
+        bad, err = [], 0.0
+        for n, f in fmts.items():
+            out = fake_quant(x, f.e_bits, f.m_bits)
+            ref = quantize_em(x, f.e_bits, f.m_bits)
+            if not _bitwise(out, ref):
+                bad.append(n)
+            err = max(err, _max_abs_err(out, ref))
+            del out, ref
+        fq_err = max(fq_err, err)
+        check(not bad, f"fake_quant {label} {shape} == quantize_em (bitwise) "
+                       f"for {sorted(fmts)}; mismatched: {bad}, "
+                       f"max_abs_err {err}")
+        big = x.numel() > 10_000_000
+        reps, inner = (5, 3) if big else (15, 20)
+        n_bytes = 8 * x.numel()
+        ms = time_ms(lambda: fake_quant(x, 4, 3), reps, inner)
+        pms = time_ms(lambda: quantize_em(x, 4, 3), reps, inner)
+        dms = kernel_device_ms(lambda: fake_quant(x, 4, 3),
+                               "fake_quant_kernel", calls=10 if big else 200)
+        print(f"kernel fake_quant {label} {shape} fp8_e4m3: ms={ms:.6f} "
+              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
+              f"device_ms={dms} bytes={n_bytes}")
+        if label == "llama embed":
+            rows["fake_quant"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                                      bound_ms=bound_ms(n_bytes),
+                                      bound_by="bytes", library_ms=None)
+        del x
+    rows["fake_quant"]["max_abs_err"] = fq_err
+
+    err = 0.0
+    for label, q, k, v, kw in _flash_cases(device):
+        out = flash_attention_forward(q, k, v, **kw).float()
+        ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        if q.dtype == torch.float32:
+            ok, tol = torch.allclose(out, ref, rtol=2e-5, atol=2e-5), \
+                "rtol/atol 2e-5"
+        else:
+            _, ex = torch.frexp(ref)
+            quantum = torch.ldexp(torch.ones_like(ref), ex - 8)
+            ok = bool(torch.all((out - ref).abs() <= quantum + 2e-5))
+            tol = "one bf16 quantum of the f32 result + 2e-5"
+        check(ok, f"flash_attention {label} {tuple(q.shape)} vs plain "
+                  f"version within {tol}, max_abs_err {e}")
+        err = max(err, e)
+        if not label.startswith("train"):
+            continue
+        n_bytes, flops = flash_work(q, k, **kw)
+        rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+        bms = bound_ms(n_bytes, flops, rate)
+        by = "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / rate \
+            else "operations"
+        ms = time_ms(lambda: flash_attention_forward(q, k, v), 7, 5)
+        pms = time_ms(lambda: flash_attention_ref(q, k, v), 7, 5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 7, 5)
+        dms = kernel_device_ms(lambda: flash_attention_forward(q, k, v),
+                               "flash_attention_kernel", calls=20)
+        print(f"kernel flash_attention {label} {tuple(q.shape)} kv "
+              f"{tuple(k.shape)}: ms={ms:.6f} plain_ms={pms:.6f} "
+              f"sdpa_ms={lms:.6f} bound_ms={bms:.6f} ({by}) device_ms={dms} "
+              f"bytes={n_bytes} flops={flops:.0f}")
+        if label == "train_bf16":
+            rows["flash_attention"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                                           bound_ms=bms, bound_by=by,
+                                           library_ms=lms)
+    rows["flash_attention"]["max_abs_err"] = err
+    return rows
+
+
+
+
 # --------------------------------------------------------------- slice
 
 def _run(scenario, engine, device, label):
@@ -264,13 +503,16 @@ def _run(scenario, engine, device, label):
 def _fused_run(scenario, device, label, expect_backend, per_round):
     """The main path: scan_pallas with every launch counter zeroed just
     before and read just after."""
+    from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.grad_aggregate import grad_aggregate
     from repro_torch.kernels.structured_scatter import structured_scatter
     grad_aggregate.launches = 0
     structured_scatter.launches = 0
+    fake_quant.launches = 0
     res = _run(scenario, "scan_pallas", device, label)
     got = {"grad_aggregate": grad_aggregate.launches,
-           "structured_scatter": structured_scatter.launches}
+           "structured_scatter": structured_scatter.launches,
+           "fake_quant": fake_quant.launches}
     print(f"slice {label}: launches={json.dumps(got)} per_round="
           f"{json.dumps({k: v / ROUNDS for k, v in got.items()})}")
     check(res.agg_backend == expect_backend,
@@ -287,14 +529,41 @@ def _same_params(a, b) -> float:
     return max((a[k] - b[k]).abs().max().item() for k in a)
 
 
-def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
-    """Where a round's time goes: host wall per round against the device
-    time of every kernel and copy in a profiled scan_pallas window."""
+def profile_window(label: str, fn, n: int, per: str) -> None:
+    """Where a window's time goes: host wall time of ``fn()`` (``n``
+    rounds, steps or calls) against the device time of every kernel and
+    copy it ran. The profiler slows the host, so the wall time here reads
+    above the unprofiled one."""
     import collections
-    import types
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = device_events(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_name = collections.Counter()
+    for e in ev:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    print(f"profile {label}: wall_ms_per_{per}={wall_ms / n:.3f} "
+          f"device_busy_ms_per_{per}={busy_ms / n:.3f} "
+          f"device_busy_share={busy_ms / wall_ms:.4f} "
+          f"device_ops_per_{per}={len(ev) / n:.1f} (profiled)")
+    for name, t in by_name.most_common(6):
+        print(f"profile {label}: top device time {t / n:.4f} ms/{per} "
+              f"{name}")
+
+
+def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
+    """A profiled scan_pallas window of ``rounds`` rounds."""
+    import types
+
+    import torch
 
     from repro_torch import optim
     from repro_torch.configs.paper_mlp import config
@@ -306,25 +575,7 @@ def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
                        device=device)
     eng = ScanEngine(srv, agg="pallas")
     eng.run(2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run(rounds)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = device_events(prof)
-    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-    by_name = collections.Counter()
-    for e in ev:
-        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
-    print(f"profile {label}: wall_ms_per_round={wall_ms / rounds:.3f} "
-          f"device_busy_ms_per_round={busy_ms / rounds:.3f} "
-          f"device_busy_share={busy_ms / wall_ms:.4f} "
-          f"device_ops_per_round={len(ev) / rounds:.1f} (profiled)")
-    for name, t in by_name.most_common(6):
-        print(f"profile {label}: top device time {t / rounds:.4f} ms/round "
-              f"{name}")
+    profile_window(label, lambda: eng.run(rounds), rounds, "round")
 
 
 def phase_slice(device) -> dict:
@@ -352,7 +603,7 @@ def phase_slice(device) -> dict:
     # warm-up: first CUDA use of each path (library handles, kernel loads)
     for sc in (masked, width):
         simulate(sc, 2, engine="scan_pallas", device=device)
-    launches = {"grad_aggregate": 0, "structured_scatter": 0}
+    launches = {"grad_aggregate": 0, "structured_scatter": 0, "fake_quant": 0}
 
     _run(masked, "eager", device, "masked")
     ref = _run(masked, "scan", device, "masked")
@@ -381,6 +632,195 @@ def phase_slice(device) -> dict:
                       ("fedavg_fp8_ef", fedavg)):
         profile_rounds(sc, device, label)
     return launches
+
+
+# --------------------------------------------------------------- serve
+
+SERVE_TIERS = ("hub", "high", "mid", "low", "embedded")
+
+
+def phase_serve(device) -> int:
+    """The LM serve path on the full config; returns fake_quant launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import DEVICE_TIERS
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    batch, prompt, gen = 4, 64, 32
+    cfg = get_config(LM_ARCH)
+    params = get_model(cfg).init(0, device=device)
+    check({k: tuple(v.shape) for k, v in params.items()}
+          == _lm_leaf_shapes(cfg),
+          f"{LM_ARCH} full config: the params' leaves are the table the "
+          f"fake_quant checks ran on")
+    n_params = sum(p.numel() for p in params.values())
+    print(f"serve {LM_ARCH}: layers={cfg.num_layers} params={n_params} "
+          f"dtype={cfg.dtype} batch={batch} prompt={prompt} gen={gen}")
+    serve(cfg, "mid", batch=batch, prompt_len=8, gen=2, params=params,
+          device=device)                      # warm-up
+    total = 0
+    for tier in SERVE_TIERS:
+        quantized = DEVICE_TIERS[tier].quant_em()[0] > 0
+        torch.cuda.reset_peak_memory_stats()
+        fake_quant.launches = 0
+        res = serve(cfg, tier, batch=batch, prompt_len=prompt, gen=gen,
+                    params=params, device=device)
+        n = fake_quant.launches
+        total += n
+        tok_s = gen * batch / res["decode_s"]
+        print(f"serve {tier}: compress_s={res['compress_s']:.6f} "
+              f"prefill_s={res['prefill_s']:.6f} "
+              f"decode_s={res['decode_s']:.6f} decode_tokens_per_s="
+              f"{tok_s:.3f} fake_quant_launches={n} peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"sample={res['tokens'][0, :8].tolist()}")
+        check(bool(torch.isfinite(res["prefill_logits"]).all()
+                   and torch.isfinite(res["replay_logits"]).all()),
+              f"serve {tier}: logits finite")
+        check(n == (10 if quantized else 0),
+              f"serve {tier}: fake_quant launched {n} times "
+              f"(10 quantized leaves, 0 for the hub)")
+    profile_window("serve low", lambda: serve(
+        cfg, "low", batch=batch, prompt_len=prompt, gen=gen, params=params,
+        device=device), 1, "call")
+    del params, res
+    torch.cuda.empty_cache()
+
+    # prefill vs the decode replay of the same prompt, in f32 at 2 layers
+    # of full width: both are the same f32 math (TF32 off) summed in other
+    # orders — batched GEMMs and chunked attention against per-token
+    # GEMVs and the ring cache — which moves logits of O(1) by ~1e-6; a
+    # wrong position, mask or cache slot moves them by O(1)
+    cfg2 = cfg.replace(num_layers=2, dtype="float32")
+    res = serve(cfg2, "mid", batch=batch, prompt_len=prompt, gen=1,
+                device=device)
+    a, b = res["replay_logits"], res["prefill_logits"]
+    e = (a - b).abs().max().item()
+    check(torch.allclose(a, b, rtol=1e-3, atol=1e-4),
+          f"serve f32 2-layer: decode replay == prefill last-token logits "
+          f"(rtol 1e-3, atol 1e-4), max_abs_err {e}, "
+          f"max|logit| {b.abs().max().item():.3f}")
+    return total
+
+
+# --------------------------------------------------------------- train
+
+def phase_train(device) -> dict:
+    """The tier-loop LM train step; returns launches of the main run."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
+    from repro_torch.core.compression import (DEVICE_TIERS,
+                                              default_tier_plans,
+                                              magnitude_mask)
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+
+    # the card's f32 step against the port's CPU path, smoke config
+    cfg = get_smoke_config(LM_ARCH).replace(use_flash=True)
+    model = get_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", device):
+        opt = optim.sgd(0.5)
+        step = make_hetero_train_step(model, opt, default_tier_plans(4))
+        params = {k: v.to(dev) for k, v in init.items()}
+        st = dict(params=params, opt=opt.init(params),
+                  step=torch.zeros((), dtype=torch.int32, device=dev))
+        losses = []
+        for i in range(2):
+            b = make_train_batch(cfg, ShapeConfig("t", 64, 8, "train"),
+                                 n_tiers=4, seed=1, index=i)
+            st, m = step(st, {k: v.to(dev) for k, v in b.items()})
+            losses.append(m["loss"].item())
+        runs[str(dev)] = (losses, st["params"])
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(device)]
+    e = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
+    print(f"train smoke f32: cpu losses={lc} cuda losses={lg} "
+          f"params max_abs_err={e}")
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
+          "train smoke f32: card losses == CPU losses to rtol 1e-4")
+    check(e <= 1e-5, f"train smoke f32: card params == CPU params to atol "
+                     f"1e-5 after 2 SGD steps, max_abs_err {e}")
+
+    # the main path: full width, cut to TRAIN_LAYERS layers, bf16, flash
+    cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS, use_flash=True)
+    batch, seq, n_tiers = 8, 1024, 4
+    print(f"train {LM_ARCH}: layers={cfg.num_layers} (cut from 28) "
+          f"d_model={cfg.d_model} dtype={cfg.dtype} use_flash=True "
+          f"tiers={n_tiers} batch={batch} seq={seq} steps={TRAIN_STEPS}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    fake_quant.launches = 0
+    res = train(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                n_tiers=n_tiers, lr=3e-4, warmup=2, seed=0, device=device,
+                log_every=1)
+    got = {"flash_attention": flash_attention.launches,
+           "fake_quant": fake_quant.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, secs = res["losses"], res["sec_per_step"]
+    steady = secs[1:] if len(secs) > 1 else secs
+    sps = sum(steady) / len(steady)
+    print(f"train: losses={losses} tier_losses (hub, high, mid, low)="
+          f"{res['tier_losses']}")
+    print(f"train: sec_per_step={secs} "
+          f"mean_sec_per_step(steps 2..{TRAIN_STEPS})={sps:.6f} "
+          f"tokens_per_s={batch * seq / sps:.3f} peak_mem_gb={peak:.3f} "
+          f"launches={json.dumps(got)}")
+    check(all(l == l and abs(l) != float("inf") for l in losses),
+          "train: losses finite")
+    low = DEVICE_TIERS["low"]
+    keep = {k: magnitude_mask(res["state"]["params"][k], low.density)
+            .mean().item() for k in ("layers.ln1", "layers.ln2")}
+    print(f"train: fraction of the stacked norm scales (all 1.0 at init, "
+          f"so all kept) that the low tier keeps after step "
+          f"{TRAIN_STEPS}: {keep}")
+    # warmup_cosine gives lr 0 at step 0, so step 2's loss is step 1's
+    # model. AdamW's first nonzero updates then make every tier's loss
+    # jump at step 3, the uncompressed hub's too: at this width the
+    # reference does the same (tests/test_torch_lm_steps.py::
+    # test_adamw_loss_jump_at_full_width_matches_reference), and so does
+    # the run without flash below. Training must then lower the mean
+    # loss and each tier's at every later step.
+    curves = {"mean": losses, **dict(zip(("hub", "high", "mid", "low"),
+                                         zip(*res["tier_losses"])))}
+    check(all(c[4] < c[3] < c[2] for c in curves.values()),
+          f"train: the mean loss and each tier's fall at each of steps 4 "
+          f"and 5: " + ", ".join(f"{k} {c[2]:.4f} -> {c[3]:.4f} -> "
+                                 f"{c[4]:.4f}" for k, c in curves.items()))
+    layers_tiers = cfg.num_layers * n_tiers
+    check(got["flash_attention"] == layers_tiers * TRAIN_STEPS,
+          f"train: flash_attention launched {layers_tiers} per step "
+          f"({cfg.num_layers} layers x {n_tiers} tiers, forward only)")
+    check(got["fake_quant"] == 30 * TRAIN_STEPS,
+          "train: fake_quant launched 30 per step (3 quantized tiers x 10 "
+          "leaves)")
+    # one more step of the same run, profiled
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 2, TRAIN_STEPS))
+    step = make_hetero_train_step(get_model(cfg), opt,
+                                  default_tier_plans(n_tiers))
+    b = make_train_batch(cfg, ShapeConfig("t", seq, batch, "train"),
+                         n_tiers=n_tiers, seed=0, index=TRAIN_STEPS)
+    b = {k: v.to(device) for k, v in b.items()}
+    profile_window("train step", lambda: step(res["state"], b), 1, "step")
+    del res, step, b
+    # the same run with the plain attention in place of the kernel
+    plain = train(cfg.replace(use_flash=False), steps=TRAIN_STEPS,
+                  batch=batch, seq=seq, n_tiers=n_tiers, lr=3e-4, warmup=2,
+                  seed=0, device=device, log_every=TRAIN_STEPS)
+    e = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    print(f"train without flash: losses={plain['losses']} tier_losses="
+          f"{plain['tier_losses']}")
+    check(e <= 1e-3, f"train: the flash run's losses == the run without "
+                     f"flash to rtol 1e-3 (bf16 attention rounding), max "
+                     f"rel err {e}")
+    return got
 
 
 # ---------------------------------------------------------------- main
@@ -419,29 +859,49 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     device = torch.device("cuda")
+    t_phase = time.perf_counter()
     try:
         rows = phase_kernels(device)
+        rows.update(phase_lm_kernels(device))
+        print(f"phase kernels: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         launches = phase_slice(device)
+        print(f"phase slice: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        launches["fake_quant"] += phase_serve(device)
+        print(f"phase serve: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        got = phase_train(device)
+        print(f"phase train: {time.perf_counter() - t_phase:.1f} s")
     except CheckFailed as e:
         print(f"CHECK FAILED: {e}", file=sys.stderr)
         return 1
+    launches["fake_quant"] += got["fake_quant"]
+    launches["flash_attention"] = got["flash_attention"]
+    print(f"main-path launches (FL slice + serve + train): "
+          f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (
             ("grad_aggregate",
              "src/repro/kernels/grad_aggregate/kernel.py:51"),
             ("structured_scatter",
-             "src/repro/kernels/structured_scatter/kernel.py:142")):
+             "src/repro/kernels/structured_scatter/kernel.py:142"),
+            ("fake_quant", "src/repro/kernels/fake_quant/kernel.py:54"),
+            ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:72")):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": None})
+                        "bound_by": r.get("bound_by", "bytes"),
+                        "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
+    # the number of devices this script drives, whatever the host has
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,0 +1,20 @@
+"""deepseek-7b [dense] — llama-arch, MHA (kv=heads). [arXiv:2401.02954]"""
+from repro_torch.configs.base import ModelConfig, smoke_reduce
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-7b",
+        family="dense",
+        num_layers=30,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=32,
+        d_ff=11008,
+        vocab_size=102400,
+        source="arXiv:2401.02954",
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return smoke_reduce(config())

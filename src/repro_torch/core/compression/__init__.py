@@ -1,5 +1,6 @@
 from repro_torch.core.compression.plan import (CompressionPlan, DEVICE_TIERS,
-                                               default_tier_plans)  # noqa: F401
+                                               default_tier_plans,
+                                               plan_arrays)  # noqa: F401
 from repro_torch.core.compression.pruning import magnitude_mask  # noqa: F401
 from repro_torch.core.compression.quantization import fake_quant_ste  # noqa: F401
 from repro_torch.core.compression.clustering import (cluster_ste,
@@ -12,4 +13,5 @@ from repro_torch.core.compression.structured import (SubmodelSpec,
                                                      submodel_spec)  # noqa: F401
 from repro_torch.core.compression.apply import (active_param_count,
                                                 compress_params,
+                                                compress_with_masks,
                                                 payload_bits)  # noqa: F401

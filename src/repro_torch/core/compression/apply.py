@@ -1,7 +1,10 @@
 """Apply a compression plan to a whole parameter dict.
 
 Only matrix-shaped leaves (``compressible``) are compressed; 1-D leaves
-and the MoE router stay full precision. For STRUCTURED plans the
+and the MoE router stay full precision. Two entry points:
+``compress_with_masks`` (prune + quant, the tier loop of the LM train
+step) and ``compress_params`` (adds clustering and width slicing, the FL
+runtimes and serving). For STRUCTURED plans the
 returned ``cparams`` live at the LOCAL (sliced) shapes while ``masks``
 stay at GLOBAL shapes, naming exactly the global coordinates the tier's
 update covers.
@@ -24,8 +27,32 @@ from repro_torch.core.compression.structured import (compressible,
                                                      expand_masks, slice_tree,
                                                      submodel_spec)
 
-__all__ = ["compressible", "compress_params", "payload_bits",
-           "active_param_count"]
+__all__ = ["compressible", "compress_with_masks", "compress_params",
+           "payload_bits", "active_param_count"]
+
+
+def compress_with_masks(params: dict, density: float, e_bits: int,
+                        m_bits: int, out_dtype=None):
+    """Prune -> fake-quant, both straight-through. Returns (cparams,
+    masks): masks has a full-size 0/1 f32 leaf for compressible params
+    and a scalar 1.0 for excluded ones (so the mask-aware aggregation
+    broadcasts). ``out_dtype`` casts the compressed weights to the
+    model's compute dtype here, numerically the cast the matmuls do
+    anyway; the cast's backward returns f32 gradients. The plan is
+    static, so (0, 0) bits launch nothing."""
+    cparams, masks = {}, {}
+    for name, w in params.items():
+        if not compressible(name, w):
+            cparams[name] = w
+            masks[name] = torch.ones((), dtype=torch.float32, device=w.device)
+            continue
+        m = magnitude_mask(w.detach(), density)
+        cw = fake_quant_ste(w * m, e_bits, m_bits) * m
+        if out_dtype is not None:
+            cw = cw.to(out_dtype)
+        cparams[name] = cw
+        masks[name] = m.to(torch.float32)
+    return cparams, masks
 
 
 def compress_params(params: dict, plan: CompressionPlan, batch: int = 0):

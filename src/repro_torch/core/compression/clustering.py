@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 SAMPLE = 1 << 14
+BLOCK = 1 << 28     # elements of one block of distances (1 GiB in f32)
 
 
 @torch.no_grad()
@@ -37,9 +38,21 @@ def kmeans_codebook(w: torch.Tensor, k: int, iters: int = 8,
 
 def assign_codebook(w: torch.Tensor, cb: torch.Tensor,
                     batch: int = 0) -> torch.Tensor:
-    """Nearest-codeword index per weight (int64)."""
-    cbb = cb.reshape(*cb.shape[:batch], *([1] * (w.dim() - batch)), -1)
-    return torch.argmin(torch.abs(w[..., None].to(torch.float32) - cbb), dim=-1)
+    """Nearest-codeword index per weight (int64): ``argmin`` over the
+    codebook axis, so the first of equally near codewords. The
+    (..., n, k) distances are made in blocks of at most ``BLOCK``
+    elements along the flattened weight axis: a small leaf is one block,
+    and an LM leaf needs no k-fold copy of itself (25 GB for an LM
+    embedding at k = 16)."""
+    flat = w.reshape(*w.shape[:batch], -1).to(torch.float32)
+    cbb = cb[..., None, :]
+    n = flat.shape[-1]
+    step = max(1, BLOCK // max(1, flat.numel() // max(n, 1) * cb.shape[-1]))
+    idx = torch.empty(flat.shape, dtype=torch.int64, device=w.device)
+    for s in range(0, n, step):
+        idx[..., s:s + step] = torch.argmin(
+            torch.abs(flat[..., s:s + step, None] - cbb), dim=-1)
+    return idx.reshape(w.shape)
 
 
 class ClusterSTE(torch.autograd.Function):

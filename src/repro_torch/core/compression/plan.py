@@ -88,3 +88,22 @@ def default_tier_plans(n_tiers: int = 4) -> list[CompressionPlan]:
     order = ["hub", "high", "mid", "low", "embedded"]
     return [DEVICE_TIERS[k] for k in order[:n_tiers]]
 
+
+def plan_arrays(plans: list[CompressionPlan]) -> dict:
+    """The per-tier scalars of a tier loop, as lists indexed by tier:
+    density, e_bits, m_bits, weight. The tier loop prunes and quantizes
+    only: ``cluster_k`` is not among them (clustering runs in the FL
+    runtimes, as in the reference), and structured plans, whose array
+    shapes differ per tier, are refused."""
+    structured = [p.name for p in plans if p.structured]
+    if structured:
+        raise ValueError(
+            f"structured (width-sliced) plans cannot be tier-scanned — "
+            f"their array shapes differ per tier: {structured}")
+    em = [p.quant_em() for p in plans]
+    return {
+        "density": [p.density for p in plans],
+        "e_bits": [e for e, _ in em],
+        "m_bits": [m for _, m in em],
+        "weight": [p.weight for p in plans],
+    }

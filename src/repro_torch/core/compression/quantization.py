@@ -3,18 +3,23 @@
 Forward: exact (e,m)-format rounding or int-k. Backward: identity inside
 the representable range, zero outside — the gradient the global model
 receives from a quantized local model. (0, 0) bits is passthrough.
+
+The (e,m) rounding is the fake_quant kernel (``csrc/fake_quant.cu``) on a
+CUDA tensor and its plain version (``numerics.quantize_em``) on a CPU
+tensor; int-k has no kernel and stays plain.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.numerics import max_finite, quantize_em, quantize_int
+from repro_torch.kernels.fake_quant import fake_quant
+from repro_torch.numerics import max_finite, quantize_int
 
 
 def _quant(x: torch.Tensor, e_bits: int, m_bits: int) -> torch.Tensor:
     """Dispatch: e>0 -> (e,m) float; e==0,m>0 -> int-m; e==m==0 -> passthrough."""
     if e_bits > 0:
-        return quantize_em(x, e_bits, m_bits)
+        return fake_quant(x, e_bits, m_bits)
     if m_bits > 0:
         return quantize_int(x, m_bits)
     return x

@@ -1,0 +1,1 @@
+from repro_torch.models.registry import get_model  # noqa: F401

@@ -1,2 +1,4 @@
 from repro_torch.optim.optimizers import (Optimizer, adam, adamw, momentum,
                                           sgd)  # noqa: F401
+from repro_torch.optim.schedules import (constant, cosine_decay,
+                                         warmup_cosine)  # noqa: F401
