@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Builds the port's six CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the compiler's resource
    report.
 2. Phase "kernels": calls every kernel at the shapes its paths give it
@@ -23,7 +23,22 @@
    then times kernel and plain version with CUDA events (median), the
    kernel's device time from the profiler, the bound (the larger of
    bytes / 3.35 TB/s and operations / 989 TFLOP/s) and, for attention,
-   PyTorch's scaled_dot_product_attention as a yardstick.
+   PyTorch's scaled_dot_product_attention as a yardstick;
+   - masked_matmul and codebook_matmul through the public kernel API at
+     llama3.2-3b's MLP widths (one layer's wi (3072, 8192) and wo (8192,
+     3072), x at M = 256 and 8192), plus a ragged shape and the paper
+     MLP's: masked_matmul under the low tier's mask in f32 and bf16,
+     forward and both gradients by autograd against the plain version's
+     autograd (f32: rtol 1e-4, atol 1e-4 x sqrt(contraction length);
+     bf16: one quantum plus 16 f32 unit roundoffs of the sum of the
+     products' magnitudes), dw exactly 0 where the mask is 0;
+     codebook_matmul on the embedded tier's k = 16 clustering (int8,
+     int32, int64 narrowed by the wrapper) and k = 256 (int32). Those
+     calls are the matmuls' main path: counters zeroed just before,
+     read just after. Then each forward is timed against its plain
+     version and ``torch.matmul`` on the decoded or masked weight, with
+     the bound at the operands' peak: 67 TFLOP/s for f32 (CUDA cores),
+     989 TFLOP/s for bf16 (tensor cores).
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
    width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
@@ -32,6 +47,16 @@
    just after; scan_pallas must equal scan bitwise on the masked and
    width fleets; losses must be finite and fall; a small run must agree
    with the port's CPU path.
+   Phase "client": the per-client runtime on the paper's 8-device
+   Dirichlet fleet (4000 samples, alpha 0.5), 60 rounds each of all-hub
+   FedSGD, hetero FedSGD, FedAvg and fp8 uploads with EF: losses fall,
+   val_acc >= 0.97 on 1000 held-out samples; then 2 rounds of the
+   256-client bench fleet per client against the cohort runtime, params
+   within 1e-5.
+   Phase "async": the 256-client bench fleet and its width twin under
+   AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
+   (bitwise equal), then the full-buffer, no-discount limit against the
+   sync-wait cohort run (1e-6).
 4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
    compute), compressed for each tier hub / high / mid / low / embedded
    through ``repro_torch.launch.serve``: batch 4, prompt 64, 32 greedy
@@ -50,9 +75,10 @@
    steps.
 
 Prints the card's name and power limit, per-kernel times, launches per
-round and per step, ms per round, prefill s, decode tokens/s, sec/step
-and peak memory, a profiled window of each FL fleet, one serve call and
-one train step, then the kernels JSON line and, last, the
+round and per step, ms per round and per window, val_acc, prefill s,
+decode tokens/s, sec/step and peak memory, a profiled window of each FL
+fleet, of the client and async runtimes, one serve call and one train
+step, then the kernels JSON line (all six kernels) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
@@ -64,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -477,6 +504,271 @@ def phase_lm_kernels(device) -> dict:
     return rows
 
 
+# ------------------------------------------------------ matmul kernels
+
+def _mm_weights(device) -> dict:
+    """One layer's ``layers.mlp.wi.w`` (3072, 8192) and
+    ``layers.mlp.wo.w`` (8192, 3072) of llama3.2-3b, from the seeded init
+    of a one-layer cut of the full config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    p = get_model(get_config(LM_ARCH).replace(num_layers=1)).init(
+        0, device=device)
+    out = {"wi": p["layers.mlp.wi.w"][0].clone(),
+           "wo": p["layers.mlp.wo.w"][0].clone()}
+    del p
+    return out
+
+
+def _masked_cases(ws, device):
+    """(label, x, w, mask, g) for masked_matmul: wi and wo under the low
+    tier's mask (density 0.25, the port's magnitude_mask), x at M = 256
+    (serve: batch 4 x prompt 64) and M = 8192 (train: 8 x 1024), f32 and
+    bf16; then a ragged shape and the paper MLP's (16, 10) @ (10, 10)."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS, magnitude_mask
+    density = DEVICE_TIERS["low"].density
+    gen = torch.Generator(device=device).manual_seed(21)
+    cases = []
+    for wname, w in ws.items():
+        mask = magnitude_mask(w, density)
+        for tag, m in (("serve", 256), ("train", 8192)):
+            for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x, g = (torch.randn(shape, generator=gen, device=device)
+                        .to(dtype) for shape in ((m, w.shape[0]),
+                                                 (m, w.shape[1])))
+                cases.append((f"{tag}_{wname}_{dt}", x, w.to(dtype),
+                              mask.to(dtype), g))
+    for tag, (m, k, n) in (("ragged", (130, 257, 129)),
+                           ("paper_mlp", (16, 10, 10))):
+        x, w, g = (torch.randn(shape, generator=gen, device=device)
+                   for shape in ((m, k), (k, n), (m, n)))
+        cases.append((f"{tag}_f32", x, w, magnitude_mask(w, density), g))
+    return cases
+
+
+def _codebook_cases(ws, device):
+    """(label, x, idx, codebook) for codebook_matmul: wi (and wo) pruned
+    like the embedded tier and clustered by the port's kmeans_codebook /
+    assign_codebook at its k = 16 (int8 and int32 indices) and at k = 256
+    (int32), x in f32 at M = 256 and 8192; then a ragged shape and the
+    paper MLP's."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS, magnitude_mask
+    from repro_torch.core.compression.clustering import (assign_codebook,
+                                                         kmeans_codebook)
+    emb = DEVICE_TIERS["embedded"]
+    gen = torch.Generator(device=device).manual_seed(22)
+
+    def clustered(w, k):
+        w = w * magnitude_mask(w, emb.density)
+        cb = kmeans_codebook(w, k)
+        return assign_codebook(w, cb), cb
+
+    cases = []
+    i16, cb16 = clustered(ws["wi"], emb.cluster_k)
+    i256, cb256 = clustered(ws["wi"], 256)
+    for tag, m in (("serve", 256), ("train", 8192)):
+        x = torch.randn((m, ws["wi"].shape[0]), generator=gen, device=device)
+        cases += [(f"{tag}_wi_k16_int8", x, i16.to(torch.int8), cb16),
+                  (f"{tag}_wi_k16_int32", x, i16.to(torch.int32), cb16),
+                  (f"{tag}_wi_k256_int32", x, i256.to(torch.int32), cb256)]
+    del i256
+    iwo, cbwo = clustered(ws["wo"], emb.cluster_k)
+    cases.append(("serve_wo_k16_int64", torch.randn(
+        (256, ws["wo"].shape[0]), generator=gen, device=device), iwo, cbwo))
+    for tag, (m, k, n) in (("ragged", (130, 257, 129)),
+                           ("paper_mlp", (16, 10, 10))):
+        idx, cb = clustered(torch.randn((k, n), generator=gen,
+                                        device=device), emb.cluster_k)
+        cases.append((f"{tag}_k16_int8", torch.randn(
+            (m, k), generator=gen, device=device), idx.to(torch.int8), cb))
+    return cases
+
+
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+SUM_ROUNDOFFS = 16      # f32 roundoffs of sum |a||b| allowed between orders
+
+
+def _bf16_quantum(t):
+    """The bf16 spacing at each element of ``t`` (0 at 0)."""
+    import torch
+    q = torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - 8)
+    return torch.where(t == 0, torch.zeros_like(t), q)
+
+
+def _mm_within(out, ref, depth: int, abs_sum=None):
+    """f32: rtol 1e-4 and atol 1e-4 x sqrt(contraction length), the
+    reference test's bound (another summation order). bf16: both round an
+    f32 sum of the same bf16 products (exact in f32), taken in other
+    orders. Two such sums differ by a few f32 roundoffs of ``abs_sum`` =
+    sum |a||b| (the products' magnitudes); rounding each to bf16 adds at
+    most half a quantum of each. So |out - ref| <= the larger quantum of
+    the two + SUM_ROUNDOFFS * 2^-24 * abs_sum."""
+    import torch
+    if out.dtype == torch.float32:
+        return bool(torch.allclose(out, ref, rtol=1e-4,
+                                   atol=1e-4 * depth ** 0.5))
+    return bool(torch.all(_bf16_excess(out, ref, abs_sum) <= SUM_ROUNDOFFS))
+
+
+def _bf16_excess(out, ref, abs_sum):
+    """max(|out - ref| - the larger bf16 quantum, 0) in f32 roundoffs of
+    ``abs_sum``, per element: what the bf16 check compares with
+    SUM_ROUNDOFFS."""
+    import torch
+    out, ref = out.float(), ref.float()
+    q = torch.maximum(_bf16_quantum(out), _bf16_quantum(ref))
+    over = ((out - ref).abs() - q).clamp_min(0)
+    return torch.where(over == 0, torch.zeros_like(over),
+                       over / (F32_UNIT_ROUNDOFF * abs_sum))
+
+
+def _masked_abs_sums(x, w, mask, g):
+    """sum |a||b| of the products behind y, dx and dw, in f32: |x| @
+    |w*mask|, |g| @ |w*mask|^T and (|x|^T @ |g|) * mask."""
+    import torch
+    ax, ag = x.float().abs(), g.float().abs()
+    awm = (w.float() * mask.float()).abs()
+    return ax @ awm, ag @ awm.t(), (ax.t() @ ag) * mask.float()
+
+
+def _mm_work(x, n: int, b_bytes: int):
+    """(bytes, flops) of one product x (M, K) @ B (K, N): x, B's inputs
+    and the output moved once; 2*M*K*N operations."""
+    m, k = x.shape
+    return (x.numel() * x.element_size() + b_bytes
+            + m * n * x.element_size()), 2.0 * m * k * n
+
+
+def phase_matmul_kernels(device) -> tuple[dict, dict]:
+    """The public kernel API's two matmuls. The main path (counters
+    zeroed just before, read just after) runs masked_matmul forward and
+    backward through autograd and codebook_matmul forward on every case;
+    its results are then held against the plain versions, and each
+    forward is timed. Returns (rows, launches)."""
+    import torch
+    from repro_torch.kernels import codebook_matmul, masked_matmul
+    from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
+    ws = _mm_weights(device)
+    mcases = _masked_cases(ws, device)
+    ccases = _codebook_cases(ws, device)
+    del ws
+
+    def fwd_bwd(fn, x, w, mask, g):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xl, wl, mask)
+        return (y.detach(), *torch.autograd.grad(y, (xl, wl), g))
+
+    torch.cuda.synchronize()
+    masked_matmul.launches = 0
+    codebook_matmul.launches = 0
+    m_out = {lbl: fwd_bwd(masked_matmul, x, w, m, g)
+             for lbl, x, w, m, g in mcases}
+    c_out = {lbl: codebook_matmul(x, idx, cb) for lbl, x, idx, cb in ccases}
+    torch.cuda.synchronize()
+    launches = {"masked_matmul": masked_matmul.launches,
+                "codebook_matmul": codebook_matmul.launches}
+    print(f"matmul main path: launches={json.dumps(launches)} over "
+          f"{len(mcases)} masked (forward + dx + dw) and {len(ccases)} "
+          f"codebook calls")
+    check(launches["masked_matmul"] == 3 * len(mcases),
+          "masked_matmul launched 3 times per forward + backward")
+    check(launches["codebook_matmul"] == len(ccases),
+          "codebook_matmul launched once per call")
+
+    rows, m_err, c_err = {}, 0.0, 0.0
+    for lbl, x, w, mask, g in mcases:
+        got = m_out.pop(lbl)
+        want = fwd_bwd(masked_matmul_ref, x, w, mask, g)
+        m_, k_ = x.shape
+        n_ = w.shape[1]
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        m_err = max(m_err, *errs)
+        sums = _masked_abs_sums(x, w, mask, g)
+        # the gap in f32 roundoffs of sum |a||b|: the f32 sums' own (for
+        # f32), what a bf16 result has beyond one quantum (for bf16)
+        gaps = [(_bf16_excess(a, b, s) if a.dtype == torch.bfloat16 else
+                 (a - b).abs() / (F32_UNIT_ROUNDOFF * s)).nan_to_num().max()
+                .item() for a, b, s in zip(got, want, sums)]
+        check(all(_mm_within(a, b, d, s)
+                  for a, b, d, s in zip(got, want, (k_, n_, m_), sums)),
+              f"masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}: y, dx, dw "
+              f"vs the plain version's autograd within tolerance, "
+              f"max_abs_err {errs}, roundoffs of sum|a||b| {gaps}")
+        print(f"masked_matmul {lbl} {x.dtype}: y, dx, dw max_abs_err {errs}; "
+              f"gap in f32 roundoffs of sum|a||b| {gaps} (bf16: beyond one "
+              f"quantum, limit {SUM_ROUNDOFFS})")
+        del sums
+        check(bool(torch.all(got[2][mask == 0] == 0)),
+              f"masked_matmul {lbl}: dw exactly 0 wherever the mask is 0")
+        del got, want
+        big = m_ >= 4096
+        reps, inner = (5, 2) if big else (15, 10)
+        wm = w * mask
+        n_bytes, flops = _mm_work(x, n_, 2 * w.numel() * w.element_size())
+        rate = (BF16_FLOP_PER_S if x.dtype == torch.bfloat16
+                else F32_FLOP_PER_S)
+        bms = bound_ms(n_bytes, flops, rate)
+        by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / rate
+              else "operations")
+        with torch.no_grad():
+            ms = time_ms(lambda: masked_matmul(x, w, mask), reps, inner)
+            pms = time_ms(lambda: masked_matmul_ref(x, w, mask), reps, inner)
+            lms = time_ms(lambda: torch.matmul(x, wm), reps, inner)
+            dms = kernel_device_ms(lambda: masked_matmul(x, w, mask),
+                                   "masked_matmul_kernel",
+                                   calls=5 if big else 100)
+        print(f"kernel masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}: "
+              f"ms={ms:.6f} plain_ms={pms:.6f} matmul_ms={lms:.6f} "
+              f"bound_ms={bms:.6f} ({by}) device_ms={dms} bytes={n_bytes} "
+              f"flops={flops:.0f} tflops={flops / ms / 1e9:.2f}")
+        if lbl == "train_wi_f32":
+            rows["masked_matmul"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                                         bound_ms=bms, bound_by=by,
+                                         library_ms=lms)
+    rows["masked_matmul"]["max_abs_err"] = m_err
+
+    for lbl, x, idx, cb in ccases:
+        out = c_out.pop(lbl)
+        ref = codebook_matmul_ref(x, idx, cb)
+        m_, k_ = x.shape
+        n_ = idx.shape[1]
+        e = (out - ref).abs().max().item()
+        c_err = max(c_err, e)
+        check(_mm_within(out, ref, k_),
+              f"codebook_matmul {lbl} ({m_}, {k_}, {n_}) {idx.dtype} "
+              f"k={cb.numel()} vs the plain version within rtol 1e-4, atol "
+              f"1e-4*sqrt(K), max_abs_err {e}")
+        big = m_ >= 4096
+        reps, inner = (5, 2) if big else (15, 10)
+        wd = cb[idx.long()]
+        n_bytes, flops = _mm_work(x, n_, idx.numel() * idx.element_size()
+                                  + cb.numel() * 4)
+        bms = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+        by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
+              else "operations")
+        ms = time_ms(lambda: codebook_matmul(x, idx, cb), reps, inner)
+        pms = time_ms(lambda: codebook_matmul_ref(x, idx, cb), reps, inner)
+        lms = time_ms(lambda: torch.matmul(x, wd), reps, inner)
+        dms = kernel_device_ms(lambda: codebook_matmul(x, idx, cb),
+                               "codebook_matmul_kernel",
+                               calls=5 if big else 100)
+        print(f"kernel codebook_matmul {lbl} ({m_}, {k_}, {n_}) {idx.dtype} "
+              f"k={cb.numel()}: ms={ms:.6f} plain_ms={pms:.6f} "
+              f"matmul_ms={lms:.6f} bound_ms={bms:.6f} ({by}) "
+              f"device_ms={dms} bytes={n_bytes} flops={flops:.0f} "
+              f"tflops={flops / ms / 1e9:.2f}")
+        if lbl == "train_wi_k16_int8":
+            rows["codebook_matmul"] = dict(ms=ms, plain_ms=pms,
+                                           device_ms=dms, bound_ms=bms,
+                                           bound_by=by, library_ms=lms)
+    rows["codebook_matmul"]["max_abs_err"] = c_err
+    del mcases, ccases, m_out, c_out
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 # --------------------------------------------------------------- slice
@@ -561,8 +853,6 @@ def profile_window(label: str, fn, n: int, per: str) -> None:
 
 def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
     """A profiled scan_pallas window of ``rounds`` rounds."""
-    import types
-
     import torch
 
     from repro_torch import optim
@@ -632,6 +922,161 @@ def phase_slice(device) -> dict:
                       ("fedavg_fp8_ef", fedavg)):
         profile_rounds(sc, device, label)
     return launches
+
+
+# -------------------------------------------------------------- client
+
+CLIENT_ROUNDS = 60
+CLIENT_FLEET = ("hub", "high", "high", "mid", "mid", "low", "low", "embedded")
+
+
+def phase_client(device) -> int:
+    """The per-client runtime (``runtime="client"``): the paper's
+    experiment as ``examples/hetero_fl_sim.py`` runs it, then the
+    256-client bench fleet per client against the cohort runtime.
+    Returns fake_quant launches (counter zeroed at the start)."""
+    import torch
+    from repro_torch.data import make_gaussian_dataset
+    from repro_torch.fl import (FleetSpec, FLScenario, LocalTraining,
+                                UploadPolicy, simulate)
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.models import mlp
+    noniid = FleetSpec(tiers=CLIENT_FLEET, n_samples=4000,
+                       partition="dirichlet", alpha=0.5)
+    val = {k: v.to(device) for k, v in make_gaussian_dataset(
+        torch.Generator().manual_seed(9), 1000).items()}
+    scenarios = {
+        "fedsgd_all_hub": FLScenario(fleet=FleetSpec(
+            tiers=("hub",) * len(CLIENT_FLEET), n_samples=4000,
+            partition="dirichlet"), runtime="client"),
+        "fedsgd_hetero": FLScenario(fleet=noniid, runtime="client"),
+        "fedavg_hetero": FLScenario(
+            fleet=noniid, runtime="client",
+            local=LocalTraining(mode="fedavg", local_steps=5, local_lr=1.0)),
+        "fedsgd_fp8_ef": FLScenario(
+            fleet=noniid, runtime="client",
+            upload=UploadPolicy(quant="fp8_e4m3", error_feedback=True)),
+    }
+    fake_quant.launches = 0
+    for name, sc in scenarios.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(sc, CLIENT_ROUNDS, device=device)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / CLIENT_ROUNDS * 1e3
+        acc = mlp.accuracy(res.params, val["x"], val["y"]).item()
+        losses = res.losses
+        print(f"client {name}: ms_per_round={ms:.3f} loss[1]={losses[0]:.6f} "
+              f"loss[{CLIENT_ROUNDS}]={losses[-1]:.6f} val_acc={acc:.4f} "
+              f"round_wall_s={res.final.round_wall_time:.6f} "
+              f"upload_bytes={res.final.total_upload_bytes:.1f} "
+              f"shards={[len(c.data['y']) for c in res.server.clients]}")
+        check(all(l == l and abs(l) != float("inf") for l in losses),
+              f"client {name}: losses finite")
+        check(losses[-1] < losses[0], f"client {name}: loss falls over "
+                                      f"{CLIENT_ROUNDS} rounds")
+        check(acc >= 0.97, f"client {name}: val_acc {acc:.4f} >= 0.97 on "
+                           f"1000 held-out samples (the reference's "
+                           f"healthy run)")
+    srv = simulate(scenarios["fedsgd_hetero"], 1, device=device).server
+    profile_window("client fedsgd_hetero", lambda: [srv.round()
+                                                    for _ in range(5)],
+                   5, "round")
+
+    fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
+    runs = {}
+    for runtime in ("client", "cohort"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[runtime] = simulate(FLScenario(fleet=fleet, runtime=runtime), 2,
+                                 device=device)
+        torch.cuda.synchronize()
+        print(f"client bench256 runtime={runtime}: ms_per_round="
+              f"{(time.perf_counter() - t0) / 2 * 1e3:.3f} "
+              f"losses={runs[runtime].losses}")
+    a, b = runs["client"].params, runs["cohort"].params
+    d = max((a[k] - b[k]).abs().max().item() for k in a)
+    check(d <= 1e-5, f"bench256: per-client params == cohort params to 1e-5 "
+                     f"after 2 rounds, max_abs_err {d}")
+    return fake_quant.launches
+
+
+# --------------------------------------------------------------- async
+
+ASYNC_WINDOWS = 20
+
+
+def _async_run(sc, engine: str, device, label: str):
+    import torch
+    from repro_torch.fl import simulate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(sc, ASYNC_WINDOWS, engine=engine, device=device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ASYNC_WINDOWS * 1e3
+    recs = res.records
+    print(f"async {label} engine={engine}: ms_per_window={ms:.3f} "
+          f"loss[1]={recs[0].loss:.6f} loss[{ASYNC_WINDOWS}]="
+          f"{recs[-1].loss:.6f} staleness_mean="
+          f"{statistics.mean(r.staleness_mean for r in recs):.4f} "
+          f"staleness_max={max(r.staleness_max for r in recs)} "
+          f"n_versions_live(last, max)=({recs[-1].n_versions_live}, "
+          f"{max(r.n_versions_live for r in recs)}) "
+          f"virtual_t={res.sim_time:.6f} agg_backend={res.agg_backend}")
+    check(all(r.loss == r.loss and abs(r.loss) != float("inf") for r in recs),
+          f"async {label}/{engine}: losses finite")
+    check(recs[-1].loss < recs[0].loss,
+          f"async {label}/{engine}: loss falls over {ASYNC_WINDOWS} windows")
+    return res
+
+
+def phase_async(device) -> int:
+    """The async runtime on the 256-client bench fleet and its width
+    twin, eager and ``scan`` (bitwise equal), then the full-buffer,
+    no-discount limit against the sync-wait cohort run. Returns
+    fake_quant launches (counter zeroed at the start)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.fl import (AsyncBuffered, FleetSpec, FLScenario,
+                                LocalTraining, WindowScanEngine,
+                                build_server, simulate)
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.models import mlp
+    fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
+    timing = AsyncBuffered(buffer_size=64, staleness_exp=0.5, time_jitter=0.2)
+    fake_quant.launches = 0
+    for label, local in (("masked", LocalTraining()),
+                         ("width", LocalTraining(submodel="width"))):
+        sc = FLScenario(fleet=fleet, local=local, timing=timing)
+        eager = _async_run(sc, "eager", device, label)
+        scan = _async_run(sc, "scan", device, label)
+        check(scan.records == eager.records
+              and _same_params(eager.params, scan.params) == 0.0,
+              f"async {label}: scan params and records == eager (bitwise)")
+        check(max(r.staleness_max for r in eager.records) > 0,
+              f"async {label}: the staleness discount fires")
+    n = fake_quant.launches
+    srv = build_server(FLScenario(fleet=fleet, timing=timing),
+                       types.SimpleNamespace(loss_fn=mlp.loss_fn), optim.sgd(1.0),
+                       mlp.init(torch.Generator().manual_seed(0), config()),
+                       device=device)
+    eng = WindowScanEngine(srv)
+    eng.run(2)
+    profile_window("async masked scan", lambda: eng.run(5), 5, "window")
+
+    sync = simulate(FLScenario(fleet=fleet), 3, device=device)
+    full = simulate(FLScenario(fleet=fleet, timing=AsyncBuffered(
+        buffer_size=256, staleness_exp=0.0)), 3, engine="scan",
+        device=device)
+    d = max((sync.params[k] - full.params[k]).abs().max().item()
+            for k in sync.params)
+    print(f"async full buffer, no discount vs sync-wait: losses "
+          f"{full.losses} vs {sync.losses}, params max_abs_err={d}")
+    check(d <= 1e-6, f"async full buffer, no discount == sync-wait cohort "
+                     f"run to 1e-6 in params, max_abs_err {d}")
+    check(n > 0, f"async: fake_quant launched {n} times on the main path")
+    return n
 
 
 # --------------------------------------------------------------- serve
@@ -859,27 +1304,32 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     device = torch.device("cuda")
-    t_phase = time.perf_counter()
+    phases = [("kernels", lambda: phase_kernels(device)),
+              ("lm kernels", lambda: phase_lm_kernels(device)),
+              ("matmul kernels", lambda: phase_matmul_kernels(device)),
+              ("slice", lambda: phase_slice(device)),
+              ("client", lambda: phase_client(device)),
+              ("async", lambda: phase_async(device)),
+              ("serve", lambda: phase_serve(device)),
+              ("train", lambda: phase_train(device))]
+    out = {}
     try:
-        rows = phase_kernels(device)
-        rows.update(phase_lm_kernels(device))
-        print(f"phase kernels: {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        launches = phase_slice(device)
-        print(f"phase slice: {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        launches["fake_quant"] += phase_serve(device)
-        print(f"phase serve: {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        got = phase_train(device)
-        print(f"phase train: {time.perf_counter() - t_phase:.1f} s")
+        for name, run in phases:
+            t_phase = time.perf_counter()
+            out[name] = run()
+            print(f"phase {name}: {time.perf_counter() - t_phase:.1f} s")
     except CheckFailed as e:
         print(f"CHECK FAILED: {e}", file=sys.stderr)
         return 1
-    launches["fake_quant"] += got["fake_quant"]
-    launches["flash_attention"] = got["flash_attention"]
-    print(f"main-path launches (FL slice + serve + train): "
-          f"{json.dumps(launches)}")
+    rows = {**out["kernels"], **out["lm kernels"], **out["matmul kernels"][0]}
+    # each main path's launches, its counters zeroed just before it
+    launches = dict(out["slice"])
+    launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
+                               + out["train"]["fake_quant"])
+    launches["flash_attention"] = out["train"]["flash_attention"]
+    launches.update(out["matmul kernels"][1])
+    print(f"main-path launches (FL slice + client + async + serve + train, "
+          f"matmul entry points): {json.dumps(launches)}")
     kernels = []
     for name, replaces in (
             ("grad_aggregate",
@@ -888,8 +1338,16 @@ def main() -> int:
              "src/repro/kernels/structured_scatter/kernel.py:142"),
             ("fake_quant", "src/repro/kernels/fake_quant/kernel.py:54"),
             ("flash_attention",
-             "src/repro/kernels/flash_attention/kernel.py:72")):
+             "src/repro/kernels/flash_attention/kernel.py:72"),
+            ("masked_matmul",
+             "src/repro/kernels/masked_matmul/kernel.py:36"),
+            ("codebook_matmul",
+             "src/repro/kernels/codebook_matmul/kernel.py:40")):
         r = rows[name]
+        if launches[name] <= 0:
+            print(f"CHECK FAILED: {name} never launched on its main path",
+                  file=sys.stderr)
+            return 1
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": launches[name],

@@ -27,12 +27,40 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
+def accumulate(acc, grads: dict, masks: dict, weight: float):
+    """One tier's contribution (the per-client runtime's unit):
+
+        num += (weight * masks) * grads
+        den += weight * masks
+
+    in the reference's association (``weight * m * g``)."""
+    num, den = acc
+    w = f32(weight)
+    num = {k: a + (w * masks[k]) * grads[k] for k, a in num.items()}
+    den = {k: a + w * masks[k] for k, a in den.items()}
+    return num, den
+
+
+def _scales(weight: float, count: float, staleness_weight):
+    """(numerator scale, denominator scale) as f32 values: ``w`` (times
+    the staleness weight when given) and ``w * count``, each product
+    rounded to f32 as the reference's f32 scalars round it."""
+    w = f32(weight)
+    scale = w if staleness_weight is None else f32(w * f32(staleness_weight))
+    return scale, f32(w * f32(count))
+
+
 def accumulate_cohort(acc, grad_sum: dict, masks: dict, weight: float,
-                      count: float):
+                      count: float, staleness_weight: float | None = None):
     """A whole cohort's contribution in one shot:
 
-        num += masks * (weight * grad_sum)
+        num += masks * (scale * grad_sum),  scale = weight * staleness_weight
         den += masks * (weight * count)
+
+    ``staleness_weight`` is the async runtime's discount ``(1+s)^-a``. It
+    scales the NUMERATOR only: a buffer of uniformly stale updates is
+    damped absolutely (in both, a lone group's discount would cancel in
+    :func:`finalize`). ``None`` is the synchronous contribution.
 
     Association invariant: the multiply feeding each add is the EXACT
     0/1-mask product, any inexact scalar product rounds one multiply
@@ -40,8 +68,8 @@ def accumulate_cohort(acc, grad_sum: dict, masks: dict, weight: float,
     do not rewrite it as ``a + weight * m * g``.
     """
     num, den = acc
-    w, wc = f32(weight), f32(f32(weight) * f32(count))
-    num = {k: a + masks[k] * (w * grad_sum[k]) for k, a in num.items()}
+    scale, wc = _scales(weight, count, staleness_weight)
+    num = {k: a + masks[k] * (scale * grad_sum[k]) for k, a in num.items()}
     den = {k: a + masks[k] * wc for k, a in den.items()}
     return num, den
 
@@ -58,22 +86,25 @@ def zeros_like_acc(params: dict, dense_den: bool = False):
 
 
 def scatter_accumulate(acc, grad_sum: dict, masks: dict, spec,
-                       weight: float, count: float):
+                       weight: float, count: float,
+                       staleness_weight: float | None = None):
     """A structured cohort's contribution: each sliced leaf's update
     lands in the prefix block its width slice covers,
 
-        num[:r, :c] += mask * (weight * grad_sum)
+        num[:r, :c] += mask * (scale * grad_sum)
         den[:r, :c] += mask * (weight * count)
 
     (an add on a slice, never an atomic scatter). Unsliced leaves take
-    :func:`accumulate_cohort`'s adds, and ``spec=None`` delegates to it.
+    :func:`accumulate_cohort`'s adds, and ``spec=None`` delegates to it;
+    ``staleness_weight`` has its numerator-only meaning.
     """
     if spec is None:
-        return accumulate_cohort(acc, grad_sum, masks, weight, count)
+        return accumulate_cohort(acc, grad_sum, masks, weight, count,
+                                 staleness_weight)
     num, den = dict(acc[0]), dict(acc[1])
-    w, wc = f32(weight), f32(f32(weight) * f32(count))
+    scale, wc = _scales(weight, count, staleness_weight)
     for k, sl in zip(num, spec.slices):
-        add_n = masks[k] * (w * grad_sum[k])
+        add_n = masks[k] * (scale * grad_sum[k])
         add_d = masks[k] * wc
         if sl is None:
             num[k] = num[k] + add_n
@@ -90,3 +121,13 @@ def scatter_accumulate(acc, grad_sum: dict, masks: dict, spec,
 def finalize(acc) -> dict:
     num, den = acc
     return {k: n / torch.clamp_min(den[k], EPS) for k, n in num.items()}
+
+
+def hetero_aggregate(tier_grads: list[dict], tier_masks: list[dict],
+                     weights) -> dict:
+    """Direct aggregation over a list of tiers (the per-client
+    runtime's): :func:`accumulate` each, then :func:`finalize`."""
+    acc = zeros_like_acc(tier_grads[0])
+    for g, m, w in zip(tier_grads, tier_masks, weights):
+        acc = accumulate(acc, g, m, w)
+    return finalize(acc)

@@ -27,7 +27,10 @@ Aggregation backends (``agg``; the one actually used is ``agg_backend``):
   cohort order with the chain's exact arithmetic, so the fused backends
   are bitwise the sequential one.
 
-A CUDA-graph capture of the chunk is later work (ROADMAP queue 1).
+:class:`WindowScanEngine` is the async counterpart: chunks of
+``AsyncFLServer`` windows, host-materialized, one sync per chunk.
+
+A CUDA-graph capture of a chunk is later speed work (ROADMAP).
 """
 from __future__ import annotations
 
@@ -38,9 +41,11 @@ import torch
 
 from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
                                           scatter_accumulate, zeros_like_acc)
-from repro_torch.core.federated import (CohortFLServer, _apply_fns,
+from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
+                                        _apply_fns, _cohort_upload,
                                         _init_cohort_ef, _local_param_struct,
-                                        cohort_step_fn)
+                                        cohort_step_fn, window_groups)
+from repro_torch.core.schedule import materialize_windows
 
 AGG_BACKENDS = ("sequential", "pallas")
 
@@ -289,3 +294,172 @@ class ScanEngine:
             recs += self._run_chunk(r)
             done += r
         return recs
+
+
+@dataclass
+class WindowScanEngine:
+    """Runs chunks of ``AsyncFLServer`` aggregation windows. The
+    virtual-clock schedule is deterministic, so a chunk's windows are
+    host-materialized up front (``schedule.materialize_windows``): the
+    (cohort, version) groups of every window (:func:`window_groups`),
+    their participation masks (one host -> device copy per cohort per
+    chunk), counts and staleness discounts (the eager step's float64
+    expression). The version store is a ring of ``capacity`` parameter
+    copies on the device, version ``v`` at slot ``v % capacity`` with the
+    capacity above the largest version lag the chunk reads or leaves in
+    flight; each window's loss sum stays on the device and the chunk
+    syncs once. Each group runs the eager step's own cohort dispatch and
+    accumulation in the same order, so the engine is bitwise the eager
+    ``step()`` (SGD, momentum; Adam too, tested to 1e-6).
+
+    The server stays the source of truth: after a run the engine writes
+    back ``params`` / ``opt_state`` / ``version`` / the refcounted
+    version store / EF buffers, advances the heap scheduler to match and
+    appends eager-schema records to ``history``, so engine windows and
+    eager ``step()`` calls interleave.
+
+    The reference's compiled engine also needs optimization barriers,
+    runtime mask-ones and padded group slots gated by ``lax.cond`` to
+    keep XLA's fusion from reordering its arithmetic; eager PyTorch runs
+    each op as written, so none of them has a counterpart here. It always
+    aggregates through the sequential chain (``agg_backend``): a window's
+    groups arrive one (cohort, version) at a time, with no tier axis to
+    fuse.
+    """
+    server: AsyncFLServer
+    chunk_windows: int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.server, AsyncFLServer):
+            raise TypeError(
+                f"{type(self.server).__name__} is not the async buffered "
+                "runtime; the window engine runs AsyncFLServer windows only "
+                "(use ScanEngine for CohortFLServer rounds)")
+        if self.chunk_windows < 0:
+            raise ValueError(
+                "chunk_windows must be >= 0 (0 = one chunk per run)")
+        self.chunks_run = 0
+        self.windows_run = 0
+        self._cap = 1
+        srv = self.server
+        self._apply = _apply_fns(srv.optimizer, srv.mode, srv.server_lr)
+
+    @property
+    def agg_backend(self) -> str:
+        return "sequential"
+
+    def _ring_init(self) -> dict:
+        """Every live version's params at slot ``version % capacity``."""
+        srv = self.server
+        ring = {k: torch.zeros((self._cap,) + tuple(p.shape), dtype=p.dtype,
+                               device=p.device)
+                for k, p in srv.params.items()}
+        for v, pv in srv._versions.items():
+            for k, r in ring.items():
+                r[v % self._cap].copy_(pv[k])
+        return ring
+
+    def _window(self, version: int, groups, parts, ring) -> torch.Tensor:
+        """The window applied at ``version``, on the device; returns its
+        loss sum."""
+        srv = self.server
+        acc = zeros_like_acc(srv.params, dense_den=srv.any_structured)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=srv.device)
+        for g, ((ci, v), rows) in enumerate(groups):
+            pv = {k: r[v % self._cap] for k, r in ring.items()}
+            g_sum, masks, l_sum = _cohort_upload(srv, srv.cohorts[ci],
+                                                 parts[g], pv)
+            acc = scatter_accumulate(
+                acc, g_sum, masks, srv.cohort_spec(ci),
+                srv.cohorts[ci].plan.weight, len(rows),
+                staleness_weight=srv.discount(version - v))
+            loss_sum = loss_sum + l_sum
+        cur = {k: r[version % self._cap] for k, r in ring.items()}
+        new_params, srv.opt_state = self._apply(finalize(acc), srv.opt_state,
+                                                cur, version)
+        # the new version goes over the slot no reader can reach any more
+        for k, r in ring.items():
+            r[(version + 1) % self._cap].copy_(new_params[k])
+        return loss_sum
+
+    def _run_chunk(self, W: int) -> list[dict]:
+        srv = self.server
+        plan = materialize_windows(srv._sched, W)
+        init_lag = srv.version - min(srv._versions)
+        self._cap = max(self._cap, plan.max_version_lag + 1, init_lag + 1)
+        groups = [window_groups(srv._slots, plan.client[w],
+                                plan.upload_version[w]) for w in range(W)]
+        # every group's participation mask, one host -> device copy per
+        # cohort for the whole chunk; parts[w][g] is group g's device row
+        host = [[] for _ in srv.cohorts]
+        where = []
+        for gs in groups:
+            where.append([])
+            for (ci, _), rows in gs:
+                m = np.zeros(srv.cohorts[ci].size, np.float32)
+                m[rows] = 1.0
+                where[-1].append((ci, len(host[ci])))
+                host[ci].append(m)
+        dev = [torch.from_numpy(np.stack(h)).to(srv.device) if h else None
+               for h in host]
+        parts = [[dev[ci][i] for ci, i in ws] for ws in where]
+
+        ring = self._ring_init()
+        losses = [self._window(plan.version0 + w, groups[w], parts[w], ring)
+                  for w in range(W)]
+        # the chunk's single device -> host sync
+        loss_host = torch.stack(losses).cpu().tolist()
+        K = plan.buffer_size
+        recs = []
+        for w in range(W):
+            stale = plan.staleness[w]
+            rec = {"step": plan.version0 + w + 1, "t": float(plan.t[w]),
+                   "loss": loss_host[w] / K, "n_updates": K,
+                   "staleness_mean": float(np.mean(stale)),
+                   "staleness_max": int(stale.max()),
+                   "n_versions_live": int(plan.n_versions_live[w]),
+                   "total_upload_bytes": sum(srv._payload_bytes[int(c)]
+                                             for c in plan.client[w])}
+            srv.history.append(rec)
+            recs.append(rec)
+
+        # write the advanced state back so eager step()s continue from it
+        v_end = plan.version0 + W
+        srv.params = {k: r[v_end % self._cap].clone() for k, r in ring.items()}
+        srv.version = v_end
+        uniq, counts = np.unique(plan.end_version, return_counts=True)
+        srv._versions = {int(v): (srv.params if int(v) == v_end else
+                                  {k: r[int(v) % self._cap].clone()
+                                   for k, r in ring.items()})
+                         for v in uniq}
+        srv._refs = {int(v): int(c) for v, c in zip(uniq, counts)}
+        srv._sched.trace(W)                 # advance the heap to match
+        self.chunks_run += 1
+        return recs
+
+    def run(self, n_windows: int) -> list[dict]:
+        """Advance the server ``n_windows`` windows in chunks of
+        ``chunk_windows`` (0 = one chunk); returns the new records."""
+        if n_windows < 1:
+            raise ValueError(f"n_windows must be >= 1, got {n_windows}")
+        chunk = self.chunk_windows or n_windows
+        recs, done = [], 0
+        while done < n_windows:
+            w = min(chunk, n_windows - done)
+            recs += self._run_chunk(w)
+            done += w
+        self.windows_run += n_windows
+        return recs
+
+
+def simulate_rounds(server, rounds: int, *, chunk_rounds: int = 0,
+                    agg: str = "sequential") -> list[dict]:
+    """Run ``rounds`` on ``server`` through a fresh :class:`ScanEngine`
+    (cohort runtime) or :class:`WindowScanEngine` (async runtime); the
+    per-client runtime runs eager ``round()`` calls. Returns the new
+    records."""
+    if isinstance(server, AsyncFLServer):
+        return WindowScanEngine(server, chunk_windows=chunk_rounds).run(rounds)
+    if not isinstance(server, CohortFLServer):
+        return [server.round() for _ in range(rounds)]
+    return ScanEngine(server, chunk_rounds=chunk_rounds, agg=agg).run(rounds)

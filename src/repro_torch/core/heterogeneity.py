@@ -1,5 +1,6 @@
 """Device heterogeneity model: tier profiles + the paper's Eq. (1) time
-model  T = T_local + T_upload + T_global + T_download.
+model  T = T_local + T_upload + T_global + T_download, and the on-device
+memory model.
 
 Host float64 arithmetic on shapes only, expression for expression the
 reference's, so the times and bytes are exactly equal in both packages.
@@ -100,3 +101,23 @@ def cohort_round_time(params: dict, plan: CompressionPlan,
     return dict(_eq1_cohort_cached(n_params, n_active, bits,
                                    tuple(profiles), ns_key, local_steps,
                                    server_flops))
+
+
+def memory_overhead(params: dict, plan: CompressionPlan, batch: int,
+                    act_bytes_per_sample: float = 0.0,
+                    opt_slots: int = 0) -> float:
+    """Training memory on the device, in bytes: compressed weights +
+    grads + ``opt_slots`` optimizer state copies (0 SGD, 1 momentum,
+    2 Adam/AdamW) + activations."""
+    if opt_slots < 0:
+        raise ValueError(f"opt_slots must be >= 0, got {opt_slots}")
+    bits = payload_bits(params, plan)
+    return (2 + opt_slots) * bits / 8 + batch * act_bytes_per_sample
+
+
+def fits(params: dict, plan: CompressionPlan, profile: DeviceProfile,
+         batch: int = 1, act_bytes_per_sample: float = 0.0,
+         opt_slots: int = 0) -> bool:
+    """Does training this plan's local model fit the device's RAM?"""
+    return memory_overhead(params, plan, batch, act_bytes_per_sample,
+                           opt_slots) <= profile.mem_bytes

@@ -8,10 +8,13 @@ returning a :class:`RunResult` of typed :class:`RoundRecord` s. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 GPU and no CPU request they raise.
 
+Runtimes: the cohort runtime (``SyncWait``/``SyncDrop``), the per-client
+loop (``runtime="client"``) and the asynchronous buffered runtime
+(``AsyncBuffered``). :func:`scenario_census` tabulates a scenario on the
+host alone.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the async runtime (``AsyncBuffered`` parses but does not run),
-``runtime="client"``, fault policies, fleet topologies and meshes,
-checkpointing, ``scenario_census`` and ``partition="dirichlet"``.
+item): fault policies, fleet topologies and meshes, checkpointing.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, ClassVar
 
 import torch
 
+from repro_torch.core._unported import not_ported
 from repro_torch.core.compression import DEVICE_TIERS
 from repro_torch.core.heterogeneity import PROFILES
 from repro_torch.numerics import FORMATS
@@ -32,12 +36,6 @@ __all__ = [
     "RoundRecord", "RunResult", "build_server", "simulate",
     "timing_from_dict", "resolve_device", "scenario_census",
 ]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md queue 1, item '{item}')")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -81,7 +79,7 @@ class FleetSpec:
         if self.profiles is not None:
             object.__setattr__(self, "profiles", tuple(self.profiles))
         if self.topology is not None:
-            raise _not_ported("FleetSpec.topology (hierarchical fleets)",
+            raise not_ported("FleetSpec.topology (hierarchical fleets)",
                               "Topology")
         if not self.tiers:
             raise ValueError("FleetSpec needs at least one client tier")
@@ -115,22 +113,32 @@ class FleetSpec:
     def client_profiles(self) -> tuple[str, ...]:
         return self.profiles if self.profiles is not None else self.tiers
 
+    def shard_sizes(self) -> list[int]:
+        """Per-client shard lengths under ``partition="iid"`` (the
+        ``np.array_split`` convention); host arithmetic only."""
+        n, c = self.n_samples, self.n_clients
+        return [n // c + (1 if i < n % c else 0) for i in range(c)]
+
     def build_clients(self, shards: list[dict] | None = None) -> list:
         """Materialize the fleet: partition the dataset (or take the
         given ``shards``, host tensors or numpy arrays) and attach plan +
         profile per client."""
         from repro_torch.core.federated import Client
-        from repro_torch.data import make_gaussian_dataset, partition_iid
+        from repro_torch.data import (make_gaussian_dataset,
+                                      partition_dirichlet, partition_iid)
         if shards is None:
-            if self.partition != "iid":
-                raise _not_ported("partition='dirichlet'", "Dirichlet partition")
             if self.n_samples < self.n_clients:
                 raise ValueError(
                     f"n_samples={self.n_samples} cannot cover "
                     f"{self.n_clients} clients")
             gen = torch.Generator().manual_seed(self.data_seed)
             data = make_gaussian_dataset(gen, self.n_samples)
-            shards = partition_iid(gen, data, self.n_clients)
+            if self.partition == "iid":
+                shards = partition_iid(gen, data, self.n_clients)
+            else:
+                seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+                shards = partition_dirichlet(seed, data, self.n_clients,
+                                             alpha=self.alpha)
         elif len(shards) != self.n_clients:
             raise ValueError(f"{len(shards)} shards for {self.n_clients} clients")
         shards = [{"x": torch.as_tensor(s["x"], dtype=torch.float32),
@@ -227,7 +235,8 @@ class ParticipationPolicy:
 
 class TimingPolicy:
     """When the server aggregates: :class:`SyncWait`, :class:`SyncDrop`,
-    or :class:`AsyncBuffered` (parsed, not yet run by the port)."""
+    or :class:`AsyncBuffered` (FedBuff-shaped buffered windows on the
+    virtual clock)."""
     kind: ClassVar[str] = ""
     _KINDS: ClassVar[dict[str, type]] = {}
 
@@ -289,7 +298,8 @@ class AsyncBuffered(TimingPolicy):
 @dataclass(frozen=True)
 class FLScenario:
     """One experiment: fleet x local x upload x participation x timing,
-    plus the execution substrate (the port runs ``"cohort"``)."""
+    plus the execution substrate (``"cohort"``: one step per plan;
+    ``"client"``: the per-client loop, O(#clients) steps)."""
     fleet: FleetSpec
     local: LocalTraining = LocalTraining()
     upload: UploadPolicy = UploadPolicy()
@@ -301,6 +311,13 @@ class FLScenario:
     def __post_init__(self):
         if self.runtime not in ("cohort", "client"):
             raise ValueError(f"runtime must be cohort|client, got {self.runtime!r}")
+        if self.runtime == "client":
+            if not isinstance(self.timing, SyncWait):
+                raise ValueError("the per-client runtime only supports "
+                                 "SyncWait timing (no deadline/async path)")
+            if self.participation.fraction < 1.0:
+                raise ValueError("the per-client runtime has no participation "
+                                 "sampling; use runtime='cohort'")
         if (isinstance(self.timing, AsyncBuffered)
                 and self.participation.fraction < 1.0):
             raise ValueError("AsyncBuffered schedules every client on the "
@@ -380,7 +397,10 @@ class RunResult:
 
     @property
     def sim_time(self) -> float:
-        """Simulated seconds: the sum of per-round Eq. (1) wall times."""
+        """Simulated seconds: the async virtual clock, or the sum of
+        per-round Eq. (1) wall times."""
+        if isinstance(self.scenario.timing, AsyncBuffered):
+            return float(self.final.t)
         return sum(r.round_wall_time for r in self.records)
 
 
@@ -388,21 +408,17 @@ class RunResult:
 
 def _check_ported(scenario: FLScenario) -> None:
     if scenario.faults is not None:
-        raise _not_ported("FLScenario.faults (fault injection)", "Faults")
-    if scenario.runtime == "client":
-        raise _not_ported("runtime='client' (the per-client FLServer)",
-                          "Per-client runtime")
-    if isinstance(scenario.timing, AsyncBuffered):
-        raise _not_ported("AsyncBuffered timing (the async runtime)",
-                          "Async runtime")
+        raise not_ported("FLScenario.faults (fault injection)", "Faults")
 
 
 def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
                  clients: list | None = None, shards: list | None = None,
                  device=None):
-    """Assemble the cohort runtime a scenario calls for on ``device``.
+    """Assemble the runtime a scenario calls for on ``device``: the
+    per-client loop, the async runtime or the cohort runtime.
     ``clients``/``shards`` override the fleet's data build."""
-    from repro_torch.core.federated import CohortFLServer
+    from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
+                                            FLServer)
     _check_ported(scenario)
     dev = resolve_device(device)
     if clients is None:
@@ -411,15 +427,23 @@ def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
         clients = [dataclasses.replace(c, plan=c.plan.as_width_sliced())
                    for c in clients]
     timing = scenario.timing
-    kw = dict(model=model, optimizer=optimizer,
-              params={k: v.to(dev) for k, v in params.items()},
-              mode=scenario.local.mode,
-              local_steps=scenario.local.local_steps,
-              local_lr=scenario.local.local_lr,
-              server_lr=scenario.local.server_lr,
-              upload_quant=scenario.upload.quant,
-              error_feedback=scenario.upload.error_feedback,
-              sample_fraction=scenario.participation.fraction,
+    common = dict(model=model, optimizer=optimizer,
+                  params={k: v.to(dev) for k, v in params.items()},
+                  mode=scenario.local.mode,
+                  local_steps=scenario.local.local_steps,
+                  local_lr=scenario.local.local_lr,
+                  server_lr=scenario.local.server_lr,
+                  upload_quant=scenario.upload.quant,
+                  error_feedback=scenario.upload.error_feedback)
+    if scenario.runtime == "client":
+        return FLServer(clients=clients, **common)
+    if isinstance(timing, AsyncBuffered):
+        return AsyncFLServer.from_clients(
+            clients, dev, buffer_size=timing.buffer_size,
+            staleness_exp=timing.staleness_exp,
+            time_jitter=timing.time_jitter,
+            seed=scenario.participation.seed, **common)
+    kw = dict(common, sample_fraction=scenario.participation.fraction,
               seed=scenario.participation.seed)
     if isinstance(timing, SyncDrop):
         return CohortFLServer.from_clients(clients, dev, straggler="drop",
@@ -458,33 +482,41 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
              checkpoint_dir: str | None = None,
              resume_from: str | None = None) -> RunResult:
     """Build the scenario's runtime on ``device`` (default ``cuda``) and
-    advance it ``rounds`` federated rounds. With no model/optimizer/
-    params it runs the paper's MLP task.
+    advance it ``rounds`` federated rounds (sync) or aggregation windows
+    (``AsyncBuffered``). With no model/optimizer/params it runs the
+    paper's MLP task.
 
     ``engine`` keeps the reference's names, so a call and its record read
     the same in both packages:
 
-    - ``"eager"``: one ``round()`` per round, one host sync each.
+    - ``"eager"``: one ``round()`` / async ``step()`` per round, one host
+      sync each.
     - ``"scan"``: :class:`~repro_torch.core.engine.ScanEngine` runs
       chunks of ``chunk_rounds`` rounds (default: all) with participation
       precomputed on the host and per-round metrics kept on the device,
-      one host sync per chunk; sequential aggregation.
+      one host sync per chunk; sequential aggregation. ``AsyncBuffered``
+      scenarios run :class:`~repro_torch.core.engine.WindowScanEngine`,
+      bitwise the eager windows.
     - ``"scan_pallas"``: ``"scan"`` with fused aggregation. In the port
       these are the hand-written CUDA kernels (``csrc/``): masked fleets
       run ``grad_aggregate`` on each >=2-D leaf (``agg_backend ==
       "pallas"``), width-sliced fleets run ``structured_scatter`` on
       every leaf (``"pallas_structured"``). Both are bitwise the
-      sequential chain.
+      sequential chain. The async window engine has no tier axis to fuse,
+      so ``AsyncBuffered`` runs it as ``"scan"``.
+
+    The per-client runtime (``runtime="client"``) runs eager whatever
+    ``engine`` says. ``result.agg_backend`` reports the backend used.
     """
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     if mesh is not None and mesh is not False:
-        raise _not_ported("mesh= (sharded edge fleets)", "Topology")
+        raise not_ported("mesh= (sharded edge fleets)", "Topology")
     if (checkpoint_every is not None or checkpoint_dir is not None
             or resume_from is not None):
-        raise _not_ported("checkpointing", "Checkpointing")
+        raise not_ported("checkpointing", "Checkpointing")
     _check_ported(scenario)
     dev = resolve_device(device)
     model, optimizer, params = _default_bundle(model, optimizer, params,
@@ -492,14 +524,18 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
     srv = build_server(scenario, model, optimizer, params, clients=clients,
                        shards=shards, device=dev)
     agg_backend = "sequential"
-    if engine == "eager":
+    is_async = isinstance(scenario.timing, AsyncBuffered)
+    if engine == "eager" or scenario.runtime == "client":
         for _ in range(rounds):
-            srv.round()
+            srv.step() if is_async else srv.round()
     else:
-        from repro_torch.core.engine import ScanEngine
-        eng = ScanEngine(srv, chunk_rounds=chunk_rounds or 0,
-                         agg="pallas" if engine == "scan_pallas"
-                         else "sequential")
+        from repro_torch.core.engine import ScanEngine, WindowScanEngine
+        if is_async:
+            eng = WindowScanEngine(srv, chunk_windows=chunk_rounds or 0)
+        else:
+            eng = ScanEngine(srv, chunk_rounds=chunk_rounds or 0,
+                             agg="pallas" if engine == "scan_pallas"
+                             else "sequential")
         agg_backend = eng.agg_backend
         eng.run(rounds)
     return RunResult(scenario=scenario,
@@ -510,5 +546,67 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
 
 
 def scenario_census(scenario: FLScenario, params=None) -> dict:
-    """The reference's host-only fleet / payload / Eq. (1) table."""
-    raise _not_ported("scenario_census", "Scenario census")
+    """A scenario's fleet, payload bytes and Eq. (1) time table, computed
+    on the host from shapes alone (``params`` defaults to the paper
+    MLP's, made on the CPU); the reference's table, key for key.
+
+    Per (tier, profile) group: client count, per-round payload bytes and
+    the Eq. (1) breakdown at the group's largest shard. Totals apply the
+    timing policy: SyncDrop reports who the deadline drops,
+    AsyncBuffered the buffer shape and dispatch-time spread instead of a
+    round wall-clock. With partial participation
+    ``total_upload_bytes_per_round`` is the expected value under uniform
+    sampling. Shard sizes are exact for ``partition="iid"``; dirichlet
+    sizes depend on the label draw, so the table assumes the even split
+    and sets ``shard_sizes_exact=False``.
+    """
+    from repro_torch.configs.paper_mlp import config as mlp_config
+    from repro_torch.core.heterogeneity import round_time
+    from repro_torch.models import mlp
+    _check_ported(scenario)
+    if params is None:
+        params = mlp.init(torch.Generator().manual_seed(0), mlp_config())
+    spec = scenario.fleet
+    local_steps = (scenario.local.local_steps
+                   if scenario.local.mode == "fedavg" else 1)
+    sizes = spec.shard_sizes()
+    per_group: dict[tuple[str, str], dict] = {}
+    per_client_T: list[float] = []
+    total_bytes = 0.0
+    for i, (tier, prof) in enumerate(zip(spec.tiers, spec.client_profiles)):
+        plan = DEVICE_TIERS[tier]
+        if scenario.local.submodel == "width":
+            plan = plan.as_width_sliced()
+        t = round_time(params, plan, PROFILES[prof], sizes[i], local_steps)
+        per_client_T.append(t["T"])
+        total_bytes += t["payload_bytes"]
+        g = per_group.setdefault((tier, prof), {"count": 0, "n_shard": 0})
+        g["count"] += 1
+        if sizes[i] >= g["n_shard"]:
+            g.update(n_shard=sizes[i],
+                     **{k: t[k] for k in ("T_local", "T_upload", "T_global",
+                                          "T_download", "T", "payload_bytes")})
+    frac = scenario.participation.fraction
+    n_sel = (spec.n_clients if frac >= 1.0
+             else max(1, int(round(frac * spec.n_clients))))
+    out = {"kind": "fl_scenario_census", "scenario": scenario.to_dict(),
+           "n_clients": spec.n_clients, "n_samples": spec.n_samples,
+           "shard_sizes_exact": spec.partition == "iid",
+           "n_participants_per_round": n_sel,
+           "total_upload_bytes_per_round": total_bytes * n_sel / spec.n_clients,
+           "tiers": [{"tier": tier, "profile": prof, **g}
+                     for (tier, prof), g in per_group.items()]}
+    timing = scenario.timing
+    if isinstance(timing, AsyncBuffered):
+        out["buffer_size"] = timing.buffer_size
+        out["dispatch_T_min"] = min(per_client_T)
+        out["dispatch_T_max"] = max(per_client_T)
+    elif isinstance(timing, SyncDrop):
+        dropped = sum(1 for T in per_client_T if T > timing.deadline)
+        kept = [T for T in per_client_T if T <= timing.deadline]
+        out["n_dropped_by_deadline"] = dropped
+        out["round_wall_time"] = (timing.deadline if dropped
+                                  else max(kept) if kept else 0.0)
+    else:
+        out["round_wall_time"] = max(per_client_T)
+    return out

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``. Builds happen at first use (or all at once through
 :func:`build`, which starts one ``nvcc`` per source in parallel) into
-``src/repro_torch/_build/``, keyed by a hash of the source and the flags,
-so an edited kernel rebuilds and an unchanged one is reused. Nothing here
-runs at import time.
+``src/repro_torch/_build/``, keyed by a hash of the source, the shared
+headers and the flags, so an edited kernel rebuilds and an unchanged one
+is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("grad_aggregate", "structured_scatter", "fake_quant",
-           "flash_attention")
+           "flash_attention", "masked_matmul", "codebook_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +41,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by the source, the shared headers of
+    ``csrc/`` (``*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -10,11 +10,14 @@ import pytest
 import torch
 
 from repro_torch.core.aggregation import f32
+from repro_torch.kernels import codebook_matmul, masked_matmul
+from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
 from repro_torch.kernels.fake_quant import fake_quant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grad_aggregate import grad_aggregate
 from repro_torch.kernels.grad_aggregate.ref import grad_aggregate_ref
+from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch.kernels.structured_scatter import structured_scatter_batched
 from repro_torch.kernels.structured_scatter.ops import structured_scatter
 from repro_torch.numerics import FORMATS, quantize_em
@@ -179,3 +182,103 @@ def test_flash_attention_cuda_backward_is_plain_vjp(cuda_device):
                                leaves, g)
     for a, b in zip(grads, want):
         assert torch.equal(a, b)
+
+
+MATMUL_SHAPES = [(64, 200, 96), (1, 128, 128), (130, 257, 129),
+                 (16, 10, 10), (300, 512, 384)]
+
+
+def _mm_inputs(m, k, n, dtype, device, seed=6):
+    rng = np.random.default_rng(seed)
+    x, w, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(device, dtype) for s in ((m, k), (k, n), (m, n)))
+    mask = torch.from_numpy((rng.random((k, n)) < 0.25).astype(np.float32)
+                            ).to(device, dtype)
+    return x, w, mask, g
+
+
+def _grads(fn, x, w, mask, g):
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = fn(xl, wl, mask)
+    dx, dw = torch.autograd.grad(y, (xl, wl), g)
+    return y.detach(), dx, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_masked_matmul_cuda_matches_plain_version(shape, cuda_device):
+    """f32, TF32 off: y, dx and dw within rtol 1e-4 and atol 1e-4 x
+    sqrt(contraction length) of the plain version's autograd (the
+    reference test's bound; another summation order); dw exactly 0 where
+    the mask is 0; three launches (forward, dx, dw)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    x, w, mask, g = _mm_inputs(m, k, n, torch.float32, cuda_device)
+    before = masked_matmul.launches
+    got = _grads(masked_matmul, x, w, mask, g)
+    assert masked_matmul.launches == before + 3
+    want = _grads(masked_matmul_ref, x, w, mask, g)
+    for a, b, depth in zip(got, want, (k, n, m)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * depth ** 0.5)
+    assert torch.all(got[2][mask == 0] == 0)
+
+
+@pytest.mark.cuda
+def test_masked_matmul_cuda_bf16_within_one_quantum(cuda_device):
+    """bf16 operands: y, dx and dw within one bf16 quantum of the plain
+    version, which rounds an f32 product of the same bf16 inputs."""
+    x, w, mask, g = _mm_inputs(130, 257, 129, torch.bfloat16, cuda_device)
+    got = _grads(masked_matmul, x, w, mask, g)
+    want = _grads(masked_matmul_ref, x, w, mask, g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        _, e = torch.frexp(b)
+        quantum = torch.where(b == 0, torch.zeros_like(b),
+                              torch.ldexp(torch.ones_like(b), e - 8))
+        assert torch.all((a - b).abs() <= quantum)
+    assert torch.all(got[2][mask == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype,codes", [(torch.int8, 16),
+                                             (torch.int32, 16),
+                                             (torch.int32, 256),
+                                             (torch.int64, 16),
+                                             (torch.int64, 200)])
+@pytest.mark.parametrize("shape", [(64, 128, 64), (130, 257, 129),
+                                   (1, 100, 60)])
+def test_codebook_matmul_cuda_matches_plain_version(shape, idx_dtype, codes,
+                                                    cuda_device):
+    """f32: rtol 1e-4, atol 1e-4 x sqrt(K) of the plain version (another
+    summation order, TF32 off); int64 indices are narrowed by the
+    wrapper; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, codes, (k, n))).to(idx_dtype)
+    cb = torch.from_numpy(np.sort(rng.standard_normal(codes))
+                          .astype(np.float32))
+    xd, idd, cbd = x.to(cuda_device), idx.to(cuda_device), cb.to(cuda_device)
+    before = codebook_matmul.launches
+    out = codebook_matmul(xd, idd, cbd)
+    assert codebook_matmul.launches == before + 1
+    torch.testing.assert_close(out, codebook_matmul_ref(xd, idd, cbd),
+                               rtol=1e-4, atol=1e-4 * k ** 0.5)
+    torch.testing.assert_close(out.cpu(), codebook_matmul_ref(x, idx, cb),
+                               rtol=1e-4, atol=1e-4 * k ** 0.5)
+
+
+@pytest.mark.cuda
+def test_codebook_matmul_cuda_out_of_range_follows_oracle(cuda_device):
+    """Indices outside [0, n_codes) read what the plain version (the JAX
+    oracle's gather) reads: -1 the last codeword, past the end the last,
+    far below zero the first."""
+    cb = torch.arange(16, dtype=torch.float32, device=cuda_device) + 1.0
+    idx = torch.tensor([[-1, 16, 20, -20, 3]], dtype=torch.int32,
+                       device=cuda_device)
+    x = torch.ones((1, 1), device=cuda_device)
+    out = codebook_matmul(x, idx, cb)
+    assert out.tolist() == [[16.0, 16.0, 16.0, 1.0, 4.0]]
+    assert torch.equal(out, codebook_matmul_ref(x, idx, cb))
