@@ -31,14 +31,19 @@
      forward and both gradients by autograd against the plain version's
      autograd (f32: rtol 1e-4, atol 1e-4 x sqrt(contraction length);
      bf16: one quantum plus 16 f32 unit roundoffs of the sum of the
-     products' magnitudes), dw exactly 0 where the mask is 0;
+     products' magnitudes), dw exactly 0 where the mask is 0; in bf16
+     also a mask of 0 or uniform values in [0, 1) (dw bitwise the
+     kernel's own x^T @ g rounded and masked in bf16), a ragged shape
+     TMA describes and one it refuses; each case's launches per route
+     (every bf16 case but the refused shape on the wgmma kernel);
      codebook_matmul on the embedded tier's k = 16 clustering (int8,
      int32, int64 narrowed by the wrapper) and k = 256 (int32). Those
      calls are the matmuls' main path: counters zeroed just before,
      read just after. Then each forward is timed against its plain
      version and ``torch.matmul`` on the decoded or masked weight, with
      the bound at the operands' peak: 67 TFLOP/s for f32 (CUDA cores),
-     989 TFLOP/s for bf16 (tensor cores).
+     989 TFLOP/s for bf16 (tensor cores); the f32 and the bf16 train
+     rows are masked_matmul's two routes in the kernels line.
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
    width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
@@ -78,7 +83,8 @@ Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window of each FL
 fleet, of the client and async runtimes, one serve call and one train
-step, then the kernels JSON line (all six kernels) and, last, the
+step, then the kernels JSON line (all six kernels, masked_matmul once
+per route) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
@@ -147,8 +153,10 @@ def device_events(prof) -> list:
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 200):
-    """Mean device time of ``kernel`` over ``calls`` calls of ``fn``, from
-    the profiler's device trace (None if the trace has no such kernel)."""
+    """Device time of the kernels whose names hold ``kernel`` per call of
+    ``fn`` (all of a call's launches: masked_matmul's split-K pass runs
+    two), mean over ``calls`` calls, from the profiler's device trace
+    (None if the trace has no such kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -158,7 +166,7 @@ def kernel_device_ms(fn, kernel: str, calls: int = 200):
             fn()
         torch.cuda.synchronize()
     ev = [e for e in device_events(prof) if kernel in e.name]
-    return (sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+    return (sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
             if ev else None)
 
 
@@ -524,7 +532,10 @@ def _masked_cases(ws, device):
     """(label, x, w, mask, g) for masked_matmul: wi and wo under the low
     tier's mask (density 0.25, the port's magnitude_mask), x at M = 256
     (serve: batch 4 x prompt 64) and M = 8192 (train: 8 x 1024), f32 and
-    bf16; then a ragged shape and the paper MLP's (16, 10) @ (10, 10)."""
+    bf16; then a ragged shape and the paper MLP's (16, 10) @ (10, 10) in
+    f32; in bf16 a mask that is 0 or uniform in [0, 1) at (256, 3072) @
+    (3072, 512), a ragged shape TMA describes, (136, 264) @ (264, 200),
+    and one it refuses, (130, 257) @ (257, 129)."""
     import torch
     from repro_torch.core.compression import DEVICE_TIERS, magnitude_mask
     density = DEVICE_TIERS["low"].density
@@ -544,7 +555,29 @@ def _masked_cases(ws, device):
         x, w, g = (torch.randn(shape, generator=gen, device=device)
                    for shape in ((m, k), (k, n), (m, n)))
         cases.append((f"{tag}_f32", x, w, magnitude_mask(w, density), g))
+    for tag, (m, k, n) in (("nonbinary", (256, 3072, 512)),
+                           ("ragged_tma", (136, 264, 200)),
+                           ("ragged", (130, 257, 129))):
+        x, w, g = (torch.randn(shape, generator=gen, device=device)
+                   for shape in ((m, k), (k, n), (m, n)))
+        if tag == "nonbinary":
+            mask = torch.where(torch.rand((k, n), generator=gen,
+                                          device=device) < 0.5, 0.0,
+                               torch.rand((k, n), generator=gen,
+                                          device=device))
+        else:
+            mask = magnitude_mask(w, density)
+        cases.append((f"{tag}_bf16", *(t.to(torch.bfloat16)
+                                       for t in (x, w, mask, g))))
     return cases
+
+
+def _expected_route(label: str) -> str:
+    """The masked_matmul kernel each case's three launches must take:
+    bf16 at llama3.2-3b's shapes and the TMA-describable ragged and
+    non-binary shapes on the tensor cores, the rest on the CUDA cores."""
+    return ("simt" if label.endswith("_f32") or label == "ragged_bf16"
+            else "wgmma")
 
 
 def _codebook_cases(ws, device):
@@ -650,6 +683,7 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
     import torch
     from repro_torch.kernels import codebook_matmul, masked_matmul
     from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+    from repro_torch.kernels.masked_matmul.ops import masked_product
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
     ws = _mm_weights(device)
     mcases = _masked_cases(ws, device)
@@ -663,22 +697,38 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
 
     torch.cuda.synchronize()
     masked_matmul.launches = 0
+    routes = masked_matmul.route_launches
+    for r in routes:
+        routes[r] = 0
     codebook_matmul.launches = 0
-    m_out = {lbl: fwd_bwd(masked_matmul, x, w, m, g)
-             for lbl, x, w, m, g in mcases}
+    m_out, m_routes = {}, {}
+    for lbl, x, w, m, g in mcases:
+        before = dict(routes)
+        m_out[lbl] = fwd_bwd(masked_matmul, x, w, m, g)
+        m_routes[lbl] = {r: routes[r] - before[r] for r in routes}
     c_out = {lbl: codebook_matmul(x, idx, cb) for lbl, x, idx, cb in ccases}
     torch.cuda.synchronize()
     launches = {"masked_matmul": masked_matmul.launches,
+                "masked_matmul_wgmma": routes["wgmma"],
+                "masked_matmul_simt": routes["simt"],
                 "codebook_matmul": codebook_matmul.launches}
     print(f"matmul main path: launches={json.dumps(launches)} over "
           f"{len(mcases)} masked (forward + dx + dw) and {len(ccases)} "
           f"codebook calls")
+    for lbl, _, _, _, _ in mcases:
+        print(f"masked_matmul {lbl}: launches per route "
+              f"{json.dumps(m_routes[lbl])}")
     check(launches["masked_matmul"] == 3 * len(mcases),
           "masked_matmul launched 3 times per forward + backward")
+    check(all(m_routes[lbl][_expected_route(lbl)] == 3
+              for lbl, _, _, _, _ in mcases),
+          "masked_matmul: every bf16 case at llama3.2-3b's shapes, the "
+          "non-binary and the TMA ragged case on the wgmma kernel, f32 and "
+          "the (130, 257, 129) bf16 case on the CUDA-core kernel")
     check(launches["codebook_matmul"] == len(ccases),
           "codebook_matmul launched once per call")
 
-    rows, m_err, c_err = {}, 0.0, 0.0
+    rows, m_err, c_err = {}, {"simt": 0.0, "wgmma": 0.0}, 0.0
     for lbl, x, w, mask, g in mcases:
         got = m_out.pop(lbl)
         want = fwd_bwd(masked_matmul_ref, x, w, mask, g)
@@ -686,21 +736,45 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
         n_ = w.shape[1]
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got, want)]
-        m_err = max(m_err, *errs)
+        m_err[_expected_route(lbl)] = max(m_err[_expected_route(lbl)], *errs)
         sums = _masked_abs_sums(x, w, mask, g)
         # the gap in f32 roundoffs of sum |a||b|: the f32 sums' own (for
         # f32), what a bf16 result has beyond one quantum (for bf16)
         gaps = [(_bf16_excess(a, b, s) if a.dtype == torch.bfloat16 else
                  (a - b).abs() / (F32_UNIT_ROUNDOFF * s)).nan_to_num().max()
                 .item() for a, b, s in zip(got, want, sums)]
-        check(all(_mm_within(a, b, d, s)
-                  for a, b, d, s in zip(got, want, (k_, n_, m_), sums)),
-              f"masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}: y, dx, dw "
-              f"vs the plain version's autograd within tolerance, "
-              f"max_abs_err {errs}, roundoffs of sum|a||b| {gaps}")
         print(f"masked_matmul {lbl} {x.dtype}: y, dx, dw max_abs_err {errs}; "
               f"gap in f32 roundoffs of sum|a||b| {gaps} (bf16: beyond one "
               f"quantum, limit {SUM_ROUNDOFFS})")
+        if lbl.startswith("nonbinary"):
+            # dw = round(round(x^T @ g) * mask): rounding x^T @ g twice
+            # lets two summation orders differ by more than one final
+            # quantum, so dw is held bitwise to the kernel's own x^T @ g
+            # masked in bf16, and that product to the plain one
+            xtg = masked_product(x.t(), g)
+            plain_xtg = (x.float().t() @ g.float()).to(x.dtype)
+            xtg_sum = x.float().abs().t() @ g.float().abs()
+            over = int((_bf16_excess(got[2], want[2], sums[2])
+                        > SUM_ROUNDOFFS).sum())
+            print(f"masked_matmul {lbl}: dw elements beyond one quantum + "
+                  f"{SUM_ROUNDOFFS} roundoffs of the plain dw: {over} of "
+                  f"{got[2].numel()}; x^T@g gap "
+                  f"{_bf16_excess(xtg, plain_xtg, xtg_sum).max().item()}")
+            check(all(_mm_within(a, b, d, s) for a, b, d, s in
+                      zip(got[:2], want[:2], (k_, n_), sums[:2]))
+                  and torch.equal(got[2], xtg * mask)
+                  and _mm_within(xtg, plain_xtg, m_, xtg_sum),
+                  f"masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}, mask "
+                  f"0 or uniform in [0, 1): y, dx within tolerance of the "
+                  f"plain version's autograd; dw bitwise round(x^T@g) * "
+                  f"mask in bf16, x^T@g within tolerance of the plain one")
+            del xtg, plain_xtg, xtg_sum
+        else:
+            check(all(_mm_within(a, b, d, s)
+                      for a, b, d, s in zip(got, want, (k_, n_, m_), sums)),
+                  f"masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}: y, dx, "
+                  f"dw vs the plain version's autograd within tolerance, "
+                  f"max_abs_err {errs}, roundoffs of sum|a||b| {gaps}")
         del sums
         check(bool(torch.all(got[2][mask == 0] == 0)),
               f"masked_matmul {lbl}: dw exactly 0 wherever the mask is 0")
@@ -721,15 +795,18 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
             dms = kernel_device_ms(lambda: masked_matmul(x, w, mask),
                                    "masked_matmul_kernel",
                                    calls=5 if big else 100)
-        print(f"kernel masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype}: "
+        print(f"kernel masked_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype} "
+              f"route {_expected_route(lbl)}: "
               f"ms={ms:.6f} plain_ms={pms:.6f} matmul_ms={lms:.6f} "
               f"bound_ms={bms:.6f} ({by}) device_ms={dms} bytes={n_bytes} "
               f"flops={flops:.0f} tflops={flops / ms / 1e9:.2f}")
-        if lbl == "train_wi_f32":
-            rows["masked_matmul"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
-                                         bound_ms=bms, bound_by=by,
-                                         library_ms=lms)
-    rows["masked_matmul"]["max_abs_err"] = m_err
+        if lbl in ("train_wi_f32", "train_wi_bf16"):
+            rows["masked_matmul" if lbl.endswith("f32")
+                 else "masked_matmul_wgmma"] = dict(
+                ms=ms, plain_ms=pms, device_ms=dms, bound_ms=bms,
+                bound_by=by, library_ms=lms)
+    rows["masked_matmul"]["max_abs_err"] = m_err["simt"]
+    rows["masked_matmul_wgmma"]["max_abs_err"] = m_err["wgmma"]
 
     for lbl, x, idx, cb in ccases:
         out = c_out.pop(lbl)
@@ -1299,9 +1376,16 @@ def main() -> int:
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
+        entry = ""
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the kernel's (mangled) name and template arguments:
+                # Lb1E true, Lb0E false, Li128E 128, 13__nv_bfloat16 bf16
+                mangled = line.split("'")[1]
+                at = mangled.find(f"{name}_kernel")
+                entry = mangled[at:at + 56] if at >= 0 else mangled[-56:]
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {entry}: {line.strip()}")
 
     device = torch.device("cuda")
     phases = [("kernels", lambda: phase_kernels(device)),
@@ -1328,6 +1412,9 @@ def main() -> int:
                                + out["train"]["fake_quant"])
     launches["flash_attention"] = out["train"]["flash_attention"]
     launches.update(out["matmul kernels"][1])
+    # the kernels line has one entry per masked_matmul route: the f32
+    # train row on the CUDA cores, the bf16 train row on the tensor cores
+    launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     print(f"main-path launches (FL slice + client + async + serve + train, "
           f"matmul entry points): {json.dumps(launches)}")
     kernels = []
@@ -1341,6 +1428,8 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:72"),
             ("masked_matmul",
              "src/repro/kernels/masked_matmul/kernel.py:36"),
+            ("masked_matmul_wgmma",
+             "src/repro/kernels/masked_matmul/kernel.py:36"),
             ("codebook_matmul",
              "src/repro/kernels/codebook_matmul/kernel.py:40")):
         r = rows[name]
@@ -1349,7 +1438,8 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/csrc/{name}.cu",
+                        "source": "src/repro_torch/csrc/"
+                                  f"{name.removesuffix('_wgmma')}.cu",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

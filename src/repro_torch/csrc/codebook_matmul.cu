@@ -16,7 +16,8 @@
 // never written to device memory. The TPU kernel decoded by an unrolled
 // select chain over the codewords because its VMEM had no fast gather;
 // here one indexed load replaces it. Main loop and tiling as
-// masked_matmul (tile_gemm.cuh).
+// masked_matmul's f32 route (tile_gemm.cuh): int8 indices are read four
+// at a time (one 4-byte load), int32 as one 16-byte load.
 //
 // Indices are meant to lie in [0, n_codes). One outside follows the JAX
 // oracle's gather (codebook_matmul_ref): a negative index counts from the
@@ -39,30 +40,44 @@ struct CodebookB {
   long long si_k, si_n;
   const float* cb;            // the block's shared-memory copy
   int n_codes;
-  __device__ __forceinline__ float operator()(int k, int n) const {
-    int c = (int)idx[k * si_k + n * si_n];
+  bool vec;                   // idx rows allow 4-wide loads
+  __device__ __forceinline__ float decode(int c) const {
     if (c < 0) c += n_codes;
     c = c < 0 ? 0 : (c >= n_codes ? n_codes - 1 : c);
     return cb[c];
   }
+  __device__ __forceinline__ float operator()(int k, int n) const {
+    return decode((int)idx[k * si_k + n * si_n]);
+  }
+  template <bool NC>
+  __device__ __forceinline__ float4 load4(int k, int n) const {
+    const TI* p = idx + (long long)k * si_k + (long long)n * si_n;
+    int c[4];
+    if constexpr (sizeof(TI) == 1) {
+      const char4 v = *reinterpret_cast<const char4*>(p);
+      c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+    } else {
+      const int4 v = *reinterpret_cast<const int4*>(p);
+      c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+    }
+    return make_float4(decode(c[0]), decode(c[1]), decode(c[2]),
+                       decode(c[3]));
+  }
 };
 
-template <typename TX, typename TI>
-__global__ void __launch_bounds__(THREADS)
-codebook_matmul_kernel(const TX* __restrict__ x, long long sxm, long long sxk,
-                       const TI* __restrict__ idx, long long si_k,
-                       long long si_n, const float* __restrict__ codebook,
-                       int n_codes, TX* __restrict__ out, int M, int N, int K,
-                       int x_k_contig, int idx_n_contig) {
+template <typename TX, typename TI, bool X_KC, bool I_NC>
+__global__ void __launch_bounds__(THREADS, 2)
+codebook_matmul_kernel(const TX* __restrict__ x, long long ldx, bool x_vec,
+                       CodebookB<TI> b, const float* __restrict__ codebook,
+                       TX* __restrict__ out, int M, int N, int K) {
   __shared__ __align__(16) tile_gemm::Smem smem;
   __shared__ float cb[MAX_CODES];
-  for (int i = threadIdx.x; i < n_codes; i += THREADS) cb[i] = codebook[i];
+  for (int i = threadIdx.x; i < b.n_codes; i += THREADS) cb[i] = codebook[i];
   __syncthreads();
+  b.cb = cb;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const CodebookB<TI> b{idx, si_k, si_n, cb, n_codes};
   float acc[tile_gemm::TM][tile_gemm::TN];
-  tile_gemm::run(x, sxm, sxk, x_k_contig, b, idx_n_contig, M, N, K, m0, n0,
-                 smem, acc);
+  tile_gemm::run<X_KC, I_NC>(x, ldx, x_vec, b, M, N, K, m0, n0, smem, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < tile_gemm::TM; ++i) {
@@ -80,19 +95,31 @@ template <typename TX, typename TI>
 int launch(const void* x, long long sxm, long long sxk, const void* idx,
            long long si_k, long long si_n, const void* codebook, int n_codes,
            void* out, int M, int N, int K, cudaStream_t stream) {
+  if (sxk != 1 && sxm != 1) return (int)cudaErrorInvalidValue;
+  if (si_n != 1 && si_k != 1) return (int)cudaErrorInvalidValue;
+  const bool x_kc = sxk == 1, i_nc = si_n == 1;
+  const long long ldx = x_kc ? sxm : sxk, ldi = i_nc ? si_k : si_n;
+  const bool x_vec = tile_gemm::vec4_ok(x, ldx, sizeof(TX));
+  const CodebookB<TI> b{(const TI*)idx, si_k, si_n, nullptr, n_codes,
+                        tile_gemm::vec4_ok(idx, ldi, sizeof(TI))};
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  codebook_matmul_kernel<TX, TI><<<grid, THREADS, 0, stream>>>(
-      (const TX*)x, sxm, sxk, (const TI*)idx, si_k, si_n,
-      (const float*)codebook, n_codes, (TX*)out, M, N, K, sxk == 1 ? 1 : 0,
-      si_n == 1 ? 1 : 0);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, stream>>>((const TX*)x, ldx, x_vec, b,
+                                         (const float*)codebook, (TX*)out, M,
+                                         N, K);
+  };
+  if (x_kc && i_nc) go(codebook_matmul_kernel<TX, TI, true, true>);
+  else if (x_kc) go(codebook_matmul_kernel<TX, TI, true, false>);
+  else if (i_nc) go(codebook_matmul_kernel<TX, TI, false, true>);
+  else go(codebook_matmul_kernel<TX, TI, false, false>);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_dtype: 0 f32, 1 bf16; idx_dtype: 0 int8, 1 int32. Strides are in
-// elements; out is (M, N) row-major in x's dtype. Returns the launch's
-// cudaError_t.
+// elements, one of each operand's two is 1; out is (M, N) row-major in
+// x's dtype. Returns the launch's cudaError_t.
 extern "C" int codebook_matmul_launch(int x_dtype, int idx_dtype,
                                       const void* x, long long sxm,
                                       long long sxk, const void* idx,

@@ -1,19 +1,21 @@
-// The shared main loop of the port's two matmul kernels (masked_matmul.cu,
-// codebook_matmul.cu): one block computes a 128 x 128 tile of
-// out = A @ B, with A (M, K) read through element strides and B produced
-// element by element by a loader functor (w * mask, or codebook[idx]) as
-// it is staged into shared memory. f32 FMA on the CUDA cores, no tensor
+// The f32 CUDA-core main loop of the port's matmul kernels
+// (masked_matmul.cu's f32 and unaligned-bf16 route, codebook_matmul.cu):
+// one block computes a 128 x 128 tile of out = A @ B, with A (M, K) read
+// through its strides and B produced by a loader functor (w * mask, or
+// codebook[idx]) as it is staged into shared memory. f32 FMA, no tensor
 // cores (so no TF32), f32 accumulation.
 //
-// - 256 threads; each keeps an 8 x 8 register micro-tile of accumulators.
+// - 256 threads, at most 128 registers each (two blocks per SM); each
+//   keeps an 8 x 8 register micro-tile of accumulators.
 // - K is walked in steps of 16 through two shared-memory buffers: the next
 //   step's global loads go to registers while the current step computes,
 //   so one __syncthreads per step.
-// - Operands are read through strides: the thread that loads an element is
-//   chosen so that neighbouring threads read along the operand's unit
-//   stride (row- or column-major), which is how the backward reads
-//   transposed views without a copy.
-// - Ragged M, N and K are masked at the loads (0 outside) and the stores.
+// - The operands' orientations are template parameters (A_KC: A's unit
+//   stride is along K; B_NC: B's is along N), so the backward reads
+//   transposed views in place. Each thread stages 4 consecutive elements
+//   along the unit stride: one 16-byte (f32) or 8-byte (bf16) load where
+//   the tile lies inside the matrix and the address is aligned, 4 checked
+//   scalar loads elsewhere (ragged M, N and K read 0 outside).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,8 +25,6 @@ namespace tile_gemm {
 
 constexpr int BM = 128, BN = 128, BK = 16, THREADS = 256;
 constexpr int TM = 8, TN = 8;           // micro-tile per thread
-constexpr int A_PER = BM * BK / THREADS;  // A elements each thread stages
-constexpr int B_PER = BK * BN / THREADS;  // B elements each thread stages
 constexpr int PAD = 4;                  // keeps rows 16-byte aligned
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -45,6 +45,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
+// Four consecutive elements from an address aligned to 4 of them.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Whether a pointer of element size `size`, with `ld` between its rows
+// along the unit stride, can be read 4 elements at a time.
+__host__ __forceinline__ bool vec4_ok(const void* p, long long ld,
+                                      int size) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * size) == 0;
+}
+
 struct Smem {
   float a[2][BK][BM + PAD];   // A staged k-major: a[k][m]
   float b[2][BK][BN + PAD];   // B staged k-major: b[k][n]
@@ -59,52 +79,101 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
   return (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
 }
 
-// acc[i][j] += sum_k A[m0 + tile_row(i), k] * B(k, n0 + tile_col(j)).
-// a_k_contig: A's unit stride is along K (row-major) rather than M.
-// b_n_contig: B's unit stride is along N (row-major) rather than K.
-// LoadB: float operator()(int k, int n) const, called in range only.
-template <typename TA, typename LoadB>
-__device__ __forceinline__ void run(const TA* __restrict__ a, long long sam,
-                                    long long sak, int a_k_contig,
-                                    const LoadB& load_b, int b_n_contig,
-                                    int M, int N, int K, int m0, int n0,
-                                    Smem& s, float (&acc)[TM][TN]) {
+// acc[i][j] = sum_k A[m0 + tile_row(i), k] * B(k, n0 + tile_col(j)).
+// A: element (m, k) at a[m * lda + k] (A_KC) or a[k * lda + m]; a_vec: a
+// and lda allow 4-wide loads. LoadB (B_NC fixed by the caller):
+//   float operator()(int k, int n) const      -- one element, in range;
+//   template <bool NC> float4 load4(k, n) const -- 4 elements along N (NC)
+//                                                 or K, all in range;
+//   bool vec                                  -- load4 is allowed.
+template <bool A_KC, bool B_NC, typename TA, typename LoadB>
+__device__ __forceinline__ void run(const TA* __restrict__ a, long long lda,
+                                    bool a_vec, const LoadB& load_b, int M,
+                                    int N, int K, int m0, int n0, Smem& s,
+                                    float (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  float ra[A_PER], rb[B_PER];
+  float4 ra[2], rb[2];
+  const bool a_rows_in = m0 + BM <= M, b_cols_in = n0 + BN <= N;
 
+  // slot i of this thread: 4 consecutive elements along the unit stride
+  auto a_slot = [&](int i, int& mm, int& kk) {
+    const int e = tid + i * THREADS;
+    mm = A_KC ? e >> 2 : (e & 31) * 4;
+    kk = A_KC ? (e & 3) * 4 : e >> 5;
+  };
+  auto b_slot = [&](int i, int& kk, int& nn) {
+    const int e = tid + i * THREADS;
+    kk = B_NC ? e >> 5 : (e & 3) * 4;
+    nn = B_NC ? (e & 31) * 4 : e >> 2;
+  };
   auto load = [&](int k0) {
+    const bool k_in = k0 + BK <= K;
 #pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int mm = a_k_contig ? e / BK : e % BM;
-      const int kk = a_k_contig ? e % BK : e / BM;
+    for (int i = 0; i < 2; ++i) {
+      int mm, kk;
+      a_slot(i, mm, kk);
       const int gm = m0 + mm, gk = k0 + kk;
-      ra[i] = (gm < M && gk < K) ? to_f32(a[gm * sam + gk * sak]) : 0.0f;
+      if (a_vec && a_rows_in && k_in) {
+        ra[i] = load4(A_KC ? a + (long long)gm * lda + gk
+                           : a + (long long)gk * lda + gm);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int m = A_KC ? gm : gm + j, k = A_KC ? gk + j : gk;
+          v[j] = (m < M && k < K)
+                     ? to_f32(A_KC ? a[(long long)m * lda + k]
+                                   : a[(long long)k * lda + m])
+                     : 0.0f;
+        }
+        ra[i] = make_float4(v[0], v[1], v[2], v[3]);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = b_n_contig ? e / BN : e % BK;
-      const int nn = b_n_contig ? e % BN : e / BK;
+    for (int i = 0; i < 2; ++i) {
+      int kk, nn;
+      b_slot(i, kk, nn);
       const int gk = k0 + kk, gn = n0 + nn;
-      rb[i] = (gk < K && gn < N) ? load_b(gk, gn) : 0.0f;
+      if (load_b.vec && b_cols_in && k_in) {
+        rb[i] = load_b.template load4<B_NC>(gk, gn);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = B_NC ? gk : gk + j, n = B_NC ? gn + j : gn;
+          v[j] = (k < K && n < N) ? load_b(k, n) : 0.0f;
+        }
+        rb[i] = make_float4(v[0], v[1], v[2], v[3]);
+      }
     }
   };
   auto store = [&](int buf) {
 #pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int mm = a_k_contig ? e / BK : e % BM;
-      const int kk = a_k_contig ? e % BK : e / BM;
-      s.a[buf][kk][mm] = ra[i];
+    for (int i = 0; i < 2; ++i) {
+      int mm, kk;
+      a_slot(i, mm, kk);
+      if (A_KC) {
+        s.a[buf][kk + 0][mm] = ra[i].x;
+        s.a[buf][kk + 1][mm] = ra[i].y;
+        s.a[buf][kk + 2][mm] = ra[i].z;
+        s.a[buf][kk + 3][mm] = ra[i].w;
+      } else {
+        *reinterpret_cast<float4*>(&s.a[buf][kk][mm]) = ra[i];
+      }
     }
 #pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = b_n_contig ? e / BN : e % BK;
-      const int nn = b_n_contig ? e % BN : e / BK;
-      s.b[buf][kk][nn] = rb[i];
+    for (int i = 0; i < 2; ++i) {
+      int kk, nn;
+      b_slot(i, kk, nn);
+      if (B_NC) {
+        *reinterpret_cast<float4*>(&s.b[buf][kk][nn]) = rb[i];
+      } else {
+        s.b[buf][kk + 0][nn] = rb[i].x;
+        s.b[buf][kk + 1][nn] = rb[i].y;
+        s.b[buf][kk + 2][nn] = rb[i].z;
+        s.b[buf][kk + 3][nn] = rb[i].w;
+      }
     }
   };
 

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
-from repro_torch.kernels.masked_matmul.ops import unit_strided
+from repro_torch.kernels.masked_matmul.ops import (as_unit_strided,
+                                                  unit_strided)
 
 MAX_CODES = 256
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +74,7 @@ def codebook_matmul(x: torch.Tensor, idx: torch.Tensor,
             and codebook.is_contiguous()):
         raise ValueError("codebook_matmul takes row- or column-major x and "
                          "idx and a contiguous codebook")
+    x, idx = as_unit_strided(x), as_unit_strided(idx)
     m, k = x.shape
     n = idx.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grad_aggregate import grad_aggregate
 from repro_torch.kernels.grad_aggregate.ref import grad_aggregate_ref
+from repro_torch.kernels.masked_matmul.ops import masked_product
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch.kernels.structured_scatter import structured_scatter_batched
 from repro_torch.kernels.structured_scatter.ops import structured_scatter
@@ -237,6 +238,92 @@ def test_masked_matmul_cuda_bf16_within_one_quantum(cuda_device):
         quantum = torch.where(b == 0, torch.zeros_like(b),
                               torch.ldexp(torch.ones_like(b), e - 8))
         assert torch.all((a - b).abs() <= quantum)
+    assert torch.all(got[2][mask == 0] == 0)
+
+
+SUM_ROUNDOFFS = 16      # f32 roundoffs of sum |a||b| allowed between orders
+
+
+def _bf16_excess(out, ref, abs_sum):
+    """max(|out - ref| - the larger bf16 quantum of the two, 0) in f32
+    unit roundoffs (2^-24) of ``abs_sum`` = sum |a||b|, per element. Both
+    round an f32 sum of the same bf16 products (exact in f32) taken in
+    other orders: the sums differ by a few roundoffs of sum |a||b|, and
+    rounding each to bf16 adds at most half a quantum of each."""
+    out, ref = out.float(), ref.float()
+    q = torch.maximum(*(torch.where(t == 0, torch.zeros_like(t), torch.ldexp(
+        torch.ones_like(t), torch.frexp(t)[1] - 8)) for t in (out, ref)))
+    over = ((out - ref).abs() - q).clamp_min(0)
+    return torch.where(over == 0, torch.zeros_like(over),
+                       over / (2.0 ** -24 * abs_sum))
+
+
+def _check_bf16_grads(got, want, x, w, mask, g):
+    """y, dx and dw against the plain version's autograd: within one
+    quantum plus SUM_ROUNDOFFS roundoffs of sum |a||b|."""
+    ax, ag = x.float().abs(), g.float().abs()
+    awm = (w * mask).float().abs()
+    for a, b, s in zip(got, want, (ax @ awm, ag @ awm.t(),
+                                   (ax.t() @ ag) * mask.float())):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_excess(a, b, s).max().item() <= SUM_ROUNDOFFS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [((136, 264, 200), "wgmma"),
+                                         ((72, 1024, 80), "wgmma"),
+                                         ((130, 257, 129), "simt")])
+def test_masked_matmul_cuda_bf16_routes(shape, route, cuda_device):
+    """Ragged bf16 shapes. TMA describes (136, 264, 200) and (72, 1024,
+    80) (the latter's forward splits K in 4), so the forward and both
+    gradients take the wgmma kernel; (130, 257, 129) has rows of 257 and
+    129 elements, which TMA refuses, so all three take the CUDA-core
+    kernel. Within one quantum plus 16 f32 roundoffs of sum |a||b| of the
+    plain version; dw exactly 0 where the mask is 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    x, w, mask, g = _mm_inputs(m, k, n, torch.bfloat16, cuda_device)
+    before = dict(masked_matmul.route_launches)
+    got = _grads(masked_matmul, x, w, mask, g)
+    after = masked_matmul.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: 3 if r == route else 0 for r in after}
+    _check_bf16_grads(got, _grads(masked_matmul_ref, x, w, mask, g),
+                      x, w, mask, g)
+    assert torch.all(got[2][mask == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [((256, 3072, 512), "wgmma"),
+                                         ((130, 257, 129), "simt")])
+def test_masked_matmul_cuda_bf16_non_binary_mask(shape, route, cuda_device):
+    """A mask that is 0 or uniform in [0, 1): w * mask is rounded to bf16
+    before the product, as in the reference, so y and dx are within one
+    quantum plus 16 f32 roundoffs of sum |a||b| of the plain version. dw
+    is the reference's round(round(x^T @ g) * mask): bitwise the kernel's
+    own unmasked x^T @ g multiplied by the mask in bf16, and that product
+    within the same bound of the plain version's; exactly 0 where the
+    mask is 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    x, w, _, g = _mm_inputs(m, k, n, torch.bfloat16, cuda_device)
+    rng = np.random.default_rng(8)
+    mask = torch.from_numpy(np.where(rng.random((k, n)) < 0.5, 0.0,
+                                     rng.random((k, n))).astype(np.float32)
+                            ).to(cuda_device, torch.bfloat16)
+    before = masked_matmul.route_launches[route]
+    got = _grads(masked_matmul, x, w, mask, g)
+    assert masked_matmul.route_launches[route] == before + 3
+    want = _grads(masked_matmul_ref, x, w, mask, g)
+    ax, ag = x.float().abs(), g.float().abs()
+    awm = (w * mask).float().abs()
+    for a, b, s in zip(got[:2], want[:2], (ax @ awm, ag @ awm.t())):
+        assert _bf16_excess(a, b, s).max().item() <= SUM_ROUNDOFFS
+    xtg = masked_product(x.t(), g)
+    assert torch.equal(got[2], xtg * mask)
+    plain_xtg = (x.float().t() @ g.float()).to(torch.bfloat16)
+    assert _bf16_excess(xtg, plain_xtg, ax.t() @ ag).max().item() \
+        <= SUM_ROUNDOFFS
     assert torch.all(got[2][mask == 0] == 0)
 
 

@@ -22,6 +22,8 @@ from repro_torch.core.compression.clustering import (assign_codebook,
 from repro_torch.kernels import codebook_matmul, masked_matmul
 from repro_torch.kernels.codebook_matmul.ops import narrow_indices
 from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+from repro_torch.kernels.masked_matmul.ops import (backend, route,
+                                                   wgmma_plan)
 
 torch.set_num_threads(1)
 
@@ -71,6 +73,117 @@ def test_masked_matmul_bf16_matches_reference_oracle():
     _, e = np.frexp(ref)
     quantum = np.where(ref == 0, 0.0, np.ldexp(np.ones_like(ref), e - 8))
     assert np.all(np.abs(y.float().numpy() - ref) <= quantum)
+
+
+def _bf16_within(out, ref, abs_sum, roundoffs=16):
+    """|out - ref| <= the larger bf16 quantum + ``roundoffs`` f32 unit
+    roundoffs (2^-24) of sum |a||b|: two f32 sums of the same bf16
+    products in other orders, each rounded to bf16."""
+    out, ref = (np.asarray(t, np.float32) for t in (out, ref))
+    q = np.maximum(*(np.where(t == 0, 0.0, np.ldexp(1.0, np.frexp(t)[1] - 8))
+                     for t in (out, ref)))
+    return np.all(np.abs(out - ref) <= q + roundoffs * 2.0 ** -24 * abs_sum)
+
+
+def test_masked_matmul_bf16_non_binary_mask_matches_reference():
+    """bf16 with a mask that is 0 or uniform in [0, 1), against the
+    reference kernel's custom VJP (Pallas in interpret mode). x and g are
+    small integers, so x^T @ g is exact in f32 in any order; then the
+    plain version's dw is round(round(x^T @ g) * mask), bitwise the
+    reference's, and not the single rounding of (x^T @ g) * mask that a
+    kernel multiplying its f32 sum by the mask would give. y and dx (sums
+    of the bf16 products x * round(w * mask)) agree within one quantum
+    plus 16 f32 roundoffs of sum |a||b|."""
+    rng = np.random.default_rng(4)
+    m, k, n = 48, 96, 40
+    x = rng.integers(-8, 9, (m, k)).astype(np.float32)
+    g = rng.integers(-8, 9, (m, n)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    mask = np.where(rng.random((k, n)) < 0.5, 0.0,
+                    rng.random((k, n))).astype(np.float32)
+    xb, wb, mb, gb = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (x, w, mask, g))
+    xl, wl = xb.clone().requires_grad_(), wb.clone().requires_grad_()
+    y = masked_matmul(xl, wl, mb)
+    dx, dw = torch.autograd.grad(y, (xl, wl), gb)
+    xtg = xb.float().t() @ gb.float()
+    assert torch.equal(dw, xtg.to(torch.bfloat16) * mb)
+    assert not torch.equal(dw, (xtg * mb.float()).to(torch.bfloat16))
+    to_j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)  # noqa: E731
+    jy, vjp = jax.vjp(lambda a, b: j_masked_matmul(a, b, to_j(mb)),
+                      to_j(xb), to_j(wb))
+    jdx, jdw = vjp(to_j(gb))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))  # noqa: E731
+    np.testing.assert_array_equal(dw.float().numpy(), f32(jdw))
+    awm = (wb * mb).float().abs()
+    assert _bf16_within(y.detach().float().numpy(), f32(jy),
+                        (xb.float().abs() @ awm).numpy())
+    assert _bf16_within(dx.float().numpy(), f32(jdx),
+                        (gb.float().abs() @ awm.t()).numpy())
+
+
+def _bf16(*shape, offset=0):
+    """A bf16 (rows, cols) tensor, ``offset`` elements into its buffer."""
+    rows, cols = shape
+    return torch.zeros(rows * cols + offset, dtype=torch.bfloat16)[
+        offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("f32", "simt"), ("bf16_rows", "wgmma"), ("bf16_forward_ragged", "wgmma"),
+    ("bf16_dx_views", "wgmma"), ("bf16_dw_views", "wgmma"),
+    ("bf16_row_not_16_bytes", "simt"), ("bf16_view_offset_by_one", "simt"),
+    ("bf16_g_expanded", "simt"), ("bf16_g_expanded_made_contiguous", "wgmma"),
+    ("bf16_mask_other_layout", "simt"), ("bf16_empty_k", "simt")])
+def test_masked_matmul_route(case, want):
+    """The kernel a CUDA call takes is a function of dtype, shapes,
+    strides and alignment alone: TMA needs a 16-byte aligned base, one
+    unit stride and the other a positive multiple of 16 bytes, and the
+    mask laid out as w."""
+    x, w, g = _bf16(136, 264), _bf16(264, 200), _bf16(136, 200)
+    ops = {
+        "f32": (x.float(), w.float(), w.float()),
+        "bf16_rows": (_bf16(256, 3072), _bf16(3072, 512), _bf16(3072, 512)),
+        "bf16_forward_ragged": (x, w, w.clone()),
+        "bf16_dx_views": (g, w.t(), w.clone().t()),
+        "bf16_dw_views": (x.t(), g, None),
+        "bf16_row_not_16_bytes": (_bf16(130, 257), _bf16(257, 129), None),
+        "bf16_view_offset_by_one": (_bf16(136, 264, offset=1), w, None),
+        "bf16_g_expanded": (x.t(), torch.ones(
+            (1, 1), dtype=torch.bfloat16).expand(136, 200), None),
+        "bf16_g_expanded_made_contiguous": (x.t(), torch.ones(
+            (1, 1), dtype=torch.bfloat16).expand(136, 200).contiguous(),
+            None),
+        "bf16_mask_other_layout": (x, w, w.t().contiguous().t()),
+        "bf16_empty_k": (_bf16(8, 0), _bf16(0, 16), None),
+    }[case]
+    assert route(*ops) == want
+
+
+@pytest.mark.parametrize("mnk,plan", [
+    ((8192, 8192, 3072), (128, 1)), ((8192, 3072, 8192), (128, 1)),
+    ((256, 8192, 3072), (64, 1)), ((256, 3072, 8192), (64, 2)),
+    ((136, 200, 264), (64, 1)), ((72, 80, 1024), (64, 4)),
+    ((1, 64, 1 << 20), (64, 256))])
+def test_masked_matmul_wgmma_plan(mnk, plan):
+    """128 x 128 tiles where they fill 132 SMs, else 128 x 64, then K
+    split in powers of two (at least 4 steps of 64 each) until they do:
+    llama3.2-3b's serve wo shape (M 256, N 3072, K 8192) gets 2 x 48 x 2
+    = 192 blocks, not 48."""
+    m, n, k = mnk
+    assert wgmma_plan(m, n, k, 132) == plan
+
+
+def test_masked_matmul_backend_never_maps_cuda_to_plain():
+    """CPU tensors take the plain version; tensors on one CUDA device a
+    kernel, whatever their dtype or route; anything else raises."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    assert backend([cpu, cpu, cpu]) == "plain"
+    assert backend([cuda, cuda, cuda]) == "kernel"
+    for devs in ([cpu, cuda, cuda], [cuda, torch.device("cuda", 1)],
+                 [torch.device("meta")]):
+        with pytest.raises(ValueError, match="one device"):
+            backend(devs)
 
 
 @pytest.mark.parametrize("idx_dtype", [np.int8, np.int32])
