@@ -18,12 +18,18 @@
      specials and f32 subnormals mixed in;
    - flash_attention at the train shape (B 2, T = S 1024, H 24, Hkv 8,
      hd 128) in f32 (atol/rtol 2e-5) and bf16 (one bf16 quantum of the
-     plain version's f32 result, plus 2e-5), and with a window, a
-     q_offset and a ragged S;
+     plain version's f32 result, plus 2e-5), and in each dtype with a
+     window, a q_offset with a ragged S and a ragged non-causal case;
+     in bf16 also granite-3-2b's widths (hd 64), a q_offset < 0 whose
+     blind rows must be exactly 0, and the smoke config's hd 32. Each
+     case's launch must take its route: bf16 at hd 64 and 128 the
+     tensor-core kernel (wgmma), f32 and hd 32 the CUDA-core one (simt);
    then times kernel and plain version with CUDA events (median), the
    kernel's device time from the profiler, the bound (the larger of
-   bytes / 3.35 TB/s and operations / 989 TFLOP/s) and, for attention,
-   PyTorch's scaled_dot_product_attention as a yardstick;
+   bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, 67 TFLOP/s f32)
+   and, for attention, PyTorch's scaled_dot_product_attention as a
+   yardstick (the train bf16 and f32 rows are flash_attention's two
+   routes in the kernels line; granite's row is printed only);
    - masked_matmul and codebook_matmul through the public kernel API at
      llama3.2-3b's MLP widths (one layer's wi (3072, 8192) and wo (8192,
      3072), x at M = 256 and 8192), plus a ragged shape and the paper
@@ -71,20 +77,21 @@
 5. Phase "train": llama3.2-3b at full width cut to 4 layers, bf16,
    ``use_flash``, through ``repro_torch.launch.train``: 4 tiers,
    AdamW(warmup_cosine(3e-4, 2, 5)), global batch 8, seq 1024, 5 steps;
-   flash_attention must launch 16 and fake_quant 30 times per step; the
+   flash_attention must launch 16 times per step, all on the wgmma
+   kernel, and fake_quant 30 times per step; the
    mean loss and each tier's must fall at each of the last two steps
    (after the jump that AdamW's first updates make at this width, as in
    the reference), and the same run without flash must give the same
    losses to rtol 1e-3. On the llama smoke
    config the card's f32 step must agree with the port's CPU path over 2
-   steps.
+   steps, its flash_attention launches all on the simt kernel.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window of each FL
 fleet, of the client and async runtimes, one serve call and one train
-step, then the kernels JSON line (all six kernels, masked_matmul once
-per route) and, last, the
+step, then the kernels JSON line (all six kernels, flash_attention and
+masked_matmul once per route) and, last, the
 ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
@@ -386,28 +393,40 @@ def _lm_leaf_shapes(cfg) -> dict:
 
 
 def _flash_cases(device):
-    """(label, q, k, v, kwargs) at llama3.2-3b's attention widths: the
-    train phase's shape in bf16 and f32, then a window, a q_offset with
-    a ragged S, and a ragged non-causal case."""
+    """(label, q, k, v, kwargs, route) at llama3.2-3b's attention widths:
+    the train phase's shape in bf16 (the wgmma kernel) and f32 (the simt
+    kernel), then a window, a q_offset with a ragged S and a ragged
+    non-causal case in each dtype; granite-3-2b's widths (hd 64) and a
+    q_offset < 0 whose first rows see no key, in bf16; and the smoke
+    config's hd 32 in bf16, which the simt kernel serves."""
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     cfg = get_config(LM_ARCH)
+    granite = get_config("granite-3-2b")
+    smoke = get_smoke_config(LM_ARCH)
     gen = torch.Generator(device=device).manual_seed(5)
 
-    def qkv(b, t, s, dtype):
+    def qkv(b, t, s, dtype, c=cfg):
         return [torch.randn(shape, generator=gen, device=device).to(dtype)
-                for shape in ((b, t, cfg.num_heads, cfg.head_dim),
-                              (b, s, cfg.num_kv_heads, cfg.head_dim),
-                              (b, s, cfg.num_kv_heads, cfg.head_dim))]
+                for shape in ((b, t, c.num_heads, c.head_dim),
+                              (b, s, c.num_kv_heads, c.head_dim),
+                              (b, s, c.num_kv_heads, c.head_dim))]
 
     bf16, f32 = torch.bfloat16, torch.float32
-    return [("train_bf16", *qkv(2, 1024, 1024, bf16), {}),
-            ("train_f32", *qkv(2, 1024, 1024, f32), {}),
-            ("window_f32", *qkv(1, 300, 300, f32), dict(window=100)),
-            ("q_offset_ragged_s_f32", *qkv(1, 64, 1000, f32),
-             dict(q_offset=936)),
-            ("noncausal_ragged_f32", *qkv(2, 77, 333, f32),
-             dict(causal=False))]
+    cases = [("train_bf16", *qkv(2, 1024, 1024, bf16), {}, "wgmma"),
+             ("train_f32", *qkv(2, 1024, 1024, f32), {}, "simt")]
+    for tag, dtype, rt in (("f32", f32, "simt"), ("bf16", bf16, "wgmma")):
+        cases += [(f"window_{tag}", *qkv(1, 300, 300, dtype),
+                   dict(window=100), rt),
+                  (f"q_offset_ragged_s_{tag}", *qkv(1, 64, 1000, dtype),
+                   dict(q_offset=936), rt),
+                  (f"noncausal_ragged_{tag}", *qkv(2, 77, 333, dtype),
+                   dict(causal=False), rt)]
+    return cases + [
+        ("granite_bf16", *qkv(2, 1024, 1024, bf16, granite), {}, "wgmma"),
+        ("masked_rows_bf16", *qkv(1, 300, 300, bf16), dict(q_offset=-100),
+         "wgmma"),
+        ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
 def flash_work(q, k, causal=True, window=0, q_offset=0):
@@ -431,6 +450,7 @@ def flash_work(q, k, causal=True, window=0, q_offset=0):
 def phase_lm_kernels(device) -> dict:
     import torch
     from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_forward
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.numerics import FORMATS, quantize_em
@@ -469,11 +489,18 @@ def phase_lm_kernels(device) -> dict:
         del x
     rows["fake_quant"]["max_abs_err"] = fq_err
 
-    err = 0.0
-    for label, q, k, v, kw in _flash_cases(device):
+    # flash_attention: each case's launch must take its route
+    err = {"wgmma": 0.0, "simt": 0.0}
+    routes = flash_attention.route_launches
+    for label, q, k, v, kw, want in _flash_cases(device):
+        before = dict(routes)
         out = flash_attention_forward(q, k, v, **kw).float()
+        took = {r: routes[r] - before[r] for r in routes}
         ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
+        check(took == {r: int(r == want) for r in routes},
+              f"flash_attention {label}: one launch on the {want} kernel, "
+              f"took {took}")
         e = (out - ref).abs().max().item()
         if q.dtype == torch.float32:
             ok, tol = torch.allclose(out, ref, rtol=2e-5, atol=2e-5), \
@@ -485,30 +512,51 @@ def phase_lm_kernels(device) -> dict:
             tol = "one bf16 quantum of the f32 result + 2e-5"
         check(ok, f"flash_attention {label} {tuple(q.shape)} vs plain "
                   f"version within {tol}, max_abs_err {e}")
-        err = max(err, e)
-        if not label.startswith("train"):
+        if kw.get("q_offset", 0) < 0:
+            blind = out[:, :-kw["q_offset"]]
+            check(not bool(blind.any()),
+                  f"flash_attention {label}: the {blind.shape[1]} rows that "
+                  f"see no key are exactly 0")
+        err[want] = max(err[want], e)
+        if label not in ("train_bf16", "train_f32", "granite_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
         bms = bound_ms(n_bytes, flops, rate)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / rate \
             else "operations"
-        ms = time_ms(lambda: flash_attention_forward(q, k, v), 7, 5)
+        ms = time_ms(lambda: flash_attention_forward(q, k, v))
         pms = time_ms(lambda: flash_attention_ref(q, k, v), 7, 5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 7, 5)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        # the yardstick is SDPA at its fastest: main() turns deterministic
+        # algorithms on for the bitwise checks, which may steer SDPA to a
+        # slower backend, so it is timed with them off, and on for the record
+        lms_det = time_ms(sdpa)
+        torch.use_deterministic_algorithms(False)
+        try:
+            lms = time_ms(sdpa)
+        finally:
+            torch.use_deterministic_algorithms(True)
         dms = kernel_device_ms(lambda: flash_attention_forward(q, k, v),
                                "flash_attention_kernel", calls=20)
-        print(f"kernel flash_attention {label} {tuple(q.shape)} kv "
-              f"{tuple(k.shape)}: ms={ms:.6f} plain_ms={pms:.6f} "
-              f"sdpa_ms={lms:.6f} bound_ms={bms:.6f} ({by}) device_ms={dms} "
-              f"bytes={n_bytes} flops={flops:.0f}")
-        if label == "train_bf16":
-            rows["flash_attention"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
-                                           bound_ms=bms, bound_by=by,
-                                           library_ms=lms)
-    rows["flash_attention"]["max_abs_err"] = err
+        print(f"kernel flash_attention {label} route={want} "
+              f"{tuple(q.shape)} kv {tuple(k.shape)}: ms={ms:.6f} "
+              f"plain_ms={pms:.6f} sdpa_ms={lms:.6f} "
+              f"sdpa_deterministic_ms={lms_det:.6f} bound_ms={bms:.6f} "
+              f"({by}) device_ms={dms} tflops_useful="
+              f"{flops / ms / 1e9:.3f} bytes={n_bytes} flops={flops:.0f}")
+        name = {"train_bf16": "flash_attention_wgmma",
+                "train_f32": "flash_attention"}.get(label)
+        if name:
+            rows[name] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                              bound_ms=bms, bound_by=by, library_ms=lms)
+    # the kernels line's max_abs_err: over all of the route's cases
+    rows["flash_attention_wgmma"]["max_abs_err"] = err["wgmma"]
+    rows["flash_attention"]["max_abs_err"] = err["simt"]
     return rows
 
 
@@ -1248,6 +1296,9 @@ def phase_train(device) -> dict:
     model = get_model(cfg)
     init = model.init(torch.Generator().manual_seed(0))
     runs = {}
+    routes = flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
     for dev in ("cpu", device):
         opt = optim.sgd(0.5)
         step = make_hetero_train_step(model, opt, default_tier_plans(4))
@@ -1261,10 +1312,17 @@ def phase_train(device) -> dict:
             st, m = step(st, {k: v.to(dev) for k, v in b.items()})
             losses.append(m["loss"].item())
         runs[str(dev)] = (losses, st["params"])
+    smoke_routes = dict(routes)
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(device)]
     e = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
     print(f"train smoke f32: cpu losses={lc} cuda losses={lg} "
-          f"params max_abs_err={e}")
+          f"params max_abs_err={e} flash launches per route="
+          f"{json.dumps(smoke_routes)}")
+    smoke_n = cfg.num_layers * 4 * 2
+    check(smoke_routes == {"wgmma": 0, "simt": smoke_n},
+          f"train smoke f32: flash_attention launched {smoke_n} times, all "
+          f"on the simt kernel ({cfg.num_layers} layers x 4 tiers x 2 "
+          f"steps on the card)")
     check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
           "train smoke f32: card losses == CPU losses to rtol 1e-4")
     check(e <= 1e-5, f"train smoke f32: card params == CPU params to atol "
@@ -1279,11 +1337,18 @@ def phase_train(device) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    for r in routes:
+        routes[r] = 0
     fake_quant.launches = 0
     res = train(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
                 n_tiers=n_tiers, lr=3e-4, warmup=2, seed=0, device=device,
                 log_every=1)
+    main_routes = dict(routes)
+    # flash_attention_simt: the smoke f32 step's launches (the main run
+    # must have none)
     got = {"flash_attention": flash_attention.launches,
+           "flash_attention_wgmma": main_routes["wgmma"],
+           "flash_attention_simt": smoke_routes["simt"],
            "fake_quant": fake_quant.launches}
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses, secs = res["losses"], res["sec_per_step"]
@@ -1320,6 +1385,9 @@ def phase_train(device) -> dict:
     check(got["flash_attention"] == layers_tiers * TRAIN_STEPS,
           f"train: flash_attention launched {layers_tiers} per step "
           f"({cfg.num_layers} layers x {n_tiers} tiers, forward only)")
+    check(main_routes == {"wgmma": layers_tiers * TRAIN_STEPS, "simt": 0},
+          f"train: every flash_attention launch on the wgmma kernel "
+          f"({layers_tiers} per step), none on simt: {main_routes}")
     check(got["fake_quant"] == 30 * TRAIN_STEPS,
           "train: fake_quant launched 30 per step (3 quantized tiers x 10 "
           "leaves)")
@@ -1410,10 +1478,12 @@ def main() -> int:
     launches = dict(out["slice"])
     launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
                                + out["train"]["fake_quant"])
-    launches["flash_attention"] = out["train"]["flash_attention"]
     launches.update(out["matmul kernels"][1])
-    # the kernels line has one entry per masked_matmul route: the f32
-    # train row on the CUDA cores, the bf16 train row on the tensor cores
+    # the kernels line has one entry per route of flash_attention and of
+    # masked_matmul: the f32 train row on the CUDA cores (flash: the smoke
+    # f32 train step's launches), the bf16 train row on the tensor cores
+    launches["flash_attention"] = out["train"]["flash_attention_simt"]
+    launches["flash_attention_wgmma"] = out["train"]["flash_attention_wgmma"]
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     print(f"main-path launches (FL slice + client + async + serve + train, "
           f"matmul entry points): {json.dumps(launches)}")
@@ -1425,6 +1495,8 @@ def main() -> int:
              "src/repro/kernels/structured_scatter/kernel.py:142"),
             ("fake_quant", "src/repro/kernels/fake_quant/kernel.py:54"),
             ("flash_attention",
+             "src/repro/kernels/flash_attention/kernel.py:72"),
+            ("flash_attention_wgmma",
              "src/repro/kernels/flash_attention/kernel.py:72"),
             ("masked_matmul",
              "src/repro/kernels/masked_matmul/kernel.py:36"),

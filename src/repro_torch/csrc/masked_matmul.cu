@@ -35,7 +35,6 @@
 //   tile_gemm.cuh, templated on the operands' orientations, with w * mask
 //   formed in the dtype as each tile is staged. f32 stays f32 throughout
 //   (no TF32).
-#include <cuda.h>
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -336,34 +335,10 @@ __global__ void masked_matmul_kernel_splitk_sum(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// Error codes beyond cudaError_t: 100000 + the CUresult of a failed
-// cuTensorMapEncodeTiled; 200000 when that entry point cannot be found.
-constexpr int ENCODE_FAILED = 100000, NO_ENCODER = 200000;
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
+using wgmma_gemm::ENCODE_FAILED;
+using wgmma_gemm::EncodeTiled;
+using wgmma_gemm::encoder;
+using wgmma_gemm::NO_ENCODER;
 
 // A 2-D bf16 map of `inner` x `outer` elements, `ld` elements between
 // rows, read in boxes of 64 x box_outer with the 128-byte swizzle.

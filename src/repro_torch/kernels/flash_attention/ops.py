@@ -1,8 +1,13 @@
-"""Public wrapper of the flash_attention CUDA kernel
+"""Public wrapper of the flash_attention CUDA kernels
 (``csrc/flash_attention.cu``): (B, T, H, hd) attention with GQA, causal,
-sliding-window and ``q_offset`` masks. A CUDA tensor launches the kernel
-or raises; a CPU tensor takes the plain version in ``ref.py``. There is
-no fallback from one to the other.
+sliding-window and ``q_offset`` masks. A CUDA tensor launches a kernel
+or raises; a CPU tensor takes the plain version in ``ref.py``.
+
+Where a CUDA call goes (:func:`route`): bf16 with hd 64 or 128 that TMA
+can read takes the tensor-core kernel (``"wgmma"``), everything else the
+CUDA-core kernel (``"simt"``). Neither falls back to the other or to the
+plain version. ``flash_attention.launches`` counts kernel launches,
+``flash_attention.route_launches`` the same per route.
 
 ``FlashAttention`` is the differentiable form: its forward is the kernel
 and its backward recomputes the plain version and returns that VJP, as
@@ -11,6 +16,7 @@ the reference's custom VJP does (a backward kernel is later work).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -19,15 +25,51 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HD_MAX = 128
+WGMMA_HD = (64, 128)            # head widths the wgmma kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ENCODE_FAILED, _NO_ENCODER, _FEW_REGISTERS = 100000, 200000, 300000
 
 
-def _bind(lib):
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
-        ctypes.c_float, ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def _launcher(route: str):
+    """The route's C entry point, built and bound once."""
+    lib = load("flash_attention")
+    if route == "wgmma":
+        fn = lib.flash_attention_wgmma_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_void_p]
+    else:
+        fn = lib.flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel for ``flash_attention(q, k, v)``: ``"wgmma"`` for bf16
+    q, k, v with hd 64 or 128, contiguous with bases aligned to 16 bytes
+    (TMA's rule; contiguous rows of 64 or 128 bf16 keep every stride a
+    multiple of 16 bytes), B * H <= 65535 and no empty dimension;
+    ``"simt"`` for everything else."""
+    ops = (q, k, v)
+    if (any(t.dtype != torch.bfloat16 or t.dim() != 4 or 0 in t.shape
+            or not t.is_contiguous() or t.data_ptr() % 16 for t in ops)
+            or q.shape[-1] not in WGMMA_HD
+            or q.shape[0] * q.shape[2] > 65535):
+        return "simt"
+    return "wgmma"
+
+
+def _error(rc: int) -> str:
+    if rc >= _FEW_REGISTERS:
+        return (f"the wgmma kernel was compiled to {rc - _FEW_REGISTERS} "
+                f"registers a thread, below the 168 its setmaxnreg needs")
+    if rc == _NO_ENCODER:
+        return "cuTensorMapEncodeTiled not found in libcuda"
+    if rc >= _ENCODE_FAILED:
+        return f"cuTensorMapEncodeTiled failed: CUresult {rc - _ENCODE_FAILED}"
+    return f"cudaError {rc}"
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,16 +102,20 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention takes head_dim <= {HD_MAX}, "
                          f"got {hd}")
     out = torch.empty_like(q)
-    fn = _bind(load("flash_attention"))
+    r = route(q, k, v)
+    fn = _launcher(r)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if r == "simt":
+        head.append(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], b, t, s, h, hkv, hd, int(causal),
-                int(window), int(q_offset), 1.0 / math.sqrt(hd),
+        rc = fn(*head, b, t, s, h, hkv, hd, int(causal), int(window),
+                int(q_offset), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention {r} kernel launch failed: "
+                           f"{_error(rc)}")
     flash_attention.launches += 1
+    flash_attention.route_launches[r] += 1
     return out
 
 
@@ -102,3 +148,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}

@@ -168,6 +168,56 @@ def test_flash_attention_cuda_bf16_within_one_quantum(cuda_device):
     assert torch.all((out - ref).abs() <= quantum + 2e-5)
 
 
+def _bf16_qkv(c, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, torch.bfloat16)
+            for shape in ((c["b"], c["t"], c["h"], c["hd"]),
+                          (c["b"], c["s"], c["hkv"], c["hd"]),
+                          (c["b"], c["s"], c["hkv"], c["hd"]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_cuda_bf16_routes(case, cuda_device):
+    """bf16 on every case: hd 64 and 128 on the tensor-core kernel, hd
+    32 on the CUDA-core kernel, each within one bf16 quantum of the plain
+    version's f32 result plus 2e-5; rows that see no key exactly 0."""
+    c = dict(FLASH_CASES[case])
+    want = "wgmma" if c["hd"] in (64, 128) else "simt"
+    q, k, v = _bf16_qkv(c, cuda_device, seed=9)
+    kw = {n: c[n] for n in ("causal", "window", "q_offset") if n in c}
+    before = dict(flash_attention.route_launches)
+    out = flash_attention(q, k, v, **kw).float()
+    after = flash_attention.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == want) for r in after}
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    _, e = torch.frexp(ref)
+    quantum = torch.ldexp(torch.ones_like(ref), e - 8)
+    assert torch.all((out - ref).abs() <= quantum + 2e-5)
+    if case == "masked_rows":                 # rows t < 10 see no key
+        assert torch.equal(out[:, :10], torch.zeros_like(out[:, :10]))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_bf16_backward_is_plain_vjp(cuda_device):
+    """The wgmma route's backward is the plain version's VJP, bitwise."""
+    c = dict(b=1, t=70, s=70, h=4, hkv=2, hd=64)
+    q, k, v = _bf16_qkv(c, cuda_device, seed=10)
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (1, 70, 4, 64)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    before = flash_attention.route_launches["wgmma"]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention(*leaves, window=9), leaves, g)
+    assert flash_attention.route_launches["wgmma"] == before + 1
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*leaves, window=9),
+                               leaves, g)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_attention_cuda_backward_is_plain_vjp(cuda_device):
     rng = np.random.default_rng(5)
