@@ -43,13 +43,20 @@
      TMA describes and one it refuses; each case's launches per route
      (every bf16 case but the refused shape on the wgmma kernel);
      codebook_matmul on the embedded tier's k = 16 clustering (int8,
-     int32, int64 narrowed by the wrapper) and k = 256 (int32). Those
-     calls are the matmuls' main path: counters zeroed just before,
-     read just after. Then each forward is timed against its plain
-     version and ``torch.matmul`` on the decoded or masked weight, with
+     int32, int64 narrowed by the wrapper) and k = 256 (int32), f32 x
+     and (int8 k = 16, int32 k = 256) bf16 x, within the same bars (bf16:
+     of sum |x||c|), each case's launch on its route (every case at
+     llama3.2-3b's widths on the wgmma kernel; idx rows padded to N + 4
+     bytes, the ragged and the paper-MLP shapes on the CUDA cores).
+     Those calls are the matmuls' main path: counters zeroed just
+     before, read just after. Then each forward is timed against its
+     plain version and ``torch.matmul`` on the decoded or masked weight
+     (in f32 for codebook_matmul, the product the function is), with
      the bound at the operands' peak: 67 TFLOP/s for f32 (CUDA cores),
-     989 TFLOP/s for bf16 (tensor cores); the f32 and the bf16 train
-     rows are masked_matmul's two routes in the kernels line.
+     989 TFLOP/s for bf16 (tensor cores; codebook_matmul's wgmma route
+     counts its three or six bf16 products); the f32 and the bf16 train
+     rows are masked_matmul's two routes in the kernels line, the padded
+     f32 and the int8 bf16 train rows codebook_matmul's.
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
    width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
@@ -90,9 +97,10 @@ Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window of each FL
 fleet, of the client and async runtimes, one serve call and one train
-step, then the kernels JSON line (all six kernels, flash_attention and
-masked_matmul once per route) and, last, the
-``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
+step, then the kernels JSON line (all six kernels; flash_attention,
+masked_matmul and codebook_matmul once per route, each row with its
+device ms and its max_abs_err over its route's cases in the dtype of its
+ms) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
 """
@@ -286,7 +294,7 @@ def phase_kernels(device) -> dict:
               f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
               f"device_ms={dms} bytes={n_bytes}")
         if lbl == "paper(10, 10)":
-            rows["grad_aggregate"] = dict(ms=ms, plain_ms=pms,
+            rows["grad_aggregate"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
                                           bound_ms=bound_ms(n_bytes))
     rows["grad_aggregate"]["max_abs_err"] = err
 
@@ -315,6 +323,7 @@ def phase_kernels(device) -> dict:
               f"device_ms={dms} bytes={n_bytes}")
         if lbl == "paper(10, 10)x4":
             rows["structured_scatter"] = dict(ms=kms, plain_ms=pms,
+                                              device_ms=dms,
                                               bound_ms=bound_ms(n_bytes))
     rows["structured_scatter"]["max_abs_err"] = err
     return rows
@@ -358,6 +367,20 @@ def _max_abs_err(a, b) -> float:
     d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0,
                     d.nan_to_num(nan=float("inf")))
     return d.max().item()
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _route_errors(kernel: str, err: dict, rows: dict, names: dict) -> None:
+    """Print ``err`` ((route, dtype) -> the largest error over that
+    route's cases in that dtype) and give each kernels-line row the error
+    of its own route and dtype, the dtype its ms was timed in."""
+    print(f"{kernel} max_abs_err by route and dtype: " + json.dumps(
+        {f"{r}/{d}": e for (r, d), e in sorted(err.items())}))
+    for route, name in names.items():
+        rows[name]["max_abs_err"] = err[(route, rows[name]["dtype"])]
 
 
 def _fq_shapes() -> dict:
@@ -490,7 +513,7 @@ def phase_lm_kernels(device) -> dict:
     rows["fake_quant"]["max_abs_err"] = fq_err
 
     # flash_attention: each case's launch must take its route
-    err = {"wgmma": 0.0, "simt": 0.0}
+    err = {}                            # (route, dtype) -> max_abs_err
     routes = flash_attention.route_launches
     for label, q, k, v, kw, want in _flash_cases(device):
         before = dict(routes)
@@ -517,7 +540,8 @@ def phase_lm_kernels(device) -> dict:
             check(not bool(blind.any()),
                   f"flash_attention {label}: the {blind.shape[1]} rows that "
                   f"see no key are exactly 0")
-        err[want] = max(err[want], e)
+        key = (want, _dtype_name(q.dtype))
+        err[key] = max(err.get(key, 0.0), e)
         if label not in ("train_bf16", "train_f32", "granite_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
@@ -553,10 +577,10 @@ def phase_lm_kernels(device) -> dict:
                 "train_f32": "flash_attention"}.get(label)
         if name:
             rows[name] = dict(ms=ms, plain_ms=pms, device_ms=dms,
-                              bound_ms=bms, bound_by=by, library_ms=lms)
-    # the kernels line's max_abs_err: over all of the route's cases
-    rows["flash_attention_wgmma"]["max_abs_err"] = err["wgmma"]
-    rows["flash_attention"]["max_abs_err"] = err["simt"]
+                              bound_ms=bms, bound_by=by, library_ms=lms,
+                              dtype=_dtype_name(q.dtype))
+    _route_errors("flash_attention", err, rows, {
+        "wgmma": "flash_attention_wgmma", "simt": "flash_attention"})
     return rows
 
 
@@ -632,8 +656,9 @@ def _codebook_cases(ws, device):
     """(label, x, idx, codebook) for codebook_matmul: wi (and wo) pruned
     like the embedded tier and clustered by the port's kmeans_codebook /
     assign_codebook at its k = 16 (int8 and int32 indices) and at k = 256
-    (int32), x in f32 at M = 256 and 8192; then a ragged shape and the
-    paper MLP's."""
+    (int32), x at M = 256 and 8192 in f32 (and in bf16 for int8 k = 16
+    and int32 k = 256); then the train int8 case with idx rows padded to
+    N + 4 bytes (which TMA refuses), a ragged shape and the paper MLP's."""
     import torch
     from repro_torch.core.compression import DEVICE_TIERS, magnitude_mask
     from repro_torch.core.compression.clustering import (assign_codebook,
@@ -646,15 +671,23 @@ def _codebook_cases(ws, device):
         cb = kmeans_codebook(w, k)
         return assign_codebook(w, cb), cb
 
-    cases = []
+    cases, xs = [], {}
     i16, cb16 = clustered(ws["wi"], emb.cluster_k)
     i256, cb256 = clustered(ws["wi"], 256)
+    i8, i32, i256 = i16.to(torch.int8), i16.to(torch.int32), i256.int()
     for tag, m in (("serve", 256), ("train", 8192)):
-        x = torch.randn((m, ws["wi"].shape[0]), generator=gen, device=device)
-        cases += [(f"{tag}_wi_k16_int8", x, i16.to(torch.int8), cb16),
-                  (f"{tag}_wi_k16_int32", x, i16.to(torch.int32), cb16),
-                  (f"{tag}_wi_k256_int32", x, i256.to(torch.int32), cb256)]
-    del i256
+        x = xs[tag] = torch.randn((m, ws["wi"].shape[0]), generator=gen,
+                                  device=device)
+        xb = x.to(torch.bfloat16)
+        cases += [(f"{tag}_wi_k16_int8", x, i8, cb16),
+                  (f"{tag}_wi_k16_int32", x, i32, cb16),
+                  (f"{tag}_wi_k256_int32", x, i256, cb256),
+                  (f"{tag}_wi_k16_int8_bf16", xb, i8, cb16),
+                  (f"{tag}_wi_k256_int32_bf16", xb, i256, cb256)]
+    k, n = i8.shape
+    padded = torch.zeros((k, n + 4), dtype=torch.int8, device=device)
+    cases.append(("train_wi_k16_int8_padded", xs["train"],
+                  padded[:, :n].copy_(i8), cb16))
     iwo, cbwo = clustered(ws["wo"], emb.cluster_k)
     cases.append(("serve_wo_k16_int64", torch.randn(
         (256, ws["wo"].shape[0]), generator=gen, device=device), iwo, cbwo))
@@ -665,6 +698,16 @@ def _codebook_cases(ws, device):
         cases.append((f"{tag}_k16_int8", torch.randn(
             (m, k), generator=gen, device=device), idx.to(torch.int8), cb))
     return cases
+
+
+def _codebook_route(label: str) -> str:
+    """The codebook_matmul kernel each case must take: every case at
+    llama3.2-3b's widths on the tensor cores, f32 x or bf16, int8 read in
+    place or int32 / int64 narrowed; the padded idx rows, the ragged
+    shape's (257 f32 and 129 int8 elements) and the paper MLP's (10)
+    rows, which TMA refuses, on the CUDA cores."""
+    return ("simt" if label.startswith(("ragged", "paper_mlp"))
+            or label.endswith("_padded") else "wgmma")
 
 
 F32_UNIT_ROUNDOFF = 2.0 ** -24
@@ -730,7 +773,8 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
     forward is timed. Returns (rows, launches)."""
     import torch
     from repro_torch.kernels import codebook_matmul, masked_matmul
-    from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+    from repro_torch.kernels.codebook_matmul.ref import (codebook_matmul_ref,
+                                                         decode)
     from repro_torch.kernels.masked_matmul.ops import masked_product
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_ref
     ws = _mm_weights(device)
@@ -749,17 +793,25 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
     for r in routes:
         routes[r] = 0
     codebook_matmul.launches = 0
-    m_out, m_routes = {}, {}
+    croutes = codebook_matmul.route_launches
+    for r in croutes:
+        croutes[r] = 0
+    m_out, m_routes, c_out, c_routes = {}, {}, {}, {}
     for lbl, x, w, m, g in mcases:
         before = dict(routes)
         m_out[lbl] = fwd_bwd(masked_matmul, x, w, m, g)
         m_routes[lbl] = {r: routes[r] - before[r] for r in routes}
-    c_out = {lbl: codebook_matmul(x, idx, cb) for lbl, x, idx, cb in ccases}
+    for lbl, x, idx, cb in ccases:
+        before = dict(croutes)
+        c_out[lbl] = codebook_matmul(x, idx, cb)
+        c_routes[lbl] = {r: croutes[r] - before[r] for r in croutes}
     torch.cuda.synchronize()
     launches = {"masked_matmul": masked_matmul.launches,
                 "masked_matmul_wgmma": routes["wgmma"],
                 "masked_matmul_simt": routes["simt"],
-                "codebook_matmul": codebook_matmul.launches}
+                "codebook_matmul_calls": codebook_matmul.launches,
+                "codebook_matmul_wgmma": croutes["wgmma"],
+                "codebook_matmul_simt": croutes["simt"]}
     print(f"matmul main path: launches={json.dumps(launches)} over "
           f"{len(mcases)} masked (forward + dx + dw) and {len(ccases)} "
           f"codebook calls")
@@ -773,10 +825,18 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
           "masked_matmul: every bf16 case at llama3.2-3b's shapes, the "
           "non-binary and the TMA ragged case on the wgmma kernel, f32 and "
           "the (130, 257, 129) bf16 case on the CUDA-core kernel")
-    check(launches["codebook_matmul"] == len(ccases),
+    check(launches["codebook_matmul_calls"] == len(ccases),
           "codebook_matmul launched once per call")
+    for lbl, _, _, _ in ccases:
+        print(f"codebook_matmul {lbl}: launches per route "
+              f"{json.dumps(c_routes[lbl])}")
+    check(all(c_routes[lbl] == {r: int(r == _codebook_route(lbl))
+                                for r in croutes} for lbl, _, _, _ in ccases),
+          "codebook_matmul: every case at llama3.2-3b's widths (f32 and bf16 "
+          "x, int8, int32, int64 idx) on the wgmma kernel; the padded idx "
+          "rows, the ragged and the paper-MLP shapes on the CUDA-core kernel")
 
-    rows, m_err, c_err = {}, {"simt": 0.0, "wgmma": 0.0}, 0.0
+    rows, m_err, c_err = {}, {}, {}     # (route, dtype) -> max_abs_err
     for lbl, x, w, mask, g in mcases:
         got = m_out.pop(lbl)
         want = fwd_bwd(masked_matmul_ref, x, w, mask, g)
@@ -784,7 +844,8 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
         n_ = w.shape[1]
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got, want)]
-        m_err[_expected_route(lbl)] = max(m_err[_expected_route(lbl)], *errs)
+        key = (_expected_route(lbl), _dtype_name(x.dtype))
+        m_err[key] = max(m_err.get(key, 0.0), *errs)
         sums = _masked_abs_sums(x, w, mask, g)
         # the gap in f32 roundoffs of sum |a||b|: the f32 sums' own (for
         # f32), what a bf16 result has beyond one quantum (for bf16)
@@ -852,45 +913,64 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
             rows["masked_matmul" if lbl.endswith("f32")
                  else "masked_matmul_wgmma"] = dict(
                 ms=ms, plain_ms=pms, device_ms=dms, bound_ms=bms,
-                bound_by=by, library_ms=lms)
-    rows["masked_matmul"]["max_abs_err"] = m_err["simt"]
-    rows["masked_matmul_wgmma"]["max_abs_err"] = m_err["wgmma"]
+                bound_by=by, library_ms=lms, dtype=_dtype_name(x.dtype))
+    _route_errors("masked_matmul", m_err, rows, {
+        "wgmma": "masked_matmul_wgmma", "simt": "masked_matmul"})
 
     for lbl, x, idx, cb in ccases:
         out = c_out.pop(lbl)
         ref = codebook_matmul_ref(x, idx, cb)
+        route = _codebook_route(lbl)
         m_, k_ = x.shape
         n_ = idx.shape[1]
-        e = (out - ref).abs().max().item()
-        c_err = max(c_err, e)
-        check(_mm_within(out, ref, k_),
-              f"codebook_matmul {lbl} ({m_}, {k_}, {n_}) {idx.dtype} "
-              f"k={cb.numel()} vs the plain version within rtol 1e-4, atol "
-              f"1e-4*sqrt(K), max_abs_err {e}")
+        e = (out.float() - ref.float()).abs().max().item()
+        key = (route, _dtype_name(x.dtype))
+        c_err[key] = max(c_err.get(key, 0.0), e)
+        abs_sum = x.float().abs() @ decode(idx, cb).abs()
+        gap = (_bf16_excess(out, ref, abs_sum) if x.dtype == torch.bfloat16
+               else (out - ref).abs() / (F32_UNIT_ROUNDOFF * abs_sum)
+               ).nan_to_num().max().item()
+        check(_mm_within(out, ref, k_, abs_sum),
+              f"codebook_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype} x, "
+              f"{idx.dtype} idx, k={cb.numel()}, route {route}: vs the plain "
+              f"version within tolerance, max_abs_err {e}, gap in f32 "
+              f"roundoffs of sum|x||c| {gap} (bf16: beyond one quantum)")
+        del abs_sum
         big = m_ >= 4096
         reps, inner = (5, 2) if big else (15, 10)
-        wd = cb[idx.long()]
+        wd, xf = cb[idx.long()], x.float()
         n_bytes, flops = _mm_work(x, n_, idx.numel() * idx.element_size()
                                   + cb.numel() * 4)
-        bms = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
-        by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S
+        # wgmma: three bf16 products for bf16 x, six for f32 x, at the
+        # bf16 peak; simt: one f32 product at the f32 CUDA-core peak
+        products = (1 if route == "simt" else
+                    3 if x.dtype == torch.bfloat16 else 6)
+        rate = F32_FLOP_PER_S if route == "simt" else BF16_FLOP_PER_S
+        bms = bound_ms(n_bytes, products * flops, rate)
+        by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= products * flops / rate
               else "operations")
         ms = time_ms(lambda: codebook_matmul(x, idx, cb), reps, inner)
         pms = time_ms(lambda: codebook_matmul_ref(x, idx, cb), reps, inner)
-        lms = time_ms(lambda: torch.matmul(x, wd), reps, inner)
+        lms = time_ms(lambda: torch.matmul(xf, wd), reps, inner)
         dms = kernel_device_ms(lambda: codebook_matmul(x, idx, cb),
                                "codebook_matmul_kernel",
                                calls=5 if big else 100)
-        print(f"kernel codebook_matmul {lbl} ({m_}, {k_}, {n_}) {idx.dtype} "
-              f"k={cb.numel()}: ms={ms:.6f} plain_ms={pms:.6f} "
-              f"matmul_ms={lms:.6f} bound_ms={bms:.6f} ({by}) "
+        print(f"kernel codebook_matmul {lbl} ({m_}, {k_}, {n_}) {x.dtype} x "
+              f"{idx.dtype} idx k={cb.numel()} route {route}: ms={ms:.6f} "
+              f"plain_ms={pms:.6f} matmul_f32_ms={lms:.6f} "
+              f"bound_ms={bms:.6f} ({by}; {products} products) "
+              f"one_product_bound_ms={bound_ms(n_bytes, flops, rate):.6f} "
               f"device_ms={dms} bytes={n_bytes} flops={flops:.0f} "
               f"tflops={flops / ms / 1e9:.2f}")
-        if lbl == "train_wi_k16_int8":
-            rows["codebook_matmul"] = dict(ms=ms, plain_ms=pms,
-                                           device_ms=dms, bound_ms=bms,
-                                           bound_by=by, library_ms=lms)
-    rows["codebook_matmul"]["max_abs_err"] = c_err
+        name = {"train_wi_k16_int8_padded": "codebook_matmul",
+                "train_wi_k16_int8_bf16": "codebook_matmul_wgmma"}.get(lbl)
+        if name:
+            rows[name] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                              bound_ms=bms, bound_by=by, library_ms=lms,
+                              dtype=_dtype_name(x.dtype))
+        del wd, xf
+    _route_errors("codebook_matmul", c_err, rows, {
+        "wgmma": "codebook_matmul_wgmma", "simt": "codebook_matmul"})
     del mcases, ccases, m_out, c_out
     torch.cuda.empty_cache()
     return rows, launches
@@ -1479,12 +1559,15 @@ def main() -> int:
     launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
                                + out["train"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
-    # the kernels line has one entry per route of flash_attention and of
-    # masked_matmul: the f32 train row on the CUDA cores (flash: the smoke
-    # f32 train step's launches), the bf16 train row on the tensor cores
+    # the kernels line has one entry per route of flash_attention,
+    # masked_matmul and codebook_matmul: the f32 train row on the CUDA
+    # cores (flash: the smoke f32 train step's launches; codebook: idx rows
+    # TMA refuses), the bf16 train row on the tensor cores
     launches["flash_attention"] = out["train"]["flash_attention_simt"]
     launches["flash_attention_wgmma"] = out["train"]["flash_attention_wgmma"]
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
+    launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
+    del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + serve + train, "
           f"matmul entry points): {json.dumps(launches)}")
     kernels = []
@@ -1503,6 +1586,8 @@ def main() -> int:
             ("masked_matmul_wgmma",
              "src/repro/kernels/masked_matmul/kernel.py:36"),
             ("codebook_matmul",
+             "src/repro/kernels/codebook_matmul/kernel.py:40"),
+            ("codebook_matmul_wgmma",
              "src/repro/kernels/codebook_matmul/kernel.py:40")):
         r = rows[name]
         if launches[name] <= 0:
@@ -1514,6 +1599,7 @@ def main() -> int:
                                   f"{name.removesuffix('_wgmma')}.cu",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r.get("bound_by", "bytes"),
                         "library_ms": r.get("library_ms")})

@@ -310,29 +310,7 @@ struct WgCfg {
       1024 + Q_BYTES + WG_STAGES * STAGE_BYTES + 8 * (2 * WG_STAGES + 1);
 };
 
-// mbarrier wait that traps (a launch fault the host sees at the next
-// synchronise) instead of spinning forever if the phase never completes
-// within 10 s: a wrong phase or byte count would otherwise hang the card.
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (t0 == 0) t0 = now;
-    else if (now - t0 > 10000000000ull) __trap();
-  }
-}
+using wgmma_gemm::wait_or_trap;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -335,29 +335,7 @@ __global__ void masked_matmul_kernel_splitk_sum(
   }
 }
 
-using wgmma_gemm::ENCODE_FAILED;
-using wgmma_gemm::EncodeTiled;
-using wgmma_gemm::encoder;
-using wgmma_gemm::NO_ENCODER;
-
-// A 2-D bf16 map of `inner` x `outer` elements, `ld` elements between
-// rows, read in boxes of 64 x box_outer with the 128-byte swizzle.
-int encode(CUtensorMap* map, const void* p, long long inner, long long outer,
-           long long ld, int box_outer) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return NO_ENCODER;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(p), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
+using wgmma_gemm::encode_bf16;
 
 template <bool A_KM, bool B_KM, int BN>
 int launch_wgmma_as(const CUtensorMap& ta, const CUtensorMap& tb,
@@ -404,12 +382,14 @@ int launch_wgmma(const void* a, long long sam, long long sak, const void* w,
   if (m != nullptr && (smk != swk || smn != swn))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tm;
-  int rc = a_km ? encode(&ta, a, K, M, sam, WG_BM)
-                : encode(&ta, a, M, K, sak, 64);
+  int rc = a_km ? encode_bf16(&ta, a, K, M, sam, WG_BM)
+                : encode_bf16(&ta, a, M, K, sak, 64);
   if (rc == 0)
-    rc = b_km ? encode(&tb, w, K, N, swn, bn) : encode(&tb, w, N, K, swk, 64);
+    rc = b_km ? encode_bf16(&tb, w, K, N, swn, bn)
+              : encode_bf16(&tb, w, N, K, swk, 64);
   if (rc == 0 && m != nullptr)
-    rc = b_km ? encode(&tm, m, K, N, smn, bn) : encode(&tm, m, N, K, smk, 64);
+    rc = b_km ? encode_bf16(&tm, m, K, N, smn, bn)
+              : encode_bf16(&tm, m, N, K, smk, 64);
   if (rc != 0) return rc;
   if (m == nullptr) tm = tb;
   const int hm = m != nullptr;

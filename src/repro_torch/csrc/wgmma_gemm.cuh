@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core kernels in
-// masked_matmul.cu and flash_attention.cu: mbarriers, TMA tile loads
-// (2-D and 4-D), the proxy fence, register reallocation between
+// masked_matmul.cu, flash_attention.cu and codebook_matmul.cu: mbarriers
+// (with a wait that traps rather than hangs), TMA tile loads (2-D and
+// 4-D), the proxy fence, register reallocation between
 // warpgroups, and wgmma with A from shared memory or from registers and
 // B from shared memory in the 128-byte swizzled layout that TMA writes.
 // Each device helper is one PTX instruction (or a wait loop around one);
@@ -80,6 +81,30 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbarrier wait that traps (a launch fault the host sees at the next
+// synchronise) instead of spinning forever if the phase never completes
+// within 10 s: a wrong phase or byte count would otherwise hang the card.
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 10000000000ull) __trap();
+  }
 }
 
 // 2-D TMA load of one box at (c0 along the unit stride, c1) into `dst`,
@@ -318,6 +343,34 @@ inline EncodeTiled encoder() {
       fn = (EncodeTiled)p;
   }
   return fn;
+}
+
+// A 2-D map of `inner` x `outer` elements of `elem_bytes` each, `ld`
+// elements between rows, read in boxes of box_inner x box_outer; boxes
+// past the end read as 0. Returns 0 or an error code above.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                     int elem_bytes, const void* p, long long inner,
+                     long long outer, long long ld, int box_inner,
+                     int box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(p), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// A 2-D bf16 map read in boxes of 64 x box_outer with the 128-byte
+// swizzle: the operand layout of the wgmma kernels.
+inline int encode_bf16(CUtensorMap* map, const void* p, long long inner,
+                       long long outer, long long ld, int box_outer) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, inner, outer,
+                   ld, 64, box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace wgmma_gemm

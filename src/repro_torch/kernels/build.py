@@ -91,3 +91,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _libs[name] = lib
     return lib
+
+
+def build_variants(name: str,
+                   sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """Copies of ``csrc/<name>.cu`` with other text (``sources``: variant
+    -> source), each compiled with the same flags (one ``nvcc`` per
+    variant, all started together) into ``_build/ablation/`` and loaded.
+    For measurements only: the port runs the sources as they are."""
+    out_dir = BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, src in sources.items():
+        cu = out_dir / f"{name}_{variant}.cu"
+        cu.write_text(src)
+        procs[variant] = subprocess.Popen(
+            [nvcc(), *FLAGS, "-I", str(CSRC), "-o",
+             str(out_dir / f"lib{name}_{variant}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for variant, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name} {variant}:\n{log}")
+        libs[variant] = ctypes.CDLL(str(out_dir / f"lib{name}_{variant}.so"))
+    return libs

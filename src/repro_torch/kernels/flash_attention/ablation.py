@@ -24,7 +24,6 @@ from __future__ import annotations
 import ctypes
 import math
 import statistics
-import subprocess
 
 import torch
 
@@ -50,25 +49,12 @@ def _variants() -> dict[str, str]:
     return out
 
 
-def _build(variants: dict[str, str]) -> dict:
-    """One nvcc per variant, all started together; the bound launchers."""
-    out_dir = build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in variants.items():
-        cu = out_dir / f"flash_{name}.cu"
-        cu.write_text(src)
-        procs[name] = subprocess.Popen(
-            [build.nvcc(), *build.FLAGS, "-I", str(build.CSRC), "-o",
-             str(out_dir / f"libflash_{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def _launchers(variants: dict[str, str]) -> dict:
+    """The variants built and their wgmma entry points bound."""
     fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"libflash_{name}.so")) \
-            .flash_attention_wgmma_launch
+    for name, lib in build.build_variants("flash_attention",
+                                          variants).items():
+        fn = lib.flash_attention_wgmma_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -76,7 +62,7 @@ def _build(variants: dict[str, str]) -> dict:
     return fns
 
 
-def _time_ms(fn, reps: int = 15, inner: int = 20) -> float:
+def time_ms(fn, reps: int = 15, inner: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
@@ -95,7 +81,7 @@ def _time_ms(fn, reps: int = 15, inner: int = 20) -> float:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ablation: no CUDA device")
-    fns = _build(_variants())
+    fns = _launchers(_variants())
     gen = torch.Generator(device="cuda").manual_seed(5)
     for label, (b, t, s, h, hkv, hd) in SHAPES.items():
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -116,10 +102,10 @@ def main() -> int:
             call()
             torch.cuda.synchronize()
             outside = int(((out.float() - ref).abs() > quantum + 2e-5).sum())
-            print(f"ablation {label} {name}: ms={_time_ms(call):.6f} "
+            print(f"ablation {label} {name}: ms={time_ms(call):.6f} "
                   f"outside_bf16_check={outside} of {out.numel()}")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = _time_ms(lambda: torch.nn.functional
+        sdpa = time_ms(lambda: torch.nn.functional
                         .scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True,
                                                       enable_gqa=True))

@@ -110,7 +110,7 @@ def wgmma_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -120,7 +120,7 @@ def _operand(t: torch.Tensor | None):
     return [t.data_ptr(), t.stride(0), t.stride(1)]
 
 
-def _error(rc: int) -> str:
+def launch_error(rc: int) -> str:
     if rc == _NO_ENCODER:
         return "cuTensorMapEncodeTiled not found in libcuda"
     if rc >= _ENCODE_FAILED:
@@ -149,7 +149,7 @@ def masked_product(a: torch.Tensor, b: torch.Tensor,
     bn, splits, ws = WG_BM, 1, None
     if r == "wgmma":
         index = a.device.index
-        bn, splits = wgmma_plan(m, n, k, _sm_count(
+        bn, splits = wgmma_plan(m, n, k, sm_count(
             torch.cuda.current_device() if index is None else index))
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32,
@@ -163,7 +163,7 @@ def masked_product(a: torch.Tensor, b: torch.Tensor,
                 torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"masked_matmul {r} kernel launch failed: "
-                           f"{_error(rc)}")
+                           f"{launch_error(rc)}")
     masked_matmul.launches += 1
     masked_matmul.route_launches[r] += 1
     return out

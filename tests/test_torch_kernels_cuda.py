@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core.aggregation import f32
 from repro_torch.kernels import codebook_matmul, masked_matmul
-from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+from repro_torch.kernels.codebook_matmul.ref import (codebook_matmul_ref,
+                                                     decode)
 from repro_torch.kernels.fake_quant import fake_quant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -419,3 +420,164 @@ def test_codebook_matmul_cuda_out_of_range_follows_oracle(cuda_device):
     out = codebook_matmul(x, idx, cb)
     assert out.tolist() == [[16.0, 16.0, 16.0, 1.0, 4.0]]
     assert torch.equal(out, codebook_matmul_ref(x, idx, cb))
+
+
+
+def _cb_inputs(m, k, n, x_dtype, device, codes=16, seed=9, cb_scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, codes, (k, n)).astype(
+        np.int8 if codes <= 128 else np.int32))
+    cb = torch.from_numpy((np.sort(rng.standard_normal(codes)) * cb_scale)
+                          .astype(np.float32))
+    return x.to(device, x_dtype), idx.to(device), cb.to(device)
+
+
+def _cb_check(out, x, idx, cb):
+    """f32: rtol 1e-4, atol 1e-4 x sqrt(K) of the plain version; bf16:
+    one quantum plus SUM_ROUNDOFFS f32 roundoffs of sum |x||c|."""
+    ref = codebook_matmul_ref(x, idx, cb)
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4,
+                                   atol=1e-4 * x.shape[1] ** 0.5)
+    else:
+        abs_sum = x.float().abs() @ decode(idx, cb).abs()
+        assert _bf16_excess(out, ref, abs_sum).max().item() <= SUM_ROUNDOFFS
+
+
+def _cb_route_launch(x, idx, cb, route):
+    """codebook_matmul(x, idx, cb), checked to launch once on ``route``."""
+    before = dict(codebook_matmul.route_launches)
+    out = codebook_matmul(x, idx, cb)
+    after = codebook_matmul.route_launches
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,codes", [((64, 128, 64), 16),
+                                         ((130, 256, 144), 16),
+                                         ((1, 128, 64), 16),
+                                         ((130, 256, 144), 256),
+                                         ((72, 1024, 80), 16),
+                                         ((96, 200, 112), 16)])
+def test_codebook_matmul_cuda_wgmma(shape, codes, x_dtype, cuda_device):
+    """The tensor-core route for f32 and bf16 x, int8 (k = 16) and int32
+    (k = 256) indices, ragged M and N, one row, (72, 1024, 80), whose K
+    the plan splits in 4, and K = 200, not a multiple of the 64-deep
+    step: within the bar of its dtype (f32: rtol 1e-4, atol 1e-4 x
+    sqrt(K); bf16: one quantum plus 16 f32 roundoffs of sum |x||c|), one
+    launch, on the wgmma kernel."""
+    x, idx, cb = _cb_inputs(*shape, x_dtype, cuda_device, codes)
+    _cb_check(_cb_route_launch(x, idx, cb, "wgmma"), x, idx, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["x_col_major", "idx_col_major",
+                                    "int64", "x_misaligned"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_codebook_matmul_cuda_layouts(layout, x_dtype, cuda_device):
+    """Transposed views read in place (x column-major; int8 idx
+    column-major, which the wgmma route narrows to row-major bytes first),
+    int64 indices narrowed by the wrapper, and an x whose base is 4 bytes
+    off 16, which TMA refuses: the CUDA-core route."""
+    x, idx, cb = _cb_inputs(136, 192, 160, x_dtype, cuda_device)
+    want = "wgmma"
+    if layout == "x_col_major":
+        x = x.t().contiguous().t()
+    elif layout == "idx_col_major":
+        idx = idx.t().contiguous().t()
+    elif layout == "int64":
+        idx = idx.long()
+    else:
+        buf = torch.zeros(x.numel() + 8, dtype=x_dtype, device=cuda_device)
+        off = 4 // x.element_size()
+        x = buf[off:off + x.numel()].view(x.shape).copy_(x)
+        want = "simt"
+    _cb_check(_cb_route_launch(x, idx, cb, want), x, idx, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2.0 ** -120, 2.0 ** 100],
+                         ids=["tiny", "huge"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_codebook_matmul_cuda_wgmma_tiny_and_huge_codewords(scale, x_dtype,
+                                                            cuda_device):
+    """Codewords near 2^100, with the largest f32 among them (its first
+    bf16 term must not round up to inf): the products span 2^28, so a
+    sum can cancel far below its terms and the per-element rtol says
+    nothing; both dtypes are held to the bf16 rule's sum term, 16 f32
+    roundoffs of sum |x||c| (plus one quantum for bf16). Codewords near
+    2^-120, where the third term loses the bits below bf16's subnormal
+    floor (2^-133) and products fall below f32's normal range: f32 x
+    within the f32 bar (its atol), bf16 x within one bf16 quantum plus
+    2^-126 x sum |x| of the plain version. All on the wgmma route, all
+    finite."""
+    x, idx, cb = _cb_inputs(64, 256, 128, x_dtype, cuda_device,
+                            cb_scale=scale)
+    if scale > 1:
+        x = (x.float() * 2.0 ** -40).to(x_dtype)
+        cb[-1] = torch.finfo(torch.float32).max
+    out = _cb_route_launch(x, idx, cb, "wgmma")
+    assert torch.isfinite(out.float()).all()
+    ref = codebook_matmul_ref(x, idx, cb).float()
+    if scale > 1:
+        abs_sum = x.float().abs() @ decode(idx, cb).abs()
+        gap = (out.float() - ref).abs() / (2.0 ** -24 * abs_sum)
+        if x_dtype == torch.bfloat16:
+            gap = _bf16_excess(out, ref, abs_sum)
+        assert gap.max().item() <= SUM_ROUNDOFFS
+    elif x_dtype == torch.float32:
+        _cb_check(out, x, idx, cb)
+    else:
+        quantum = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+        floor = 2.0 ** -126 * x.float().abs().sum(1, keepdim=True)
+        assert torch.all((out.float() - ref).abs() <= quantum + floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_codebook_matmul_cuda_wgmma_out_of_range_follows_oracle(
+        idx_dtype, x_dtype, cuda_device):
+    """The oracle's index rules on the wgmma route, for int8 read in
+    place and int32 narrowed first: -1 reads the last codeword, past the
+    end the last, far below zero the first."""
+    cb = torch.arange(16, dtype=torch.float32, device=cuda_device) + 1.0
+    idx = torch.full((8, 16), 3, dtype=idx_dtype, device=cuda_device)
+    idx[0, :5] = torch.tensor([-1, 16, 20, -20, 3])
+    if idx_dtype == torch.int32:
+        idx[1, :2] = torch.tensor([1 << 30, -(1 << 30)])
+    x = torch.zeros((16, 8), dtype=x_dtype, device=cuda_device)
+    x[0, 0] = x[1, 1] = 1.0
+    out = _cb_route_launch(x, idx, cb, "wgmma")
+    assert out[0, :5].tolist() == [16.0, 16.0, 16.0, 1.0, 4.0]
+    if idx_dtype == torch.int32:
+        assert out[1, :2].tolist() == [16.0, 1.0]
+    assert torch.equal(out, codebook_matmul_ref(x, idx, cb))
+
+
+@pytest.mark.cuda
+def test_codebook_matmul_cuda_route_launches(cuda_device):
+    """One launch a call, counted on the route that ``route`` names:
+    wgmma for aligned f32 and bf16 x, simt for rows TMA refuses."""
+    from repro_torch.kernels.codebook_matmul.ops import route
+    for shape, want in (((64, 128, 64), "wgmma"), ((64, 129, 64), "simt")):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, idx, cb = _cb_inputs(*shape, x_dtype, cuda_device)
+            assert route(x, idx) == want
+            launches = codebook_matmul.launches
+            _cb_check(_cb_route_launch(x, idx, cb, want), x, idx, cb)
+            assert codebook_matmul.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_codebook_matmul_cuda_wgmma_pads_f32_planes(cuda_device):
+    """f32 x with K = 204: TMA reads its 816-byte rows, and the wrapper
+    pads its bf16 planes' rows to 208 elements (TMA needs 16-byte rows),
+    which the kernel never reads."""
+    x, idx, cb = _cb_inputs(40, 204, 48, torch.float32, cuda_device)
+    _cb_check(_cb_route_launch(x, idx, cb, "wgmma"), x, idx, cb)

@@ -21,7 +21,8 @@ from repro_torch.core.compression.clustering import (assign_codebook,
                                                      kmeans_codebook)
 from repro_torch.kernels import codebook_matmul, masked_matmul
 from repro_torch.kernels.codebook_matmul.ops import narrow_indices
-from repro_torch.kernels.codebook_matmul.ref import codebook_matmul_ref
+from repro_torch.kernels.codebook_matmul.ref import (codebook_matmul_ref,
+                                                     decode, wgmma_emulation)
 from repro_torch.kernels.masked_matmul.ops import (backend, route,
                                                    wgmma_plan)
 
@@ -200,6 +201,31 @@ def test_codebook_matmul_matches_reference(idx_dtype):
         np.testing.assert_allclose(
             out, np.asarray(fn(jnp.asarray(x), jnp.asarray(idx),
                                jnp.asarray(cb))), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_codebook_wgmma_emulation_matches_reference(x_dtype):
+    """The port's wgmma route, emulated in f32 (three exact bf16 terms
+    per codeword, f32 x split the same way, the kernel's products per
+    16-deep K step), against the reference's oracle on the same numpy
+    inputs: f32 x within rtol 1e-4 / atol 1e-4 x sqrt(K), bf16 x within
+    one bf16 quantum plus 16 f32 roundoffs of sum |x||c|."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((48, 320)).astype(np.float32)
+    idx = rng.integers(0, 16, (320, 80)).astype(np.int8)
+    cb = np.sort(rng.standard_normal(16)).astype(np.float32)
+    jx = jnp.asarray(x).astype(x_dtype)
+    ref = np.asarray(j_codebook_ref(jx, jnp.asarray(idx), jnp.asarray(cb))
+                     .astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    ti, tc = torch.from_numpy(idx), torch.from_numpy(cb)
+    out = wgmma_emulation(tx, ti, tc).float().numpy()
+    if x_dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=1e-4,
+                                   atol=1e-4 * 320 ** 0.5)
+    else:
+        abs_sum = (tx.float().abs() @ decode(ti, tc).abs()).numpy()
+        assert _bf16_within(out, ref, abs_sum)
 
 
 def test_codebook_matmul_reference_out_of_range_band():
