@@ -2,16 +2,22 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's six CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and prints the compiler's resource
-   report.
+1. Builds the port's five CUDA sources from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, in parallel) and prints the compiler's
+   resource report.
 2. Phase "kernels": calls every kernel at the shapes its paths give it
    and holds it against its plain PyTorch version on the card:
-   - grad_aggregate and structured_scatter at the FL round's shapes (the
-     paper MLP, the 256-wide width-fleet MLP, a ragged size, scalar
-     masks): structured_scatter bitwise, grad_aggregate bitwise against
-     the port's accumulate_cohort -> finalize chain and to atol 1e-6
-     against its plain version;
+   - the grouped aggregation kernel (fleet_aggregate) through the
+     reference's one-leaf APIs at the FL round's shapes (the paper MLP,
+     the 256-wide width-fleet MLP, a ragged size, scalar masks):
+     structured_scatter bitwise its plain version, grad_aggregate
+     bitwise the port's accumulate_cohort -> finalize chain and to atol
+     1e-6 against its plain version, each call's launches counted; then
+     llama3.2-3b's ``layers.mlp.wi.w`` (3072, 8192) at T = 4 with full
+     0/1 masks and as its width twin, bitwise, with the achieved TB/s;
+     the event time of a one-element ``x.add_(0)`` as the launch floor;
+     and the grouped launch captured in a CUDA graph and replayed,
+     bitwise the eager call, also after its inputs change in place;
    - fake_quant bitwise against the plain ``quantize_em`` for every
      format with e > 0, at every compressible leaf shape of llama3.2-3b
      (full config) and the paper MLP's leaf and upload shapes, with
@@ -62,9 +68,12 @@
    width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
    error feedback on the six-tier quickstart fleet (scan, scan_pallas).
    Launch counters are zeroed just before each scan_pallas run and read
-   just after; scan_pallas must equal scan bitwise on the masked and
-   width fleets; losses must be finite and fall; a small run must agree
-   with the port's CPU path.
+   just after: one fleet_aggregate launch a round, none through the
+   one-leaf wrappers; scan_pallas must equal scan bitwise on the masked
+   and width fleets; losses must be finite and fall; a small run must
+   agree with the port's CPU path. Then one real round's aggregation
+   step of each fleet: the grouped call bitwise the sequential chain and
+   the per-leaf route, each timed.
    Phase "client": the per-client runtime on the paper's 8-device
    Dirichlet fleet (4000 samples, alpha 0.5), 60 rounds each of all-hub
    FedSGD, hetero FedSGD, FedAvg and fp8 uploads with EF: losses fall,
@@ -97,7 +106,8 @@ Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window of each FL
 fleet, of the client and async runtimes, one serve call and one train
-step, then the kernels JSON line (all six kernels; flash_attention,
+step, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
+structured_scatter both from the grouped kernel; flash_attention,
 masked_matmul and codebook_matmul once per route, each row with its
 device ms and its max_abs_err over its route's cases in the dtype of its
 ms) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero. Needs a
@@ -124,6 +134,7 @@ TRAIN_LAYERS = 4                    # the train phase's depth cut (of 28)
 TRAIN_STEPS = 5
 BENCH_TIERS = ("hub", "high", "mid", "low")
 QUICKSTART_TIERS = ("hub", "high", "mid", "mid", "low", "embedded")
+LARGE_LEAF = (3072, 8192)           # llama3.2-3b's layers.mlp.wi.w
 
 
 class CheckFailed(Exception):
@@ -224,7 +235,7 @@ def _grad_cases(device):
 def _scatter_cases(device):
     """(label, gs, ms, out_shape) per same-signature leaf group of the
     paper MLP's and the wide MLP's width fleet (tiers hub/high/mid/low =
-    widths 1, 1, 0.5, 0.25), as the engine batches them."""
+    widths 1, 1, 0.5, 0.25)."""
     import torch
     from repro_torch.configs.paper_mlp import MLPConfig, config
     from repro_torch.core.compression import DEVICE_TIERS, submodel_spec
@@ -252,23 +263,122 @@ def _scatter_cases(device):
     return cases
 
 
+def _scatter_plain(gs, ms, wn, wd, shape):
+    """The plain version of a batched structured_scatter call: each of
+    the L leaves through the one-leaf chain."""
+    import torch
+    from repro_torch.kernels.fleet_aggregate.ref import aggregate_leaf_ref
+    from repro_torch.kernels.structured_scatter.ref import leaf_views
+    g3s, m3s, (L, R, C) = leaf_views(gs, ms, shape)
+    return torch.stack([aggregate_leaf_ref(
+        (R, C), [(g[l], m[l]) for g, m in zip(g3s, m3s)], wn, wd)
+        for l in range(L)]).reshape((L,) + tuple(shape))
+
+
+def _large_leaf_cases(device):
+    """(label, leaves) for llama3.2-3b's ``layers.mlp.wi.w`` (3072, 8192)
+    at T = 4 (the bench tiers): full 0/1 masks on every tier (masked),
+    and its width twin, each tier's prefix block from ``submodel_spec``
+    with the leaf between two others, as in the model."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS, submodel_spec
+    shape = LARGE_LEAF
+    meta = {"wq": torch.empty((8, shape[0]), device="meta"),
+            "wi": torch.empty(shape, device="meta"),
+            "wo": torch.empty((shape[1], 8), device="meta")}
+    locs = {"masked": [shape] * 4,
+            "width": [submodel_spec(
+                meta, DEVICE_TIERS[t].as_width_sliced().width).local_shape(1)
+                for t in BENCH_TIERS]}
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = []
+    for tag, loc in locs.items():
+        tiers = [(torch.randn(s, generator=gen, device=device),
+                  (torch.rand(s, generator=gen, device=device) < 0.6).float())
+                 for s in loc]
+        cases.append((f"llama_wi_{tag}", {"layers.mlp.wi.w": (shape, tiers)}))
+    return cases
+
+
+def _leaves_bytes(leaves: dict) -> int:
+    """Bytes a grouped call must move: each tier's update and mask read
+    once (a scalar mask is 4 bytes), each output written once."""
+    import math
+    return sum(sum(g.numel() * 4 + m.numel() * 4 for g, m in tiers)
+               + math.prod(shape) * 4 for shape, tiers in leaves.values())
+
+
+def _graph_replay_check(device) -> None:
+    """The grouped launch captured in a CUDA graph, replayed, bitwise the
+    eager call, also after its inputs change in place."""
+    import torch
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.core.compression import DEVICE_TIERS, submodel_spec
+    from repro_torch.configs.paper_mlp import config
+    params = _mlp_params(config(), "cpu")
+    gen = torch.Generator().manual_seed(4)
+    specs = [submodel_spec(params, DEVICE_TIERS[t].as_width_sliced().width)
+             for t in BENCH_TIERS]
+    leaves = {}
+    for i, (k, p) in enumerate(params.items()):
+        tiers = []
+        for s in specs:
+            loc = s.local_shape(i)
+            m = ((torch.rand(loc, generator=gen) < 0.7).float() if p.dim() > 1
+                 else torch.ones(()))
+            tiers.append((torch.randn(loc, generator=gen).to(device),
+                          m.to(device)))
+        leaves[k] = (tuple(p.shape), tiers)
+    wn, wd = [1.0, 1.0, 1.0, 1.0], [64.0, 64.0, 0.0, 64.0]
+    eager = {k: v.clone() for k, v in fleet_aggregate(leaves, wn, wd).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fleet_aggregate(leaves, wn, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fleet_aggregate(leaves, wn, wd)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(all(torch.equal(out[k], eager[k]) for k in leaves),
+          "fleet_aggregate captured in a CUDA graph: replay == eager "
+          "(bitwise)")
+    for _, tiers in leaves.values():
+        for g, _ in tiers:
+            g.mul_(-3.0)
+    graph.replay()
+    want = fleet_aggregate(leaves, wn, wd)
+    torch.cuda.synchronize()
+    check(all(torch.equal(out[k], want[k]) for k in leaves),
+          "fleet_aggregate graph replay after in-place input changes == "
+          "eager (bitwise)")
+
+
 def phase_kernels(device) -> dict:
     import torch
     from repro_torch.core.aggregation import accumulate_cohort, f32, finalize
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.kernels.fleet_aggregate.ref import aggregate_leaf_ref
     from repro_torch.kernels.grad_aggregate import grad_aggregate
     from repro_torch.kernels.grad_aggregate.ref import grad_aggregate_ref
     from repro_torch.kernels.structured_scatter import (
         structured_scatter_batched)
-    from repro_torch.kernels.structured_scatter.ref import (
-        leaf_views, scatter_views_ref)
+    from repro_torch.kernels.structured_scatter.ops import structured_scatter
     w = [1.0, 1.0, 1.0, 1.0]
     counts = [64.0, 64.0, 0.0, 64.0]
     wd = [f32(f32(a) * f32(c)) for a, c in zip(w, counts)]
     rows = {}
+    one = torch.zeros(1, device=device)
+    floor_ms = time_ms(lambda: one.add_(0))
+    print(f"kernel launch floor: x.add_(0) on one element ms={floor_ms:.6f}")
 
     err = 0.0
     for lbl, g, m in _grad_cases(device):
+        before = fleet_aggregate.launches
         out = grad_aggregate(g, m, w, w_den=wd)
+        check(fleet_aggregate.launches == before + 1,
+              f"grad_aggregate {lbl}: one fleet_aggregate launch")
         plain = grad_aggregate_ref(g, m, w, wd)
         acc = ({"x": torch.zeros_like(out)},
                {"x": torch.zeros_like(out)})
@@ -289,10 +399,11 @@ def phase_kernels(device) -> dict:
         ms = time_ms(lambda: grad_aggregate(g, m, w, w_den=wd))
         pms = time_ms(lambda: grad_aggregate_ref(g, m, w, wd))
         dms = kernel_device_ms(lambda: grad_aggregate(g, m, w, w_den=wd),
-                               "grad_aggregate_kernel")
+                               "fleet_aggregate_kernel")
         print(f"kernel grad_aggregate {lbl} T=4 N={t_n}: ms={ms:.6f} "
-              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
-              f"device_ms={dms} bytes={n_bytes}")
+              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.7f} "
+              f"device_ms={dms} bytes={n_bytes} launches_per_call=1 "
+              f"launch_floor_ms={floor_ms:.6f}")
         if lbl == "paper(10, 10)":
             rows["grad_aggregate"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
                                           bound_ms=bound_ms(n_bytes))
@@ -300,10 +411,10 @@ def phase_kernels(device) -> dict:
 
     err = 0.0
     for lbl, gs, ms_, shape in _scatter_cases(device):
+        before = fleet_aggregate.launches
         out = structured_scatter_batched(gs, ms_, w, wd, out_shape=shape)
-        g3s, m3s, scalar, lrc = leaf_views(gs, ms_, shape)
-        plain = scatter_views_ref(g3s, m3s, scalar, w, wd, lrc).reshape(
-            out.shape)
+        n_launch = fleet_aggregate.launches - before
+        plain = _scatter_plain(gs, ms_, w, wd, shape)
         torch.cuda.synchronize()
         check(torch.equal(out, plain),
               f"structured_scatter {lbl} == plain version (bitwise)")
@@ -313,19 +424,43 @@ def phase_kernels(device) -> dict:
                    + out.numel() * 4)
         kms = time_ms(lambda: structured_scatter_batched(gs, ms_, w, wd,
                                                          out_shape=shape))
-        pms = time_ms(lambda: scatter_views_ref(g3s, m3s, scalar, w, wd, lrc))
+        pms = time_ms(lambda: _scatter_plain(gs, ms_, w, wd, shape))
         dms = kernel_device_ms(
             lambda: structured_scatter_batched(gs, ms_, w, wd, out_shape=shape),
-            "structured_scatter_kernel")
-        print(f"kernel structured_scatter {lbl} L={lrc[0]} "
+            "fleet_aggregate_kernel")
+        print(f"kernel structured_scatter {lbl} L={gs[0].shape[0]} "
               f"locals={[tuple(g.shape[1:]) for g in gs]}: ms={kms:.6f} "
-              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
-              f"device_ms={dms} bytes={n_bytes}")
+              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.7f} "
+              f"device_ms={dms} bytes={n_bytes} launches_per_call={n_launch}")
         if lbl == "paper(10, 10)x4":
             rows["structured_scatter"] = dict(ms=kms, plain_ms=pms,
                                               device_ms=dms,
                                               bound_ms=bound_ms(n_bytes))
     rows["structured_scatter"]["max_abs_err"] = err
+    check(structured_scatter.launches > 0, "structured_scatter counts its "
+                                           "launches")
+
+    wn = [1.0, 1.0, 1.0, 1.0]
+    for lbl, leaves in _large_leaf_cases(device):
+        out = fleet_aggregate(leaves, wn, wd)
+        for k, (shape, tiers) in leaves.items():
+            plain = aggregate_leaf_ref(shape, tiers, wn, wd)
+            torch.cuda.synchronize()
+            check(torch.equal(out[k], plain),
+                  f"fleet_aggregate {lbl} == plain version (bitwise)")
+        del out, plain
+        n_bytes = _leaves_bytes(leaves)
+        ms = time_ms(lambda: fleet_aggregate(leaves, wn, wd), reps=10, inner=10)
+        dms = kernel_device_ms(lambda: fleet_aggregate(leaves, wn, wd),
+                               "fleet_aggregate_kernel", calls=50)
+        locs = [tuple(g.shape) for g, _ in next(iter(leaves.values()))[1]]
+        print(f"kernel fleet_aggregate {lbl} T=4 locals={locs}: ms={ms:.6f} "
+              f"device_ms={dms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
+              f"bytes={n_bytes} TB/s={n_bytes / ms / 1e9:.3f} "
+              f"device_TB/s={n_bytes / dms / 1e9:.3f}")
+        del leaves
+        torch.cuda.empty_cache()
+    _graph_replay_check(device)
     return rows
 
 
@@ -997,26 +1132,124 @@ def _run(scenario, engine, device, label):
     return res
 
 
-def _fused_run(scenario, device, label, expect_backend, per_round):
+def _fused_run(scenario, device, label, expect_backend):
     """The main path: scan_pallas with every launch counter zeroed just
-    before and read just after."""
+    before and read just after; one fleet_aggregate launch a round, and
+    none through the one-leaf wrappers."""
     from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
     from repro_torch.kernels.grad_aggregate import grad_aggregate
     from repro_torch.kernels.structured_scatter import structured_scatter
-    grad_aggregate.launches = 0
-    structured_scatter.launches = 0
-    fake_quant.launches = 0
+    counters = {"fleet_aggregate": fleet_aggregate,
+                "grad_aggregate": grad_aggregate,
+                "structured_scatter": structured_scatter,
+                "fake_quant": fake_quant}
+    for fn in counters.values():
+        fn.launches = 0
     res = _run(scenario, "scan_pallas", device, label)
-    got = {"grad_aggregate": grad_aggregate.launches,
-           "structured_scatter": structured_scatter.launches,
-           "fake_quant": fake_quant.launches}
+    got = {k: fn.launches for k, fn in counters.items()}
     print(f"slice {label}: launches={json.dumps(got)} per_round="
           f"{json.dumps({k: v / ROUNDS for k, v in got.items()})}")
     check(res.agg_backend == expect_backend,
           f"{label}: agg_backend == {expect_backend!r}")
-    for k, n in per_round.items():
+    for k, n in (("fleet_aggregate", 1), ("grad_aggregate", 0),
+                 ("structured_scatter", 0)):
         check(got[k] == n * ROUNDS, f"{label}: {k} launched {n} per round")
     return res, got
+
+
+def _per_leaf_route(params, per_cohort, sliced: bool):
+    """The round's aggregation one launch per leaf, as the engine ran it
+    before the grouped kernel: masked fleets ``grad_aggregate`` on each
+    >=2-D leaf over the cohorts stacked on a tier axis and the chain on
+    1-D leaves; width fleets ``structured_scatter_batched`` per group of
+    same-signature leaves, stacked."""
+    import torch
+    from repro_torch.core.aggregation import accumulate_cohort, f32, finalize
+    from repro_torch.kernels.grad_aggregate import grad_aggregate
+    from repro_torch.kernels.structured_scatter import (
+        structured_scatter_batched)
+    wn = [f32(w) for (_, _, w, _) in per_cohort]
+    wd = [f32(f32(w) * f32(c)) for (_, _, w, c) in per_cohort]
+    out = {}
+    if sliced:
+        groups: dict = {}
+        for k, p in params.items():
+            sig = (tuple(p.shape),
+                   tuple(tuple(g[k].shape) for (g, _, _, _) in per_cohort),
+                   tuple(m[k].dim() == 0 for (_, m, _, _) in per_cohort))
+            groups.setdefault(sig, []).append(k)
+        for (shape, _, _), ks in groups.items():
+            res = structured_scatter_batched(
+                [torch.stack([g[k] for k in ks]) for (g, _, _, _) in per_cohort],
+                [torch.stack([m[k] for k in ks]) for (_, m, _, _) in per_cohort],
+                wn, wd, out_shape=shape)
+            for j, k in enumerate(ks):
+                out[k] = res[j]
+        return out
+    for k, p in params.items():
+        g_t = [g[k] for (g, _, _, _) in per_cohort]
+        m_t = [m[k] for (_, m, _, _) in per_cohort]
+        if p.dim() >= 2:
+            ms = (torch.stack(m_t) if all(m.dim() == 0 for m in m_t) else
+                  torch.stack([m.expand(p.shape) for m in m_t]))
+            out[k] = grad_aggregate(torch.stack(g_t), ms, wn, w_den=wd)
+            continue
+        acc = ({"x": torch.zeros_like(p)},
+               {"x": torch.zeros((), dtype=torch.float32, device=p.device)})
+        for t, (_, _, w, count) in enumerate(per_cohort):
+            acc = accumulate_cohort(acc, {"x": g_t[t]}, {"x": m_t[t]},
+                                    w, count)
+        out[k] = finalize(acc)["x"]
+    return out
+
+
+def aggregation_step(scenario, device, label: str) -> None:
+    """One real round's aggregation (the cohorts' updates and masks of the
+    round as ``ScanEngine`` hands them over): the grouped call bitwise the
+    sequential chain and the per-leaf route, each timed with CUDA events,
+    the grouped call's device time, launches and bytes bound."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.fl import ScanEngine, build_server
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.models import mlp
+    srv = build_server(scenario, types.SimpleNamespace(loss_fn=mlp.loss_fn),
+                       optim.sgd(1.0),
+                       mlp.init(torch.Generator().manual_seed(0), config()),
+                       device=device)
+    eng = ScanEngine(srv, agg="pallas")
+    seen = []
+    fused = eng._aggregate_fused
+    eng._aggregate_fused = lambda p, pc: seen.append((p, pc)) or fused(p, pc)
+    eng.run(1)
+    params, per_cohort = seen[0]
+    before = fleet_aggregate.launches
+    got = fused(params, per_cohort)
+    n_launch = fleet_aggregate.launches - before
+    chain = eng._aggregate_sequential(params, per_cohort)
+    leaf = _per_leaf_route(params, per_cohort, eng._any_sliced)
+    torch.cuda.synchronize()
+    check(all(torch.equal(got[k], chain[k]) and torch.equal(leaf[k], chain[k])
+              for k in params),
+          f"{label}: the round's grouped aggregation == the sequential chain "
+          f"== the per-leaf route (bitwise)")
+    leaves = {k: (p.shape, [(g[k], m[k]) for (g, m, _, _) in per_cohort])
+              for k, p in params.items()}
+    n_bytes = _leaves_bytes(leaves)
+    ms = time_ms(lambda: fused(params, per_cohort))
+    chain_ms = time_ms(lambda: eng._aggregate_sequential(params, per_cohort))
+    leaf_ms = time_ms(lambda: _per_leaf_route(params, per_cohort,
+                                              eng._any_sliced))
+    dms = kernel_device_ms(lambda: fused(params, per_cohort),
+                           "fleet_aggregate_kernel")
+    print(f"slice {label} aggregation step: leaves={len(params)} "
+          f"tiers={len(per_cohort)} grouped_ms={ms:.6f} "
+          f"device_ms={dms:.6f} launches={n_launch} "
+          f"bound_ms={bound_ms(n_bytes):.7f} bytes={n_bytes} "
+          f"chain_ms={chain_ms:.6f} per_leaf_route_ms={leaf_ms:.6f}")
 
 
 def _same_params(a, b) -> float:
@@ -1098,33 +1331,37 @@ def phase_slice(device) -> dict:
     # warm-up: first CUDA use of each path (library handles, kernel loads)
     for sc in (masked, width):
         simulate(sc, 2, engine="scan_pallas", device=device)
+    # the kernels line's rows: the grouped kernel stands for grad_aggregate
+    # on masked and fedavg fleets, for structured_scatter on width fleets
     launches = {"grad_aggregate": 0, "structured_scatter": 0, "fake_quant": 0}
 
     _run(masked, "eager", device, "masked")
     ref = _run(masked, "scan", device, "masked")
-    res, got = _fused_run(masked, device, "masked", "pallas",
-                          {"grad_aggregate": 6, "structured_scatter": 0})
-    launches = {k: launches[k] + v for k, v in got.items()}
+    res, got = _fused_run(masked, device, "masked", "pallas")
+    launches["grad_aggregate"] += got["fleet_aggregate"]
+    launches["fake_quant"] += got["fake_quant"]
     check(_same_params(ref.params, res.params) == 0.0,
           "masked: scan_pallas params == scan params (bitwise)")
 
     _run(width, "eager", device, "width")
     ref = _run(width, "scan", device, "width")
-    res, got = _fused_run(width, device, "width", "pallas_structured",
-                          {"grad_aggregate": 0, "structured_scatter": 5})
-    launches = {k: launches[k] + v for k, v in got.items()}
+    res, got = _fused_run(width, device, "width", "pallas_structured")
+    launches["structured_scatter"] += got["fleet_aggregate"]
+    launches["fake_quant"] += got["fake_quant"]
     check(_same_params(ref.params, res.params) == 0.0,
           "width: scan_pallas params == scan params (bitwise)")
 
     ref = _run(fedavg, "scan", device, "fedavg_fp8_ef")
-    res, got = _fused_run(fedavg, device, "fedavg_fp8_ef", "pallas",
-                          {"grad_aggregate": 6, "structured_scatter": 0})
-    launches = {k: launches[k] + v for k, v in got.items()}
+    res, got = _fused_run(fedavg, device, "fedavg_fp8_ef", "pallas")
+    launches["grad_aggregate"] += got["fleet_aggregate"]
+    launches["fake_quant"] += got["fake_quant"]
     d = _same_params(ref.params, res.params)
     print(f"slice fedavg_fp8_ef: scan_pallas vs scan max_abs_err={d}")
     check(d <= 1e-5, "fedavg_fp8_ef: scan_pallas params == scan to 1e-5")
-    for label, sc in (("masked", masked), ("width", width),
-                      ("fedavg_fp8_ef", fedavg)):
+    fleets = (("masked", masked), ("width", width), ("fedavg_fp8_ef", fedavg))
+    for label, sc in fleets:
+        aggregation_step(sc, device, label)
+    for label, sc in fleets:
         profile_rounds(sc, device, label)
     return launches
 
@@ -1590,13 +1827,16 @@ def main() -> int:
             ("codebook_matmul_wgmma",
              "src/repro/kernels/codebook_matmul/kernel.py:40")):
         r = rows[name]
+        # one grouped kernel stands for both aggregation kernels
+        source = ("fleet_aggregate" if name in ("grad_aggregate",
+                                                "structured_scatter")
+                  else name.removesuffix("_wgmma"))
         if launches[name] <= 0:
             print(f"CHECK FAILED: {name} never launched on its main path",
                   file=sys.stderr)
             return 1
         kernels.append({"name": name, "route": "cuda",
-                        "source": "src/repro_torch/csrc/"
-                                  f"{name.removesuffix('_wgmma')}.cu",
+                        "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "device_ms": r["device_ms"],

@@ -19,18 +19,21 @@ Aggregation backends (``agg``; the one actually used is ``agg_backend``):
 
 - ``"sequential"``: the eager accumulate/scatter -> finalize chain.
 - ``"pallas"`` (the reference's name; in the port, the hand-written CUDA
-  kernels): masked fleets stack the cohorts on a tier axis and run
-  ``grad_aggregate`` on every >=2-D leaf (1-D leaves keep the chain);
-  fleets with a real width slice run ``structured_scatter`` on EVERY
-  leaf, leaves of one signature batched into one launch. Reported
-  ``"pallas"`` / ``"pallas_structured"``. Both kernels fold the tiers in
-  cohort order with the chain's exact arithmetic, so the fused backends
-  are bitwise the sequential one.
+  kernel): ONE ``fleet_aggregate`` launch aggregates every leaf of the
+  round (per 16 leaves), reading each cohort's update and mask where
+  they lie; a masked tier covers the whole leaf, a width-sliced tier the
+  prefix block of its slice. Reported ``"pallas"``, or
+  ``"pallas_structured"`` for fleets with a real width slice (the
+  reference's names for its two kernels). The kernel folds the tiers in
+  cohort order with the chain's exact arithmetic, so the fused backend
+  is bitwise the sequential one.
 
 :class:`WindowScanEngine` is the async counterpart: chunks of
 ``AsyncFLServer`` windows, host-materialized, one sync per chunk.
 
-A CUDA-graph capture of a chunk is later speed work (ROADMAP).
+The aggregation launch copies nothing host -> device, so it can be
+captured in a CUDA graph; capturing a chunk is later speed work
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -39,8 +42,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
-                                          scatter_accumulate, zeros_like_acc)
+from repro_torch.core.aggregation import (f32, finalize, scatter_accumulate,
+                                          zeros_like_acc)
 from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
                                         _apply_fns, _cohort_upload,
                                         _init_cohort_ef, _local_param_struct,
@@ -48,14 +51,6 @@ from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
 from repro_torch.core.schedule import materialize_windows
 
 AGG_BACKENDS = ("sequential", "pallas")
-
-
-def _stack_masks(ms: list[torch.Tensor], shape: tuple) -> torch.Tensor:
-    """Per-tier masks of one leaf on a tier axis: ``(T,)`` when every
-    mask is a scalar, else ``(T, *shape)``."""
-    if all(m.dim() == 0 for m in ms):
-        return torch.stack(ms)
-    return torch.stack([m.expand(shape) for m in ms])
 
 
 @dataclass
@@ -113,70 +108,18 @@ class ScanEngine:
                                      weight, count)
         return finalize(acc)
 
-    @staticmethod
-    def _weights(per_cohort):
-        """Numerator weights ``w`` and denominator weights ``w·n_part``,
-        the latter rounded one multiply early like the chain's."""
+    def _aggregate_fused(self, params, per_cohort):
+        """Every leaf of the round in one ``fleet_aggregate`` call (one
+        launch per ``MAX_LEAVES`` leaves): each cohort's update and mask
+        read in place, masked tiers covering the whole leaf, width-sliced
+        tiers their prefix block. Denominator weights are ``w·n_part``,
+        rounded one multiply early like the chain's."""
+        from repro_torch.kernels.fleet_aggregate import fleet_aggregate
         wn = [f32(w) for (_, _, w, _) in per_cohort]
         wd = [f32(f32(w) * f32(c)) for (_, _, w, c) in per_cohort]
-        return wn, wd
-
-    def _aggregate_structured(self, params, per_cohort):
-        """``structured_scatter`` on every leaf; leaves whose (global
-        shape, per-tier local shapes, per-tier mask kinds) signature
-        repeats — the hidden layers and their biases — go in one batched
-        launch."""
-        from repro_torch.kernels.structured_scatter import (
-            structured_scatter, structured_scatter_batched)
-        wn, wd = self._weights(per_cohort)
-        names = list(params)
-        groups: dict = {}
-        for k in names:
-            sig = (tuple(params[k].shape),
-                   tuple(tuple(g[k].shape) for (g, _, _, _) in per_cohort),
-                   tuple(m[k].dim() == 0 for (_, m, _, _) in per_cohort))
-            groups.setdefault(sig, []).append(k)
-        out = {}
-        for (shape, _, _), ks in groups.items():
-            if len(ks) == 1:
-                k = ks[0]
-                out[k] = structured_scatter(
-                    [g[k] for (g, _, _, _) in per_cohort],
-                    [m[k] for (_, m, _, _) in per_cohort],
-                    wn, wd, out_shape=shape)
-                continue
-            res = structured_scatter_batched(
-                [torch.stack([g[k] for k in ks]) for (g, _, _, _) in per_cohort],
-                [torch.stack([m[k] for k in ks]) for (_, m, _, _) in per_cohort],
-                wn, wd, out_shape=shape)
-            for j, k in enumerate(ks):
-                out[k] = res[j]
-        return {k: out[k] for k in names}
-
-    def _aggregate_fused(self, params, per_cohort):
-        """Masked fleets: ``grad_aggregate`` per >=2-D leaf over the
-        stacked cohorts; 1-D leaves (scalar denominators) replay the
-        chain leaf-wise. Sliced fleets: :meth:`_aggregate_structured`."""
-        if self._any_sliced:
-            return self._aggregate_structured(params, per_cohort)
-        from repro_torch.kernels.grad_aggregate import grad_aggregate
-        wn, wd = self._weights(per_cohort)
-        out = {}
-        for k, p in params.items():
-            g_t = [g[k] for (g, _, _, _) in per_cohort]
-            m_t = [m[k] for (_, m, _, _) in per_cohort]
-            if p.dim() >= 2:
-                out[k] = grad_aggregate(torch.stack(g_t),
-                                        _stack_masks(m_t, tuple(p.shape)),
-                                        wn, w_den=wd)
-                continue
-            acc = ({"x": torch.zeros_like(p)},
-                   {"x": torch.zeros((), dtype=torch.float32, device=p.device)})
-            for t, (_, _, w, count) in enumerate(per_cohort):
-                acc = accumulate_cohort(acc, {"x": g_t[t]}, {"x": m_t[t]},
-                                        w, count)
-            out[k] = finalize(acc)["x"]
-        return out
+        return fleet_aggregate(
+            {k: (p.shape, [(g[k], m[k]) for (g, m, _, _) in per_cohort])
+             for k, p in params.items()}, wn, wd)
 
     # ------------------------------------------------------------ rounds
 

@@ -498,11 +498,11 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
       scenarios run :class:`~repro_torch.core.engine.WindowScanEngine`,
       bitwise the eager windows.
     - ``"scan_pallas"``: ``"scan"`` with fused aggregation. In the port
-      these are the hand-written CUDA kernels (``csrc/``): masked fleets
-      run ``grad_aggregate`` on each >=2-D leaf (``agg_backend ==
-      "pallas"``), width-sliced fleets run ``structured_scatter`` on
-      every leaf (``"pallas_structured"``). Both are bitwise the
-      sequential chain. The async window engine has no tier axis to fuse,
+      that is one launch of the hand-written CUDA kernel
+      ``csrc/fleet_aggregate.cu`` per round over every leaf, masked
+      (``agg_backend == "pallas"``) and width-sliced
+      (``"pallas_structured"``) fleets alike, bitwise the sequential
+      chain. The async window engine has no tier axis to fuse,
       so ``AsyncBuffered`` runs it as ``"scan"``.
 
     The per-client runtime (``runtime="client"``) runs eager whatever

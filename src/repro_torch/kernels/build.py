@@ -20,8 +20,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("grad_aggregate", "structured_scatter", "fake_quant",
-           "flash_attention", "masked_matmul", "codebook_matmul")
+SOURCES = ("fleet_aggregate", "fake_quant", "flash_attention",
+           "masked_matmul", "codebook_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

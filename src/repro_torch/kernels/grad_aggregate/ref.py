@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the grad_aggregate kernel: the tier-ordered
+"""Plain PyTorch version of ``grad_aggregate``: the tier-ordered
 ``num + m*(wn*g)`` / ``den + m*wd`` chain, then the guarded divide —
 the same arithmetic, in the same order, as the CUDA kernel and as
 ``core/aggregation.py``'s accumulate_cohort -> finalize."""

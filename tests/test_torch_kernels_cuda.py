@@ -581,3 +581,148 @@ def test_codebook_matmul_cuda_wgmma_pads_f32_planes(cuda_device):
     which the kernel never reads."""
     x, idx, cb = _cb_inputs(40, 204, 48, torch.float32, cuda_device)
     _cb_check(_cb_route_launch(x, idx, cb, "wgmma"), x, idx, cb)
+
+
+# ------------------------------------------------------- fleet_aggregate
+
+def _fleet_leaves(case: str, device, seed: int = 7):
+    """(leaves, wn, wd) of one round's grouped call: the paper MLP's
+    leaves over the bench tiers masked (full masks on matrices, scalar
+    on biases, a tier of count 0) or width-sliced, the six-tier
+    quickstart fleet masked, or ragged large leaves with sliced tiers."""
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.core.compression import DEVICE_TIERS, submodel_spec
+    from repro_torch.models import mlp
+    rng = np.random.default_rng(seed)
+    if case == "ragged_large":
+        params = {"a": torch.zeros(517, 2051), "b": torch.zeros(512, 2048),
+                  "c": torch.zeros(2051)}
+        locals_ = {"a": [(517, 2051), (517, 2051), (259, 1026), (130, 513)],
+                   "b": [(512, 2048), (512, 2048), (256, 1026), (128, 512)],
+                   "c": [(2051,), (2051,), (1026,), (513,)]}
+        counts = [3.0, 0.0, 5.0, 1.0]
+    else:
+        params = mlp.init(torch.Generator().manual_seed(0), config(), "cpu")
+        tiers = (("hub", "high", "mid", "mid", "low", "embedded")
+                 if case == "six_tier" else ("hub", "high", "mid", "low"))
+        counts = [3.0, 0.0, 5.0, 1.0, 2.0, 4.0][:len(tiers)]
+        specs = [submodel_spec(params, DEVICE_TIERS[t].as_width_sliced().width)
+                 if case == "paper_width" else None for t in tiers]
+        locals_ = {k: [tuple(p.shape) if s is None else s.local_shape(i)
+                       for s in specs]
+                   for i, (k, p) in enumerate(params.items())}
+    T = len(counts)
+    wn = [f32(1.0 + 0.25 * t) for t in range(T)]
+    wd = [f32(a * f32(c)) for a, c in zip(wn, counts)]
+    leaves = {}
+    for k, p in params.items():
+        tiers_ = []
+        for t, loc in enumerate(locals_[k]):
+            g = torch.from_numpy(rng.standard_normal(loc).astype(np.float32))
+            m = (torch.from_numpy((rng.random(loc) < 0.6).astype(np.float32))
+                 if p.dim() >= 2 or t == 3 else torch.ones(()))
+            tiers_.append((g.to(device), m.to(device)))
+        leaves[k] = (tuple(p.shape), tiers_)
+    return leaves, wn, wd
+
+
+def _fleet_plain(leaves, wn, wd):
+    from repro_torch.kernels.fleet_aggregate.ref import aggregate_leaf_ref
+    return {k: aggregate_leaf_ref(s, tiers, wn, wd)
+            for k, (s, tiers) in leaves.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paper_masked", "paper_width", "six_tier",
+                                  "ragged_large"])
+def test_fleet_aggregate_cuda_bitwise_plain_version(case, cuda_device):
+    """Tolerance: none. Every leaf of the group in one launch, bitwise the
+    plain version on the card and on the CPU."""
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    leaves, wn, wd = _fleet_leaves(case, cuda_device)
+    before = fleet_aggregate.launches
+    out = fleet_aggregate(leaves, wn, wd)
+    assert fleet_aggregate.launches == before + 1
+    plain = _fleet_plain(leaves, wn, wd)
+    cpu = {k: (s, [(g.cpu(), m.cpu()) for g, m in tiers])
+           for k, (s, tiers) in leaves.items()}
+    plain_cpu = fleet_aggregate(cpu, wn, wd)
+    for k in leaves:
+        assert torch.equal(out[k], plain[k]), k
+        assert torch.equal(out[k].cpu(), plain_cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_fleet_aggregate_cuda_graph_replay(cuda_device):
+    """The grouped launch captured in a CUDA graph and replayed: bitwise
+    the eager call, also after the inputs change in place (the launch
+    reads them where they lie)."""
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    leaves, wn, wd = _fleet_leaves("paper_width", cuda_device)
+    eager = {k: v.clone() for k, v in fleet_aggregate(leaves, wn, wd).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fleet_aggregate(leaves, wn, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fleet_aggregate(leaves, wn, wd)
+    graph.replay()
+    torch.cuda.synchronize()
+    for k in leaves:
+        assert torch.equal(out[k], eager[k]), k
+    for _, tiers in leaves.values():
+        for g, _ in tiers:
+            g.mul_(-3.0)
+    graph.replay()
+    want = fleet_aggregate(leaves, wn, wd)
+    torch.cuda.synchronize()
+    for k in leaves:
+        assert torch.equal(out[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_t", [8, 6, 5, 7])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fleet_aggregate_cuda_quads_and_tail(c_t, offset, cuda_device):
+    """A leaf of 12 columns runs quads of columns: tiers whose c_t is a
+    multiple of 4 and whose base is 16-byte aligned (offset 0) load 16
+    bytes, the others element by element up to c_t (the scalar tail).
+    Bitwise the plain version either way; a leaf of 13 columns runs one
+    element per thread."""
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    rng = np.random.default_rng(c_t + 10 * offset)
+    leaves = {}
+    for C in (12, 13):
+        tiers = []
+        for r, c in ((9, C), (9, C), (5, c_t), (3, c_t - 4)):
+            buf = torch.from_numpy(
+                rng.standard_normal(r * c + offset).astype(np.float32))
+            g = buf.to(cuda_device)[offset:].view(r, c)
+            m = torch.from_numpy((rng.random((r, c)) < 0.6)
+                                 .astype(np.float32)).to(cuda_device)
+            tiers.append((g, m))
+        leaves[C] = ((9, C), tiers)
+    wn, wd = [1.0, 0.5, 2.0, 1.0], [3.0, 0.0, 10.0, 1.0]
+    out = fleet_aggregate(leaves, wn, wd)
+    plain = _fleet_plain(leaves, wn, wd)
+    for C in leaves:
+        assert torch.equal(out[C], plain[C]), C
+
+
+@pytest.mark.cuda
+def test_fleet_aggregate_cuda_chunks_by_max_leaves(cuda_device):
+    """37 leaves: three launches into one slab, bitwise the plain
+    version."""
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.kernels.fleet_aggregate.ops import MAX_LEAVES
+    base, wn, wd = _fleet_leaves("paper_masked", cuda_device)
+    leaves = {(c, k): v for c in range(4) for k, v in base.items()}
+    leaves = dict(list(leaves.items())[:37])
+    before = fleet_aggregate.launches
+    out = fleet_aggregate(leaves, wn, wd)
+    assert fleet_aggregate.launches == before + -(-37 // MAX_LEAVES)
+    plain = _fleet_plain(leaves, wn, wd)
+    for k in leaves:
+        assert torch.equal(out[k], plain[k]), k
