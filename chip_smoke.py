@@ -84,6 +84,31 @@
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
    (bitwise equal), then the full-buffer, no-discount limit against the
    sync-wait cohort run (1e-6).
+   Phase "faults": the bench fleet under a FaultPolicy. (a)
+   availability, churn and dropouts (seed 5, period 24, duty 0.7, churn
+   0.05, dropout 0.1), 20 rounds eager, scan and scan_pallas on the
+   masked and width fleets: scan_pallas bitwise scan, one fleet_aggregate
+   launch per round with participants (counted into the grad_aggregate /
+   structured_scatter rows), scan within 1e-5 of eager, participant,
+   dropout and deadline-drop counts equal across the engines, rounds
+   with fewer participants than 256. (b) fp8 uploads with EF under
+   repro.fl's policy (corrupt_rate 0.01) and a heavy attack (bit-flips
+   in half of each of 25% of the uploads, clip 1.0), 10 rounds eager and
+   scan: within 1e-5, equal counts, uploads corrupted, params finite,
+   fake_quant launched; the heavy attack without guard and clip leaves
+   non-finite params. (c) the async masked fleet with retried and
+   corrupted uploads, 20 windows, eager and scan bitwise. Each run's ms
+   per round (window) beside the clean run's.
+   Phase "checkpoint": the masked fleet with fp8 EF, 20 rounds with a
+   checkpoint every 5, cut at 10 and resumed: params bitwise and records
+   equal to the uninterrupted run, under (b)'s first policy eager and
+   scan, (a)'s scan_pallas, and (c)'s async run eager and scan; save and
+   restore of a cohort and an async server state timed, with the npz
+   bytes. Then the train launcher on granite-3-2b at full width cut to 1
+   layer (bf16, flash), 4 steps with --ckpt-every 2, its step-4
+   checkpoint removed (what a kill after step 2 leaves) and resumed:
+   steps 3-4 bitwise (losses, tier losses, params), the state's save and
+   restore timed; flash_attention 4 wgmma launches per step.
 4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
    compute), compressed for each tier hub / high / mid / low / embedded
    through ``repro_torch.launch.serve``: batch 4, prompt 64, 32 greedy
@@ -103,7 +128,8 @@
    steps, its flash_attention launches all on the simt kernel.
 
 Prints the card's name and power limit, per-kernel times, launches per
-round and per step, ms per round and per window, val_acc, prefill s,
+round and per step, ms per round and per window (clean and under
+faults), checkpoint save / restore ms and bytes, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window of each FL
 fleet, of the client and async runtimes, one serve call and one train
 step, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
@@ -1113,7 +1139,9 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
 
 # --------------------------------------------------------------- slice
 
-def _run(scenario, engine, device, label):
+def _run(scenario, engine, device, label, ms_log=None):
+    """``simulate`` for ROUNDS rounds, timed; the ms per round also go
+    into ``ms_log[(label, engine)]`` when given."""
     import torch
     from repro_torch.fl import simulate
     torch.cuda.synchronize()
@@ -1121,6 +1149,8 @@ def _run(scenario, engine, device, label):
     res = simulate(scenario, ROUNDS, engine=engine, device=device)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    if ms_log is not None:
+        ms_log[(label, engine)] = ms
     losses = res.losses
     print(f"slice {label} engine={engine}: ms_per_round={ms:.3f} "
           f"agg_backend={res.agg_backend} loss[1]={losses[0]:.6f} "
@@ -1132,7 +1162,7 @@ def _run(scenario, engine, device, label):
     return res
 
 
-def _fused_run(scenario, device, label, expect_backend):
+def _fused_run(scenario, device, label, expect_backend, ms_log=None):
     """The main path: scan_pallas with every launch counter zeroed just
     before and read just after; one fleet_aggregate launch a round, and
     none through the one-leaf wrappers."""
@@ -1146,7 +1176,7 @@ def _fused_run(scenario, device, label, expect_backend):
                 "fake_quant": fake_quant}
     for fn in counters.values():
         fn.launches = 0
-    res = _run(scenario, "scan_pallas", device, label)
+    res = _run(scenario, "scan_pallas", device, label, ms_log)
     got = {k: fn.launches for k, fn in counters.items()}
     print(f"slice {label}: launches={json.dumps(got)} per_round="
           f"{json.dumps({k: v / ROUNDS for k, v in got.items()})}")
@@ -1306,7 +1336,9 @@ def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
     profile_window(label, lambda: eng.run(rounds), rounds, "round")
 
 
-def phase_slice(device) -> dict:
+def phase_slice(device, ms_log: dict) -> dict:
+    """The 256-client FL slice; fills ``ms_log`` with each clean run's
+    ms per round, keyed ``(label, engine)``. Returns launches."""
     import torch
     from repro_torch.fl import (FleetSpec, FLScenario, LocalTraining,
                                 ParticipationPolicy, UploadPolicy, simulate)
@@ -1335,17 +1367,18 @@ def phase_slice(device) -> dict:
     # on masked and fedavg fleets, for structured_scatter on width fleets
     launches = {"grad_aggregate": 0, "structured_scatter": 0, "fake_quant": 0}
 
-    _run(masked, "eager", device, "masked")
-    ref = _run(masked, "scan", device, "masked")
-    res, got = _fused_run(masked, device, "masked", "pallas")
+    _run(masked, "eager", device, "masked", ms_log)
+    ref = _run(masked, "scan", device, "masked", ms_log)
+    res, got = _fused_run(masked, device, "masked", "pallas", ms_log)
     launches["grad_aggregate"] += got["fleet_aggregate"]
     launches["fake_quant"] += got["fake_quant"]
     check(_same_params(ref.params, res.params) == 0.0,
           "masked: scan_pallas params == scan params (bitwise)")
 
-    _run(width, "eager", device, "width")
-    ref = _run(width, "scan", device, "width")
-    res, got = _fused_run(width, device, "width", "pallas_structured")
+    _run(width, "eager", device, "width", ms_log)
+    ref = _run(width, "scan", device, "width", ms_log)
+    res, got = _fused_run(width, device, "width", "pallas_structured",
+                          ms_log)
     launches["structured_scatter"] += got["fleet_aggregate"]
     launches["fake_quant"] += got["fake_quant"]
     check(_same_params(ref.params, res.params) == 0.0,
@@ -1448,7 +1481,7 @@ def phase_client(device) -> int:
 ASYNC_WINDOWS = 20
 
 
-def _async_run(sc, engine: str, device, label: str):
+def _async_run(sc, engine: str, device, label: str, ms_log=None):
     import torch
     from repro_torch.fl import simulate
     torch.cuda.synchronize()
@@ -1456,6 +1489,8 @@ def _async_run(sc, engine: str, device, label: str):
     res = simulate(sc, ASYNC_WINDOWS, engine=engine, device=device)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / ASYNC_WINDOWS * 1e3
+    if ms_log is not None:
+        ms_log[(f"async {label}", engine)] = ms
     recs = res.records
     print(f"async {label} engine={engine}: ms_per_window={ms:.3f} "
           f"loss[1]={recs[0].loss:.6f} loss[{ASYNC_WINDOWS}]="
@@ -1472,11 +1507,12 @@ def _async_run(sc, engine: str, device, label: str):
     return res
 
 
-def phase_async(device) -> int:
+def phase_async(device, ms_log: dict) -> int:
     """The async runtime on the 256-client bench fleet and its width
     twin, eager and ``scan`` (bitwise equal), then the full-buffer,
-    no-discount limit against the sync-wait cohort run. Returns
-    fake_quant launches (counter zeroed at the start)."""
+    no-discount limit against the sync-wait cohort run; each run's ms per
+    window into ``ms_log``. Returns fake_quant launches (counter zeroed
+    at the start)."""
     import torch
     from repro_torch import optim
     from repro_torch.configs.paper_mlp import config
@@ -1491,8 +1527,8 @@ def phase_async(device) -> int:
     for label, local in (("masked", LocalTraining()),
                          ("width", LocalTraining(submodel="width"))):
         sc = FLScenario(fleet=fleet, local=local, timing=timing)
-        eager = _async_run(sc, "eager", device, label)
-        scan = _async_run(sc, "scan", device, label)
+        eager = _async_run(sc, "eager", device, label, ms_log)
+        scan = _async_run(sc, "scan", device, label, ms_log)
         check(scan.records == eager.records
               and _same_params(eager.params, scan.params) == 0.0,
               f"async {label}: scan params and records == eager (bitwise)")
@@ -1519,6 +1555,343 @@ def phase_async(device) -> int:
                      f"run to 1e-6 in params, max_abs_err {d}")
     check(n > 0, f"async: fake_quant launched {n} times on the main path")
     return n
+
+
+# -------------------------------------------------------------- faults
+
+# (a) availability, churn and dropouts: every engine, scan_pallas too
+AVAIL_FAULTS = dict(seed=5, period=24, duty_cycle=0.7, churn_rate=0.05,
+                    dropout_rate=0.1)
+# (b) repro.fl's headline policy, and a heavy upload attack
+FL_FAULTS = dict(period=24, duty_cycle=0.7, churn_rate=0.05,
+                 dropout_rate=0.1, corrupt_rate=0.01)
+HEAVY_FAULTS = dict(corrupt_rate=0.25, corrupt_kind="bitflip",
+                    corrupt_frac=0.5, clip_norm=1.0)
+UPLOAD_ROUNDS = 10
+# (c) the async runtime's: lost uploads retried, corrupted uploads
+ASYNC_FAULTS = dict(dropout_rate=0.1, retry_backoff=0.5, corrupt_rate=0.05)
+
+
+def _fault_counts(res) -> list:
+    return [(r.n_participants, r.n_dropouts, r.n_dropped, r.n_corrupt)
+            for r in res.records]
+
+
+def _finite(params) -> bool:
+    import torch
+    return all(bool(torch.isfinite(p).all()) for p in params.values())
+
+
+def _fault_run(sc, n: int, engine: str, device, label: str, clean_ms,
+               per: str = "round"):
+    """``simulate`` under faults for ``n`` rounds (windows), timed and
+    printed beside the clean fleet's ms (``None``: not run clean)."""
+    import torch
+    from repro_torch.fl import simulate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(sc, n, engine=engine, device=device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    recs = res.records
+    losses = [r.loss for r in recs if r.loss is not None]
+    clean = "not run" if clean_ms is None else f"{clean_ms:.3f}"
+    joined = [r.n_updates if r.n_participants is None else r.n_participants
+              for r in recs]
+    print(f"faults {label} engine={engine}: ms_per_{per}={ms:.3f} "
+          f"(clean {clean}) agg_backend={res.agg_backend} "
+          f"loss[1]={losses[0]:.6f} loss[{n}]={losses[-1]:.6f} "
+          f"uploads per {per} (min, mean)=({min(joined)}, "
+          f"{statistics.mean(joined):.2f}) "
+          f"dropouts={sum(r.n_dropouts or 0 for r in recs)} "
+          f"corrupt={sum(r.n_corrupt for r in recs)}")
+    return res
+
+
+def phase_faults(device, ms_log: dict) -> dict:
+    """The fault layer on the 256-client bench fleet: (a) availability,
+    churn and dropout faults on the masked and width fleets through
+    eager, scan and scan_pallas (the grouped aggregation launch under
+    rounds with empty tiers); (b) upload faults with fp8 uploads and EF,
+    eager and scan (fake_quant before the injection); (c) the async
+    runtime with retried and corrupted uploads, eager and scan. Returns
+    the launches (fleet_aggregate counted per scan_pallas run, zeroed
+    just before it; fake_quant over the phase) and (c)'s runs."""
+    from repro_torch.fl import (AsyncBuffered, FaultPolicy, FleetSpec,
+                                FLScenario, LocalTraining, UploadPolicy,
+                                simulate)
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
+    ef = UploadPolicy(quant="fp8_e4m3", error_feedback=True)
+    launches = {"grad_aggregate": 0, "structured_scatter": 0}
+    fake_quant.launches = 0
+
+    for label, local, backend, row in (
+            ("masked", LocalTraining(), "pallas", "grad_aggregate"),
+            ("width", LocalTraining(submodel="width"), "pallas_structured",
+             "structured_scatter")):
+        sc = FLScenario(fleet=fleet, local=local,
+                        faults=FaultPolicy(**AVAIL_FAULTS))
+        runs = {}
+        for engine in ("eager", "scan", "scan_pallas"):
+            fleet_aggregate.launches = 0
+            runs[engine] = _fault_run(sc, ROUNDS, engine, device,
+                                      f"{label} availability", ms_log.get(
+                                          (label, engine)))
+        n_launch = fleet_aggregate.launches     # the scan_pallas run's
+        e, s, f = runs["eager"], runs["scan"], runs["scan_pallas"]
+        n_with = sum(1 for r in f.records if r.n_participants)
+        print(f"faults {label} availability: fleet_aggregate launches="
+              f"{n_launch} over {n_with} rounds with participants; "
+              f"participants per round={[r.n_participants for r in f.records]}")
+        check(f.agg_backend == backend,
+              f"faults {label}: agg_backend == {backend!r}")
+        check(_same_params(s.params, f.params) == 0.0
+              and s.records == f.records,
+              f"faults {label}: scan_pallas params and records == scan "
+              f"(bitwise)")
+        d = _same_params(e.params, s.params)
+        print(f"faults {label}: scan vs eager params max_abs_err={d}")
+        check(d <= 1e-5, f"faults {label}: scan params == eager to 1e-5")
+        check(_fault_counts(e) == _fault_counts(s) == _fault_counts(f),
+              f"faults {label}: n_participants, n_dropouts, n_dropped equal "
+              f"across eager, scan and scan_pallas")
+        check(min(r.n_participants for r in f.records) < fleet.n_clients,
+              f"faults {label}: rounds with fewer participants than the "
+              f"clean fleet's {fleet.n_clients}")
+        check(n_launch == n_with, f"faults {label}: one fleet_aggregate "
+                                  f"launch per round with participants")
+        check(all(r.loss == r.loss for r in f.records if r.loss is not None)
+              and f.records[-1].loss < f.records[0].loss,
+              f"faults {label}: losses finite and falling")
+        launches[row] += n_launch
+
+    fq0 = fake_quant.launches
+    for label, pol in (("fl_policy", FL_FAULTS), ("heavy", HEAVY_FAULTS)):
+        sc = FLScenario(fleet=fleet, upload=ef, faults=FaultPolicy(**pol))
+        e = _fault_run(sc, UPLOAD_ROUNDS, "eager", device,
+                       f"{label} fp8_ef", None)
+        s = _fault_run(sc, UPLOAD_ROUNDS, "scan", device, f"{label} fp8_ef",
+                       None)
+        d = _same_params(e.params, s.params)
+        print(f"faults {label}: scan vs eager params max_abs_err={d}")
+        check(d <= 1e-5, f"faults {label}: scan params == eager to 1e-5")
+        check(_fault_counts(e) == _fault_counts(s),
+              f"faults {label}: fault counts equal in eager and scan")
+        check(sum(r.n_corrupt for r in s.records) > 0 and _finite(s.params)
+              and _finite(e.params),
+              f"faults {label}: uploads corrupted, params finite")
+    fq_upload = fake_quant.launches - fq0
+    check(fq_upload > 0, f"faults: fake_quant launched {fq_upload} times "
+                         f"on the upload-fault runs")
+    # the injection is real: without its defences the heavy attack's
+    # bit-flips reach the params. (With the clip alone nothing non-finite
+    # is left for the guard: each poisoned row's squared norm overflows
+    # and the clip zeroes the row.)
+    bare = FaultPolicy(**{**HEAVY_FAULTS, "clip_norm": None},
+                       finite_guard=False)
+    res = simulate(FLScenario(fleet=fleet, upload=ef, faults=bare),
+                   UPLOAD_ROUNDS, device=device)
+    bad = sum(int((~p.isfinite()).sum()) for p in res.params.values())
+    print(f"faults heavy without guard and clip: non-finite params={bad}")
+    check(bad > 0, "faults heavy: without finite guard and clip the "
+                   "injected values reach the params")
+
+    timing = AsyncBuffered(buffer_size=64, staleness_exp=0.5, time_jitter=0.2)
+    sc = FLScenario(fleet=fleet, timing=timing,
+                    faults=FaultPolicy(**ASYNC_FAULTS))
+    runs = {engine: _fault_run(sc, ASYNC_WINDOWS, engine, device,
+                               "async masked", ms_log.get(
+                                   ("async masked", engine)), "window")
+            for engine in ("eager", "scan")}
+    e, s = runs["eager"], runs["scan"]
+    print(f"faults async: virtual_t={s.sim_time:.6f}")
+    check(e.records == s.records and _same_params(e.params, s.params) == 0.0,
+          "faults async: scan params and records == eager (bitwise)")
+    check(sum(r.n_corrupt for r in s.records) > 0 and _finite(s.params),
+          "faults async: uploads corrupted, params finite")
+    launches["fake_quant"] = fake_quant.launches
+    return {"launches": launches, "async": (sc, runs)}
+
+
+# ---------------------------------------------------------- checkpoint
+
+CKPT_EVERY = 5
+CKPT_ARCH = "granite-3-2b"          # the port's smallest dense config
+CKPT_TRAIN_STEPS = 4
+
+
+def _ckpt_dir() -> str:
+    """A scratch directory inside the checkout (git-ignored)."""
+    import tempfile
+    return tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=ROOT)
+
+
+def _kill_and_resume(sc, engine: str, device, label: str, n: int,
+                     full=None):
+    """The run cut at ``n // 2`` (checkpoints every CKPT_EVERY) and
+    resumed to ``n``, against the uninterrupted run (``full``, or run
+    here): params bitwise, every record equal. Returns the resumed
+    run."""
+    import shutil
+
+    import torch
+    from repro_torch.fl import simulate
+    if full is None:
+        full = simulate(sc, n, engine=engine, device=device)
+    d = _ckpt_dir()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        simulate(sc, n // 2, engine=engine, device=device,
+                 checkpoint_every=CKPT_EVERY, checkpoint_dir=d)
+        res = simulate(sc, n, engine=engine, device=device,
+                       checkpoint_every=CKPT_EVERY, resume_from=d)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"checkpoint {label} engine={engine}: cut at {n // 2}, resumed "
+          f"to {n}, {s:.3f} s for both legs")
+    check(_same_params(full.params, res.params) == 0.0
+          and full.records == res.records,
+          f"checkpoint {label}/{engine}: the resumed run's params (bitwise) "
+          f"and records == the uninterrupted run's")
+    return res
+
+
+def _save_restore(sc, res, device, label: str) -> None:
+    """Save and restore of a run's whole server state, timed."""
+    import shutil
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.fl import build_server, restore_run_state, save_run_state
+    from repro_torch.models import mlp
+    d = _ckpt_dir()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        npz = save_run_state(res.server, d, scenario=sc)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh = build_server(sc, types.SimpleNamespace(loss_fn=mlp.loss_fn),
+                             optim.sgd(1.0),
+                             mlp.init(torch.Generator().manual_seed(0),
+                                      config()), device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_run_state(fresh, d, scenario=sc)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        n_bytes = os.path.getsize(npz)
+        json_bytes = os.path.getsize(npz[:-3] + "json")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"checkpoint {label}: save_ms={save_ms:.3f} "
+          f"restore_ms={restore_ms:.3f} npz_bytes={n_bytes} "
+          f"json_bytes={json_bytes}")
+    check(_same_params(fresh.params, res.server.params) == 0.0,
+          f"checkpoint {label}: restored params == saved (bitwise)")
+
+
+def phase_checkpoint(device, faults: dict) -> dict:
+    """Durable runs: the masked bench fleet with fp8 uploads and EF, 20
+    rounds, checkpoints every 5, cut at 10 and resumed, bitwise the
+    uninterrupted run: under repro.fl's policy (upload faults) eager and
+    scan, under the availability policy scan_pallas; the async fault run
+    of phase faults likewise, eager and scan. Save / restore timed. Then
+    the LM train launcher with a checkpoint every 2 steps, its last
+    checkpoint removed after step 2 and resumed there: steps 3-4 bitwise.
+    Returns the launches (counters zeroed at the start)."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.fl import (FaultPolicy, FleetSpec, FLScenario,
+                                UploadPolicy)
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.launch.train import train
+    fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
+    ef = UploadPolicy(quant="fp8_e4m3", error_feedback=True)
+    routes = flash_attention.route_launches
+    for fn in (fake_quant, flash_attention, fleet_aggregate):
+        fn.launches = 0
+    for r in routes:
+        routes[r] = 0
+
+    sc = FLScenario(fleet=fleet, upload=ef, faults=FaultPolicy(**FL_FAULTS))
+    for engine in ("eager", "scan"):
+        res = _kill_and_resume(sc, engine, device, "fl_policy fp8_ef",
+                               ROUNDS)
+    _save_restore(sc, res, device, "fl_policy fp8_ef (cohort)")
+    _kill_and_resume(FLScenario(fleet=fleet, upload=ef,
+                                faults=FaultPolicy(**AVAIL_FAULTS)),
+                     "scan_pallas", device, "availability fp8_ef", ROUNDS)
+    a_sc, a_runs = faults["async"]
+    for engine in ("eager", "scan"):
+        res = _kill_and_resume(a_sc, engine, device, "async masked",
+                               ASYNC_WINDOWS, full=a_runs[engine])
+    _save_restore(a_sc, res, device, "async masked (version store, heap)")
+    n_agg = fleet_aggregate.launches
+
+    # the LM train launcher: full width, one layer, bf16, flash
+    cfg = get_config(CKPT_ARCH).replace(num_layers=1, use_flash=True)
+    d = _ckpt_dir()
+    kw = dict(steps=CKPT_TRAIN_STEPS, batch=8, seq=1024, n_tiers=4, lr=3e-4,
+              warmup=2, seed=0, device=device, log_every=1, ckpt_dir=d,
+              ckpt_every=2)
+    try:
+        full = train(cfg, **kw)
+        files = sorted(os.listdir(d))
+        ck2 = os.path.join(d, "ckpt_00000002.npz")
+        print(f"checkpoint train {CKPT_ARCH}: layers=1 d_model={cfg.d_model} "
+              f"files={files} npz_bytes={os.path.getsize(ck2)}")
+        check(files == ["ckpt_00000002.npz", "ckpt_00000004.npz"],
+              "checkpoint train: --ckpt-every 2 saved steps 2 and 4")
+        # what a run killed after step 2 leaves behind
+        os.remove(os.path.join(d, "ckpt_00000004.npz"))
+        res = train(cfg, **kw)
+        print(f"checkpoint train: losses={full['losses']} resumed at step "
+              f"{res['start']}: {res['losses']}")
+        state = res["state"]
+        check(res["start"] == 2 and res["losses"] == full["losses"][2:]
+              and res["tier_losses"] == full["tier_losses"][2:]
+              and _same_params(full["state"]["params"], state["params"]) == 0.0,
+              "checkpoint train: steps 3-4 after the resume == the "
+              "uninterrupted run's (losses, tier losses, params bitwise)")
+        p = os.path.join(d, "timed.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(state, p)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = load_pytree(state, p)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        print(f"checkpoint train state: save_ms={save_ms:.3f} "
+              f"restore_ms={restore_ms:.3f} npz_bytes={os.path.getsize(p)}")
+        check(_same_params(back["params"], state["params"]) == 0.0
+              and _same_params(back["opt"]["v"], state["opt"]["v"]) == 0.0,
+              "checkpoint train: the restored state == the saved (bitwise)")
+        del full, res, state, back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n_steps = CKPT_TRAIN_STEPS + CKPT_TRAIN_STEPS // 2
+    got = {"grad_aggregate": n_agg, "fake_quant": fake_quant.launches,
+           "flash_attention_wgmma": routes["wgmma"]}
+    print(f"checkpoint: launches={json.dumps(got)}")
+    check(routes == {"wgmma": 4 * n_steps, "simt": 0},
+          f"checkpoint train: flash_attention launched 4 per step on the "
+          f"wgmma kernel (1 layer x 4 tiers x {n_steps} steps): {routes}")
+    check(got["fake_quant"] > 0 and n_agg > 0,
+          "checkpoint: fake_quant and fleet_aggregate launched")
+    return got
 
 
 # --------------------------------------------------------------- serve
@@ -1773,15 +2146,18 @@ def main() -> int:
                 print(f"ptxas {name} {entry}: {line.strip()}")
 
     device = torch.device("cuda")
+    clean_ms: dict = {}                 # the clean FL runs' ms per round
+    out = {}
     phases = [("kernels", lambda: phase_kernels(device)),
               ("lm kernels", lambda: phase_lm_kernels(device)),
               ("matmul kernels", lambda: phase_matmul_kernels(device)),
-              ("slice", lambda: phase_slice(device)),
+              ("slice", lambda: phase_slice(device, clean_ms)),
               ("client", lambda: phase_client(device)),
-              ("async", lambda: phase_async(device)),
+              ("async", lambda: phase_async(device, clean_ms)),
+              ("faults", lambda: phase_faults(device, clean_ms)),
+              ("checkpoint", lambda: phase_checkpoint(device, out["faults"])),
               ("serve", lambda: phase_serve(device)),
               ("train", lambda: phase_train(device))]
-    out = {}
     try:
         for name, run in phases:
             t_phase = time.perf_counter()
@@ -1793,20 +2169,27 @@ def main() -> int:
     rows = {**out["kernels"], **out["lm kernels"], **out["matmul kernels"][0]}
     # each main path's launches, its counters zeroed just before it
     launches = dict(out["slice"])
+    flt, ckpt = out["faults"]["launches"], out["checkpoint"]
+    launches["grad_aggregate"] += (flt["grad_aggregate"]
+                                   + ckpt["grad_aggregate"])
+    launches["structured_scatter"] += flt["structured_scatter"]
     launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
-                               + out["train"]["fake_quant"])
+                               + out["train"]["fake_quant"]
+                               + flt["fake_quant"] + ckpt["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
     # cores (flash: the smoke f32 train step's launches; codebook: idx rows
     # TMA refuses), the bf16 train row on the tensor cores
     launches["flash_attention"] = out["train"]["flash_attention_simt"]
-    launches["flash_attention_wgmma"] = out["train"]["flash_attention_wgmma"]
+    launches["flash_attention_wgmma"] = (out["train"]["flash_attention_wgmma"]
+                                         + ckpt["flash_attention_wgmma"])
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
-    print(f"main-path launches (FL slice + client + async + serve + train, "
-          f"matmul entry points): {json.dumps(launches)}")
+    print(f"main-path launches (FL slice + client + async + faults + "
+          f"checkpoint + serve + train, matmul entry points): "
+          f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (
             ("grad_aggregate",

@@ -17,3 +17,7 @@ class MLPConfig:
 def config() -> MLPConfig:
     return MLPConfig()
 
+
+def smoke_config() -> MLPConfig:
+    return MLPConfig(name="paper-mlp-smoke", num_layers=2)
+

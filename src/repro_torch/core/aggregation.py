@@ -51,11 +51,12 @@ def _scales(weight: float, count: float, staleness_weight):
 
 
 def accumulate_cohort(acc, grad_sum: dict, masks: dict, weight: float,
-                      count: float, staleness_weight: float | None = None):
+                      count: float, staleness_weight: float | None = None,
+                      cov: dict | None = None):
     """A whole cohort's contribution in one shot:
 
         num += masks * (scale * grad_sum),  scale = weight * staleness_weight
-        den += masks * (weight * count)
+        den += masks * (weight * count)     or masks * (weight * cov)
 
     ``staleness_weight`` is the async runtime's discount ``(1+s)^-a``. It
     scales the NUMERATOR only: a buffer of uniformly stale updates is
@@ -66,11 +67,20 @@ def accumulate_cohort(acc, grad_sum: dict, masks: dict, weight: float,
     0/1-mask product, any inexact scalar product rounds one multiply
     earlier. The fused kernels rely on it to match this chain bitwise;
     do not rewrite it as ``a + weight * m * g``.
+
+    ``cov`` is the fault layer's per-coordinate coverage: the
+    participation-weighted sum of the cohort's 0/1 finite-guard masks.
+    Given, it replaces ``count`` in the denominator, so a quarantined
+    coordinate leaves it as it left the numerator. It is integer-valued,
+    so ``weight * cov`` rounds as ``weight * count`` does; it needs dense
+    denominators (``zeros_like_acc(dense_den=True)``).
     """
     num, den = acc
     scale, wc = _scales(weight, count, staleness_weight)
+    w = f32(weight)
     num = {k: a + masks[k] * (scale * grad_sum[k]) for k, a in num.items()}
-    den = {k: a + masks[k] * wc for k, a in den.items()}
+    den = {k: a + masks[k] * (wc if cov is None else w * cov[k])
+           for k, a in den.items()}
     return num, den
 
 
@@ -87,7 +97,8 @@ def zeros_like_acc(params: dict, dense_den: bool = False):
 
 def scatter_accumulate(acc, grad_sum: dict, masks: dict, spec,
                        weight: float, count: float,
-                       staleness_weight: float | None = None):
+                       staleness_weight: float | None = None,
+                       cov: dict | None = None):
     """A structured cohort's contribution: each sliced leaf's update
     lands in the prefix block its width slice covers,
 
@@ -96,16 +107,18 @@ def scatter_accumulate(acc, grad_sum: dict, masks: dict, spec,
 
     (an add on a slice, never an atomic scatter). Unsliced leaves take
     :func:`accumulate_cohort`'s adds, and ``spec=None`` delegates to it;
-    ``staleness_weight`` has its numerator-only meaning.
+    ``staleness_weight`` has its numerator-only meaning and ``cov`` (at
+    the cohort's local shapes) its per-coordinate denominator meaning.
     """
     if spec is None:
         return accumulate_cohort(acc, grad_sum, masks, weight, count,
-                                 staleness_weight)
+                                 staleness_weight, cov)
     num, den = dict(acc[0]), dict(acc[1])
     scale, wc = _scales(weight, count, staleness_weight)
+    w = f32(weight)
     for k, sl in zip(num, spec.slices):
         add_n = masks[k] * (scale * grad_sum[k])
-        add_d = masks[k] * wc
+        add_d = masks[k] * (wc if cov is None else w * cov[k])
         if sl is None:
             num[k] = num[k] + add_n
             den[k] = den[k] + add_d

@@ -9,6 +9,7 @@ from repro_torch.core.compression.structured import (SubmodelSpec,
                                                      compressible,
                                                      expand_masks,
                                                      expand_update,
+                                                     slice_submodel,
                                                      slice_tree,
                                                      submodel_spec)  # noqa: F401
 from repro_torch.core.compression.apply import (active_param_count,

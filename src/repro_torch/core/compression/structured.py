@@ -99,6 +99,13 @@ def slice_tree(params: dict, spec: SubmodelSpec) -> dict:
             for (k, v), s in zip(params.items(), spec.slices)}
 
 
+def slice_submodel(params: dict, width: float):
+    """``(sub_params, spec)``: the dense width-``width`` sub-model and the
+    slice plan that scatters updates back."""
+    spec = submodel_spec(params, width)
+    return slice_tree(params, spec), spec
+
+
 def _pad_to(x: torch.Tensor, full: tuple, local: tuple) -> torch.Tensor:
     pad = []
     for f, k in reversed(list(zip(full, local))):

@@ -14,6 +14,13 @@ sync instead of one per round.
 - Loss sum, Eq. (1) wall-clock (a masked max) and upload bytes are f32
   on the device, as in the reference's compiled engine: those two record
   fields carry f32 rounding against the eager path's float64.
+- Under a :class:`~repro_torch.core.faults.FaultPolicy` the host replay
+  also applies availability, dropouts and corruption in the eager
+  round's order (:meth:`ScanEngine._host_masks`); the wall-clock maxes
+  over who ran (crashed clients included), the rest over who uploaded.
+  A policy that touches uploads swaps each cohort's step for its fault
+  twin and aggregates with per-coordinate coverage, which the fused
+  kernel has no column for: it runs ``agg="sequential"`` only.
 
 Aggregation backends (``agg``; the one actually used is ``agg_backend``):
 
@@ -37,6 +44,7 @@ captured in a CUDA graph; capturing a chunk is later speed work
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,10 +52,14 @@ import torch
 
 from repro_torch.core.aggregation import (f32, finalize, scatter_accumulate,
                                           zeros_like_acc)
+from repro_torch.core.faults import (availability_mask, corrupt_mask,
+                                     corrupt_seq_mask, dropout_mask)
 from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
                                         _apply_fns, _cohort_upload,
-                                        _init_cohort_ef, _local_param_struct,
-                                        cohort_step_fn, window_groups)
+                                        _fault_cohort_upload,
+                                        _guard_cov_active, _init_cohort_ef,
+                                        _local_param_struct, cohort_step_fn,
+                                        fault_cohort_step_fn, window_groups)
 from repro_torch.core.schedule import materialize_windows
 
 AGG_BACKENDS = ("sequential", "pallas")
@@ -72,9 +84,19 @@ class ScanEngine:
         if self.chunk_rounds < 0:
             raise ValueError("chunk_rounds must be >= 0 (0 = one chunk per run)")
         srv = self.server
-        self._steps = [cohort_step_fn(srv.model.loss_fn, c.plan, srv.mode,
-                                      srv.local_steps, srv.local_lr,
-                                      srv.upload_quant)
+        self._fault_uploads = (srv.faults is not None
+                               and srv.faults.touches_uploads)
+        if self._fault_uploads and self.agg != "sequential":
+            raise ValueError(
+                "upload corruption/defenses aggregate with per-coordinate "
+                "coverage denominators — the fused fleet_aggregate kernel "
+                "has no coverage column; use agg='sequential'")
+        step_fn = (functools.partial(fault_cohort_step_fn,
+                                     faults=srv.faults)
+                   if self._fault_uploads else cohort_step_fn)
+        self._steps = [step_fn(srv.model.loss_fn, c.plan, srv.mode,
+                               srv.local_steps, srv.local_lr,
+                               srv.upload_quant)
                        for c in srv.cohorts]
         self._specs = [srv.cohort_spec(ci) for ci in range(len(srv.cohorts))]
         self._local_structs = [_local_param_struct(srv.params, c.plan)
@@ -101,11 +123,16 @@ class ScanEngine:
 
     # ------------------------------------------------------- aggregation
 
-    def _aggregate_sequential(self, params, per_cohort):
-        acc = zeros_like_acc(params, dense_den=self.server.any_structured)
+    def _aggregate_sequential(self, params, per_cohort, covs=None):
+        """The eager round's accumulate/scatter -> finalize chain;
+        ``covs`` holds each cohort's fault coverage (or None)."""
+        srv = self.server
+        acc = zeros_like_acc(params, dense_den=(
+            srv.any_structured or _guard_cov_active(srv.faults)))
         for ci, (g_sum, masks, weight, count) in enumerate(per_cohort):
             acc = scatter_accumulate(acc, g_sum, masks, self._specs[ci],
-                                     weight, count)
+                                     weight, count,
+                                     cov=None if covs is None else covs[ci])
         return finalize(acc)
 
     def _aggregate_fused(self, params, per_cohort):
@@ -128,7 +155,7 @@ class ScanEngine:
         upload_bytes) device scalars."""
         srv = self.server
         params = srv.params
-        per_cohort = []
+        per_cohort, covs = [], []
         loss_sum = torch.zeros((), dtype=torch.float32, device=srv.device)
         wall = torch.full((), -np.inf, dtype=torch.float32, device=srv.device)
         up_bytes = torch.zeros((), dtype=torch.float32, device=srv.device)
@@ -138,45 +165,79 @@ class ScanEngine:
             if srv.upload_quant is not None and not srv.error_feedback:
                 ef = _init_cohort_ef(srv.cohorts[ci].size,
                                      self._local_structs[ci])
-            g_sum, masks, l_sum, new_ef = step(params, srv.cohorts[ci].data,
-                                               part, ef)
+            if self._fault_uploads:
+                g_sum, masks, cov, l_sum, new_ef = step(
+                    params, srv.cohorts[ci].data, part, ef,
+                    xs["corrupt"][ci][r], xs["uid"][ci][r])
+            else:
+                cov = None
+                g_sum, masks, l_sum, new_ef = step(
+                    params, srv.cohorts[ci].data, part, ef)
             if srv.error_feedback:
                 efs[ci] = new_ef
             per_cohort.append((g_sum, masks, srv.cohorts[ci].plan.weight,
                                xs["count"][r][ci]))
+            covs.append(cov)
             loss_sum = loss_sum + l_sum
+            # crashed clients burn wall-clock but upload nothing
+            wp = xs["wpart"][ci][r] if "wpart" in xs else part
             wall = torch.maximum(wall, torch.max(
-                torch.where(part > 0, self._T_dev[ci], -np.inf)))
+                torch.where(wp > 0, self._T_dev[ci], -np.inf)))
             up_bytes = up_bytes + torch.dot(part, self._payload_dev[ci])
         if xs["has"][r]:
             agg = (self._aggregate_fused(params, per_cohort)
                    if self.agg == "pallas"
-                   else self._aggregate_sequential(params, per_cohort))
+                   else self._aggregate_sequential(params, per_cohort, covs))
             srv.params, srv.opt_state = self._apply(
                 agg, srv.opt_state, params, xs["step"][r])
         return loss_sum, wall, up_bytes
 
     def _host_masks(self, R: int):
-        """The chunk's participation, replaying the eager round's
-        sampling and float64 deadline drop on the host. Returns per-round
-        lists of per-cohort bool masks and per-round drop counts."""
+        """The chunk's participation, replaying the eager round on the
+        host in its order: sampling, availability, the float64 deadline
+        drop, mid-round crashes. Returns per-round lists of per-cohort
+        bool masks: who uploads, who ran (burns wall-clock) and whose
+        upload is corrupted (active rows only); and per-round deadline
+        drop and crash counts."""
         srv = self.server
-        parts, dropped = [], []
+        flt = srv.faults
+        n_total = srv.n_clients
+        parts, wparts, corrs, dropped, dropouts = [], [], [], [], []
         for r in range(R):
-            rng = np.random.default_rng([srv.seed, srv.step + r])
-            sampled = srv._sample_participation(rng)
-            n_dropped = 0
-            cur = []
+            step = srv.step + r
+            sampled = srv._sample_participation(
+                np.random.default_rng([srv.seed, step]))
+            if flt is not None:
+                avail = availability_mask(flt, n_total, step)
+                drops = dropout_mask(flt, n_total, step)
+                corr = corrupt_mask(flt, n_total, step)
+            n_dropped = n_do = 0
+            cur, curw, curc = [], [], []
+            off = 0
             for ci in range(len(srv.cohorts)):
+                off0, off = off, off + srv.cohorts[ci].size
                 part = np.asarray(sampled[ci], bool).copy()
+                if flt is not None:
+                    part &= avail[off0:off]
                 if srv.straggler == "drop":
                     late = self._times[ci]["T"] > srv.deadline
                     n_dropped += int(np.sum(part & late))
                     part &= ~late
-                cur.append(part)
+                active = part
+                if flt is not None and flt.dropout_rate > 0.0:
+                    crashed = part & drops[off0:off]
+                    n_do += int(crashed.sum())
+                    active = part & ~crashed
+                curw.append(part)
+                cur.append(active)
+                curc.append(corr[off0:off] & active if self._fault_uploads
+                            else None)
             parts.append(cur)
+            wparts.append(curw)
+            corrs.append(curc)
             dropped.append(n_dropped)
-        return parts, dropped
+            dropouts.append(n_do)
+        return parts, wparts, corrs, dropped, dropouts
 
     def _ef_state(self) -> list:
         srv = self.server
@@ -189,16 +250,30 @@ class ScanEngine:
     def _run_chunk(self, R: int) -> list[dict]:
         srv = self.server
         step0 = srv.step
-        parts, dropped = self._host_masks(R)
+        parts, wparts, corrs, dropped, dropouts = self._host_masks(R)
+        C = len(srv.cohorts)
+
+        def per_cohort(rows, dtype):
+            # one host -> device copy per cohort for the whole chunk
+            return [torch.as_tensor(np.stack([rows[r][ci] for r in range(R)]),
+                                    dtype=dtype).to(srv.device)
+                    for ci in range(C)]
         xs = {
             "step": list(range(step0, step0 + R)),
             "has": [any(p.any() for p in parts[r]) for r in range(R)],
             "count": [[float(p.sum()) for p in parts[r]] for r in range(R)],
-            # one host -> device copy per cohort for the whole chunk
-            "part": [torch.as_tensor(np.stack([parts[r][ci] for r in range(R)]),
-                                     dtype=torch.float32).to(srv.device)
-                     for ci in range(len(srv.cohorts))],
+            "part": per_cohort(parts, torch.float32),
         }
+        if srv.faults is not None:
+            xs["wpart"] = per_cohort(wparts, torch.float32)
+        if self._fault_uploads:
+            xs["corrupt"] = per_cohort(corrs, torch.float32)
+            # uid = step * n_clients + flat client index, the eager key
+            offs = np.cumsum([0] + [c.size for c in srv.cohorts])
+            xs["uid"] = per_cohort(
+                [[(step0 + r) * srv.n_clients + np.arange(offs[ci],
+                                                          offs[ci + 1])
+                  for ci in range(C)] for r in range(R)], torch.int64)
         efs = self._ef_state()
         metrics = [self._round(r, xs, efs) for r in range(R)]
         srv.step = step0 + R
@@ -221,6 +296,10 @@ class ScanEngine:
                     else (wall if np.isfinite(wall) else 0.0)),
                 "total_upload_bytes": float(m[r, 2]),
             }
+            if srv.faults is not None:
+                rec["n_dropouts"] = dropouts[r]
+                rec["n_corrupt"] = (int(sum(c.sum() for c in corrs[r]))
+                                    if self._fault_uploads else 0)
             srv.history.append(rec)
             recs.append(rec)
         return recs
@@ -302,20 +381,31 @@ class WindowScanEngine:
                 r[v % self._cap].copy_(pv[k])
         return ring
 
-    def _window(self, version: int, groups, parts, ring) -> torch.Tensor:
+    def _window(self, version: int, groups, parts, ring,
+                fault_rows=None) -> torch.Tensor:
         """The window applied at ``version``, on the device; returns its
-        loss sum."""
+        loss sum. ``fault_rows`` is the window's
+        :meth:`AsyncFLServer.fault_rows` under upload faults."""
         srv = self.server
-        acc = zeros_like_acc(srv.params, dense_den=srv.any_structured)
+        acc = zeros_like_acc(srv.params, dense_den=(
+            srv.any_structured or _guard_cov_active(srv.faults)))
         loss_sum = torch.zeros((), dtype=torch.float32, device=srv.device)
         for g, ((ci, v), rows) in enumerate(groups):
             pv = {k: r[v % self._cap] for k, r in ring.items()}
-            g_sum, masks, l_sum = _cohort_upload(srv, srv.cohorts[ci],
-                                                 parts[g], pv)
+            cov = None
+            if fault_rows is not None:
+                flags, uid = fault_rows[ci]
+                c_row = np.zeros_like(flags)
+                c_row[rows] = flags[rows]
+                g_sum, masks, cov, l_sum = _fault_cohort_upload(
+                    srv, srv.cohorts[ci], parts[g], pv, c_row, uid)
+            else:
+                g_sum, masks, l_sum = _cohort_upload(srv, srv.cohorts[ci],
+                                                     parts[g], pv)
             acc = scatter_accumulate(
                 acc, g_sum, masks, srv.cohort_spec(ci),
                 srv.cohorts[ci].plan.weight, len(rows),
-                staleness_weight=srv.discount(version - v))
+                staleness_weight=srv.discount(version - v), cov=cov)
             loss_sum = loss_sum + l_sum
         cur = {k: r[version % self._cap] for k, r in ring.items()}
         new_params, srv.opt_state = self._apply(finalize(acc), srv.opt_state,
@@ -347,8 +437,14 @@ class WindowScanEngine:
                for h in host]
         parts = [[dev[ci][i] for ci, i in ws] for ws in where]
 
+        flt = srv.faults
+        fault_rows = ([srv.fault_rows(plan.client[w], plan.upload_seq[w])
+                       for w in range(W)]
+                      if flt is not None and flt.touches_uploads
+                      else [None] * W)
         ring = self._ring_init()
-        losses = [self._window(plan.version0 + w, groups[w], parts[w], ring)
+        losses = [self._window(plan.version0 + w, groups[w], parts[w], ring,
+                               fault_rows[w])
                   for w in range(W)]
         # the chunk's single device -> host sync
         loss_host = torch.stack(losses).cpu().tolist()
@@ -363,6 +459,9 @@ class WindowScanEngine:
                    "n_versions_live": int(plan.n_versions_live[w]),
                    "total_upload_bytes": sum(srv._payload_bytes[int(c)]
                                              for c in plan.client[w])}
+            if flt is not None:
+                rec["n_corrupt"] = int(corrupt_seq_mask(
+                    flt, plan.upload_seq[w]).sum())
             srv.history.append(rec)
             recs.append(rec)
 

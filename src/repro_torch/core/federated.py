@@ -23,7 +23,10 @@ error feedback. Three runtimes share that loop:
   global version each client last downloaded, one cohort step per
   (cohort, version) group.
 
-Fault policies are not ported: a runtime given one raises.
+A :class:`~repro_torch.core.faults.FaultPolicy` (``faults=``) layers
+availability traces, mid-round dropouts, corrupted uploads and the
+server's defences over any of the three (the reference's semantics,
+mask for mask); ``faults=None`` leaves every runtime on its clean path.
 """
 from __future__ import annotations
 
@@ -34,16 +37,19 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core._unported import not_ported
 from repro_torch.core.aggregation import (finalize, hetero_aggregate,
                                           scatter_accumulate, zeros_like_acc)
 from repro_torch.core.compression import (CompressionPlan, compress_params,
                                           expand_update, slice_tree,
                                           submodel_spec)
 from repro_torch.core.compression.quantization import _quant
+from repro_torch.core.faults import (FaultPolicy, availability_mask,
+                                     clip_updates, corrupt_mask,
+                                     corrupt_seq_mask, dropout_mask,
+                                     finite_guard, inject_corruption)
 from repro_torch.core.heterogeneity import (PROFILES, cohort_round_time,
                                             round_time)
-from repro_torch.core.schedule import VirtualClockScheduler
+from repro_torch.core.schedule import RetrySpec, VirtualClockScheduler
 from repro_torch.data.federated import stack_shards
 from repro_torch.numerics import FORMATS
 
@@ -165,59 +171,120 @@ def _local_sgd(loss_fn: Callable, plan: CompressionPlan, local_steps: int,
     return run
 
 
+def _base_fn(plan: CompressionPlan) -> Callable:
+    """``params -> the model the plan trains``: the width slice for
+    structured plans, ``params`` itself otherwise."""
+    if not plan.structured:
+        return lambda params: params
+    return lambda params: slice_tree(params, submodel_spec(params,
+                                                           plan.width))
+
+
+def _client_updates_fn(loss_fn: Callable, plan: CompressionPlan, mode: str,
+                       local_steps: int, local_lr: float) -> Callable:
+    """Every client's own update at once, ``(params, batches) ->
+    (losses, updates, masks)`` with a leading client axis on the first
+    two: fedsgd differentiates per-client copies of the weights, fedavg
+    runs :func:`_local_sgd` and returns deltas."""
+    inner = plan.inner()
+    base = _base_fn(plan)
+    if mode == "fedsgd":
+        def f(params, batches):
+            p0 = base(params)
+            n = next(iter(batches.values())).shape[0]
+            with torch.enable_grad():
+                pc = _leaf_copies(p0, n)
+                cp, _ = compress_params(pc, inner, batch=1)
+                losses = loss_fn(cp, batches)
+                grads = _grads(losses.sum(), pc)
+            with torch.no_grad():
+                _, masks = compress_params(p0, inner)
+            return losses.detach(), grads, masks
+        return f
+
+    local = _local_sgd(loss_fn, plan, local_steps, local_lr)
+
+    def f(params, batches):
+        with torch.no_grad():
+            cp0, masks = compress_params(base(params), inner)
+        losses, deltas = local(cp0, batches)
+        return losses, deltas, masks
+    return f
+
+
 def cohort_step_fn(loss_fn: Callable, plan: CompressionPlan, mode: str,
                    local_steps: int, local_lr: float,
                    upload_fmt: str | None) -> Callable:
     """The one-cohort round step,
     ``(params, batches, part, ef) -> (update_sum, masks, loss_sum, ef)``.
 
-    Three branches: fedsgd without upload quantization differentiates the
-    participation-weighted loss SUM once (its gradient is the sum of the
-    per-client gradients); fedsgd with upload quantization needs each
-    client's gradient (the residuals are per client), so it
-    differentiates per-client copies of the weights; fedavg runs
-    :func:`_local_sgd` and uploads deltas. Structured plans slice the
-    global params first and return SUB-shaped updates and masks.
+    fedsgd without upload quantization differentiates the participation-
+    weighted loss SUM once (its gradient is the sum of the per-client
+    gradients); everything else needs each client's update
+    (:func:`_client_updates_fn`; the EF residuals are per client) and
+    sums them after the upload. Structured plans slice the global params
+    first and return SUB-shaped updates and masks.
     """
-    inner = plan.inner()
-
-    def _base(params):
-        if not plan.structured:
-            return params
-        return slice_tree(params, submodel_spec(params, plan.width))
-
     if mode == "fedsgd" and upload_fmt is None:
+        inner = plan.inner()
+        base = _base_fn(plan)
+
         def f(params, batches, part, ef):
             with torch.enable_grad():
-                p = _leaf_copies(_base(params))
+                p = _leaf_copies(base(params))
                 cp, masks = compress_params(p, inner)
                 l_sum = torch.sum(part * loss_fn(cp, batches))
                 g_sum = _grads(l_sum, p)
             return g_sum, masks, l_sum.detach(), ef
         return f
 
-    if mode == "fedsgd":
-        def f(params, batches, part, ef):
-            p0 = _base(params)
-            with torch.enable_grad():
-                pc = _leaf_copies(p0, part.shape[0])
-                cp, _ = compress_params(pc, inner, batch=1)
-                losses = loss_fn(cp, batches)
-                grads = _grads(losses.sum(), pc)
-            with torch.no_grad():
-                _, masks = compress_params(p0, inner)
-            g_sum, ef = _upload_and_sum(grads, part, ef, upload_fmt)
-            return g_sum, masks, torch.sum(part * losses.detach()), ef
-        return f
-
-    local = _local_sgd(loss_fn, plan, local_steps, local_lr)
+    updates_of = _client_updates_fn(loss_fn, plan, mode, local_steps,
+                                    local_lr)
 
     def f(params, batches, part, ef):
-        with torch.no_grad():
-            cp0, masks = compress_params(_base(params), inner)
-        losses, deltas = local(cp0, batches)
-        d_sum, ef = _upload_and_sum(deltas, part, ef, upload_fmt)
-        return d_sum, masks, torch.sum(part * losses), ef
+        losses, ups, masks = updates_of(params, batches)
+        u_sum, ef = _upload_and_sum(ups, part, ef, upload_fmt)
+        return u_sum, masks, torch.sum(part * losses), ef
+    return f
+
+
+def fault_cohort_step_fn(loss_fn: Callable, plan: CompressionPlan, mode: str,
+                         local_steps: int, local_lr: float,
+                         upload_fmt: str | None,
+                         faults: FaultPolicy) -> Callable:
+    """The fault twin of :func:`cohort_step_fn`, ``(params, batches,
+    part, ef, corrupt, uid) -> (update_sum, masks, cov, loss_sum, ef)``,
+    for policies that touch uploads. It always takes the per-client
+    branches (corruption and the defences act on single uploads), in
+    transit order:
+
+      local step -> quantize and bank the EF residual (on the client,
+      from the true update) -> poison the rows ``corrupt`` flags
+      (element subset keyed by ``uid``) -> finite guard (zero non-finite
+      elements, collect 0/1 coverage) -> per-client norm clip ->
+      participation-weighted sum.
+
+    ``cov`` is the participation-weighted coverage sum, the
+    per-coordinate denominator of ``scatter_accumulate(cov=...)``, or
+    ``None`` with the guard off (NaN then reaches the params).
+    """
+    updates_of = _client_updates_fn(loss_fn, plan, mode, local_steps,
+                                    local_lr)
+
+    def f(params, batches, part, ef, corrupt, uid):
+        losses, ups, masks = updates_of(params, batches)
+        ups, ef = _quantize_clients(ups, part, ef, upload_fmt)
+        if faults.corrupt_rate > 0.0:
+            ups = inject_corruption(ups, corrupt, uid, faults)
+        cov = None
+        if faults.finite_guard:
+            ups, fin = finite_guard(ups)
+            cov = {k: torch.tensordot(part, m, dims=1)
+                   for k, m in fin.items()}
+        if faults.clip_norm is not None:
+            ups = clip_updates(ups, faults.clip_norm)
+        u_sum = {k: torch.tensordot(part, u, dims=1) for k, u in ups.items()}
+        return u_sum, masks, cov, torch.sum(part * losses), ef
     return f
 
 
@@ -297,7 +364,13 @@ class FLServer:
     """The per-client runtime: every client trains on its own shard
     (ragged sizes allowed), and the round aggregates the clients' full-
     shape updates tier by tier (:func:`hetero_aggregate`). O(#clients)
-    steps per round and one device -> host sync."""
+    steps per round and one device -> host sync.
+
+    Under a :class:`FaultPolicy` an unavailable client never starts, a
+    mid-round dropout burns its Eq. (1) time but uploads nothing, and an
+    upload that touches the fault path goes through the cohort fault
+    step's inject -> guard -> clip order as a one-row stack, its finite
+    mask folded into its aggregation mask."""
     model: Any
     optimizer: Any
     clients: list[Client]
@@ -309,14 +382,11 @@ class FLServer:
     server_lr: float = 1.0
     upload_quant: str | None = None
     error_feedback: bool = False
-    faults: Any = None
+    faults: FaultPolicy | None = None
     step: int = 0
     history: list = field(default_factory=list)
 
     def __post_init__(self):
-        if self.faults is not None:
-            raise not_ported("a FaultPolicy on the per-client runtime",
-                              "Faults")
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self.params)
         # each client's shard on the params' device, once
@@ -334,14 +404,26 @@ class FLServer:
         batches = (self._data if client_batches is None else
                    [{k: v.to(self.device) for k, v in b.items()}
                     for b in client_batches])
+        flt = self.faults
+        n = len(self.clients)
+        if flt is not None:
+            avail = availability_mask(flt, n, self.step)
+            drops = dropout_mask(flt, n, self.step)
+            corr = corrupt_mask(flt, n, self.step)
         grads_list, masks_list, weights, losses = [], [], [], []
+        n_dropouts = n_corrupt = 0
         wall, upload_bytes = 0.0, 0.0
-        for c, batch in zip(self.clients, batches):
+        for i, (c, batch) in enumerate(zip(self.clients, batches)):
+            if flt is not None and not avail[i]:
+                continue                    # down: never dispatched
             n_batch = next(iter(batch.values())).shape[0]
             comm = round_time(self.params, c.plan, PROFILES[c.profile_name],
                               n_batch,
                               self.local_steps if self.mode == "fedavg" else 1)
             wall = max(wall, comm["T"])
+            if flt is not None and drops[i]:
+                n_dropouts += 1             # crashed before upload
+                continue
             upload_bytes += comm["payload_bytes"]
             if self.mode == "fedsgd":
                 loss, g, masks = _client_grad_fn(loss_fn, c.plan)(
@@ -355,6 +437,21 @@ class FLServer:
                 c.ef_buffer if self.error_feedback else None, self.params)
             if self.error_feedback:
                 c.ef_buffer = new_ef
+            if flt is not None and flt.touches_uploads:
+                g1 = {k: x.unsqueeze(0) for k, x in g.items()}
+                if flt.corrupt_rate > 0.0:
+                    hit = bool(corr[i])
+                    n_corrupt += int(hit)
+                    g1 = inject_corruption(
+                        g1, torch.tensor([float(hit)], device=self.device),
+                        torch.tensor([self.step * n + i], dtype=torch.int64,
+                                     device=self.device), flt)
+                if flt.finite_guard:
+                    g1, fin1 = finite_guard(g1)
+                    masks = {k: m * fin1[k][0] for k, m in masks.items()}
+                if flt.clip_norm is not None:
+                    g1 = clip_updates(g1, flt.clip_norm)
+                g = {k: x[0] for k, x in g1.items()}
             grads_list.append(g)
             masks_list.append(masks)
             weights.append(c.plan.weight)
@@ -373,6 +470,9 @@ class FLServer:
                "n_participants": len(losses),
                "round_wall_time": wall,
                "total_upload_bytes": upload_bytes}
+        if flt is not None:
+            rec["n_dropouts"] = n_dropouts
+            rec["n_corrupt"] = n_corrupt
         self.history.append(rec)
         return rec
 
@@ -403,19 +503,53 @@ def _cohort_ef(server, cohort: Cohort, params: dict) -> dict:
     return cohort.ef_buffer
 
 
-def _cohort_upload(server, cohort: Cohort, part: np.ndarray, params: dict):
+def _on_device(x, dtype, device) -> torch.Tensor:
+    """A host array (or a tensor already there) as ``dtype`` on ``device``."""
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def _cohort_upload(server, cohort: Cohort, part, params: dict):
     """One cohort's participation-masked step against ``params``, shared
     by the sync and async runtimes; keeps the cohort's EF buffer. Returns
     ``(update_sum, masks, loss_sum)``."""
     step = cohort_step_fn(server.model.loss_fn, cohort.plan, server.mode,
                           server.local_steps, server.local_lr,
                           server.upload_quant)
-    part_dev = torch.as_tensor(part, dtype=torch.float32).to(server.device)
-    g_sum, masks, l_sum, new_ef = step(params, cohort.data, part_dev,
-                                       _cohort_ef(server, cohort, params))
+    g_sum, masks, l_sum, new_ef = step(
+        params, cohort.data, _on_device(part, torch.float32, server.device),
+        _cohort_ef(server, cohort, params))
     if server.upload_quant is not None and server.error_feedback:
         cohort.ef_buffer = new_ef
     return g_sum, masks, l_sum
+
+
+def _fault_cohort_upload(server, cohort: Cohort, part, params: dict,
+                         corrupt, uid):
+    """:func:`_cohort_upload`'s fault twin: the cohort's
+    :func:`fault_cohort_step_fn` with the round's per-row corruption
+    flags and per-upload uids. Returns ``(update_sum, masks, cov,
+    loss_sum)``; ``cov`` is None with the finite guard off."""
+    step = fault_cohort_step_fn(server.model.loss_fn, cohort.plan,
+                                server.mode, server.local_steps,
+                                server.local_lr, server.upload_quant,
+                                server.faults)
+    dev = server.device
+    g_sum, masks, cov, l_sum, new_ef = step(
+        params, cohort.data, _on_device(part, torch.float32, dev),
+        _cohort_ef(server, cohort, params),
+        _on_device(corrupt, torch.float32, dev),
+        _on_device(uid, torch.int64, dev))
+    if server.upload_quant is not None and server.error_feedback:
+        cohort.ef_buffer = new_ef
+    return g_sum, masks, cov, l_sum
+
+
+def _guard_cov_active(faults: FaultPolicy | None) -> bool:
+    """True when the fault path emits per-coordinate coverage: the
+    accumulators then need dense denominators, in the eager rounds and
+    the engines alike."""
+    return (faults is not None and faults.touches_uploads
+            and faults.finite_guard)
 
 
 @dataclass
@@ -443,6 +577,7 @@ class CohortFLServer:
     sample_fraction: float = 1.0
     straggler: str = "wait"         # wait | drop
     deadline: float | None = None
+    faults: FaultPolicy | None = None
     seed: int = 0
     step: int = 0
     history: list = field(default_factory=list)
@@ -509,34 +644,73 @@ class CohortFLServer:
             off += s
         return out
 
-    def round(self) -> dict:
-        """One federated round over all cohorts. A round in which nobody
-        uploads leaves the params untouched and records ``loss=None``."""
+    def round(self, participation: list | None = None) -> dict:
+        """One federated round over all cohorts. ``participation`` (one
+        bool array per cohort) overrides the sampled participation.
+
+        Under a :class:`FaultPolicy`, per cohort in flat client order:
+        availability zeros sampled rows first (a down client burns no
+        time), the deadline drops among the available, then mid-round
+        dropouts crash clients that ran: their Eq. (1) time burns the
+        wall-clock, nothing of them is uploaded, counted or billed.
+        Uploads under a policy that touches them go through
+        :func:`fault_cohort_step_fn` with uid ``step * n_clients +
+        flat index``, corruption flagged on active rows only, and
+        aggregate with per-coordinate coverage. A round in which nobody
+        uploads leaves the params untouched and records ``loss=None``.
+        """
         rng = np.random.default_rng([self.seed, self.step])
-        sampled = self._sample_participation(rng)
-        acc = zeros_like_acc(self.params, dense_den=self.any_structured)
+        sampled = (self._sample_participation(rng) if participation is None
+                   else [np.asarray(p, bool) for p in participation])
+        flt = self.faults
+        n_total = self.n_clients
+        if flt is not None:
+            avail = availability_mask(flt, n_total, self.step)
+            drops = dropout_mask(flt, n_total, self.step)
+            corr = corrupt_mask(flt, n_total, self.step)
+        acc = zeros_like_acc(self.params, dense_den=(
+            self.any_structured or _guard_cov_active(flt)))
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         n_part_total, n_dropped = 0, 0
+        n_dropouts, n_corrupt = 0, 0
         wall, upload_bytes = 0.0, 0.0
         apply = _apply_fns(self.optimizer, self.mode, self.server_lr)
+        off = 0
         for ci, (cohort, part) in enumerate(zip(self.cohorts, sampled)):
+            off0, off = off, off + cohort.size
             times = self.cohort_times(ci, cohort.data["x"].shape[1])
             part = part.copy()
+            if flt is not None:
+                part &= avail[off0:off]
             if self.straggler == "drop":
                 late = times["T"] > self.deadline
                 n_dropped += int(np.sum(part & late))
                 part &= ~late
+            active = part
+            if flt is not None and flt.dropout_rate > 0.0:
+                crashed = part & drops[off0:off]
+                n_dropouts += int(crashed.sum())
+                active = part & ~crashed
             if part.any():
+                # ran clients burn wall-clock whether or not they crashed
                 wall = max(wall, float(times["T"][part].max()))
-            n_p = int(part.sum())
+            n_p = int(active.sum())
             if n_p == 0:
                 continue
-            upload_bytes += float(times["payload_bytes"][part].sum())
+            upload_bytes += float(times["payload_bytes"][active].sum())
             n_part_total += n_p
-            g_sum, masks, l_sum = _cohort_upload(self, cohort, part,
-                                                 self.params)
+            cov = None
+            if flt is not None and flt.touches_uploads:
+                c_row = corr[off0:off] & active
+                n_corrupt += int(c_row.sum())
+                g_sum, masks, cov, l_sum = _fault_cohort_upload(
+                    self, cohort, active, self.params, c_row,
+                    self.step * n_total + np.arange(off0, off))
+            else:
+                g_sum, masks, l_sum = _cohort_upload(self, cohort, active,
+                                                     self.params)
             acc = scatter_accumulate(acc, g_sum, masks, self.cohort_spec(ci),
-                                     cohort.plan.weight, n_p)
+                                     cohort.plan.weight, n_p, cov=cov)
             loss_sum = loss_sum + l_sum
         if n_part_total:
             self.params, self.opt_state = apply(
@@ -551,6 +725,9 @@ class CohortFLServer:
                                    if self.straggler == "drop" and n_dropped
                                    else wall),
                "total_upload_bytes": upload_bytes}
+        if flt is not None:
+            rec["n_dropouts"] = n_dropouts
+            rec["n_corrupt"] = n_corrupt
         self.history.append(rec)
         return rec
 
@@ -593,6 +770,12 @@ class AsyncFLServer:
     The server keeps every global version an in-flight client still
     trains against, refcounted by outstanding dispatches and dropped when
     the last trainer uploads: O(live versions) copies of ``params``.
+
+    Under a :class:`FaultPolicy` the dropout rate turns lost uploads into
+    retransmission delays on the virtual clock (``RetrySpec``), and
+    corruption is keyed by each upload's dispatch sequence number
+    (:func:`corrupt_seq_mask`), so the window engine poisons the same
+    uploads. Availability traces are round-indexed and refused.
     """
     model: Any
     optimizer: Any
@@ -608,21 +791,24 @@ class AsyncFLServer:
     buffer_size: int = 1            # uploads per aggregation (K of FedBuff)
     staleness_exp: float = 0.5      # a in (1+s)^-a; 0 turns the discount off
     time_jitter: float = 0.0        # lognormal sigma on per-dispatch times
-    faults: Any = None
+    faults: FaultPolicy | None = None
     seed: int = 0
     # global model version (= windows applied)
     version: int = field(default=0, init=False)
     history: list = field(default_factory=list)
 
     def __post_init__(self):
-        if self.faults is not None:
-            raise not_ported("a FaultPolicy on the async runtime", "Faults")
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(self.params)
         if self.mode not in ("fedsgd", "fedavg"):
             raise ValueError(f"mode must be fedsgd|fedavg, got {self.mode!r}")
         if self.staleness_exp < 0:
             raise ValueError("staleness_exp must be >= 0")
+        if self.faults is not None and self.faults.traces_availability:
+            raise ValueError(
+                "availability traces (period/churn) are round-indexed — "
+                "the async virtual clock has no round index; model async "
+                "flakiness as dropout_rate + retry_backoff instead")
         self._spec_cache: dict = {}
         # the fleet as scheduler slots: client index -> (cohort, row)
         self._slots: list[tuple[int, int]] = []
@@ -638,9 +824,17 @@ class AsyncFLServer:
                 times.append(float(t["T"][r]))
                 payload.append(float(t["payload_bytes"][r]))
         self._payload_bytes = payload
+        retry = None
+        if self.faults is not None and self.faults.dropout_rate > 0.0:
+            # lost uploads become deterministic retransmission delays
+            retry = RetrySpec(drop_rate=self.faults.dropout_rate,
+                              backoff=self.faults.retry_backoff,
+                              max_retries=self.faults.max_retries,
+                              seed=self.faults.seed)
         self._sched = VirtualClockScheduler(times, self.buffer_size,
                                             seed=self.seed,
-                                            jitter=self.time_jitter)
+                                            jitter=self.time_jitter,
+                                            retry=retry)
         # version store, refcounted by outstanding dispatches
         self._versions = {self.version: self.params}
         self._refs = {self.version: len(times)}
@@ -674,6 +868,20 @@ class AsyncFLServer:
         """``(1+s)^-a`` in float64 (rounded to f32 where it is used)."""
         return (1.0 + staleness) ** (-self.staleness_exp)
 
+    def fault_rows(self, clients, seqs) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Per cohort, the (corruption flags, uids) rows of a window's
+        uploads: each upload's flag and uid come from its dispatch
+        sequence number; rows without an upload stay (False, 0). Shared
+        by :meth:`step` and the window engine."""
+        flags = corrupt_seq_mask(self.faults, seqs)
+        out = [(np.zeros(c.size, bool), np.zeros(c.size, np.int64))
+               for c in self.cohorts]
+        for c, s, hit in zip(clients, seqs, flags):
+            ci, row = self._slots[int(c)]
+            out[ci][0][row] = hit
+            out[ci][1][row] = int(s)
+        return out
+
     def step(self) -> dict:
         """One buffered aggregation window: advance the virtual clock to
         the next ``buffer_size`` arrivals, apply their staleness-
@@ -681,17 +889,32 @@ class AsyncFLServer:
         win = self._sched.next_window()
         groups = window_groups(self._slots, [u.client for u in win.uploads],
                                [u.version for u in win.uploads])
-        acc = zeros_like_acc(self.params, dense_den=self.any_structured)
+        flt = self.faults
+        fault_rows = (self.fault_rows([u.client for u in win.uploads],
+                                      [u.seq for u in win.uploads])
+                      if flt is not None and flt.touches_uploads else None)
+        acc = zeros_like_acc(self.params, dense_den=(
+            self.any_structured or _guard_cov_active(flt)))
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        n_corrupt = 0
         for (ci, v), rows in groups:
             cohort = self.cohorts[ci]
             part = np.zeros(cohort.size, bool)
             part[rows] = True
-            g_sum, masks, l_sum = _cohort_upload(self, cohort, part,
-                                                 self._versions[v])
+            cov = None
+            if fault_rows is not None:
+                c_row, uid = fault_rows[ci]
+                c_row = c_row & part
+                n_corrupt += int(c_row.sum())
+                g_sum, masks, cov, l_sum = _fault_cohort_upload(
+                    self, cohort, part, self._versions[v], c_row, uid)
+            else:
+                g_sum, masks, l_sum = _cohort_upload(self, cohort, part,
+                                                     self._versions[v])
             acc = scatter_accumulate(
                 acc, g_sum, masks, self.cohort_spec(ci), cohort.plan.weight,
-                len(rows), staleness_weight=self.discount(win.version - v))
+                len(rows), staleness_weight=self.discount(win.version - v),
+                cov=cov)
             loss_sum = loss_sum + l_sum
         apply = _apply_fns(self.optimizer, self.mode, self.server_lr)
         self.params, self.opt_state = apply(finalize(acc), self.opt_state,
@@ -719,6 +942,8 @@ class AsyncFLServer:
                "n_versions_live": self.n_versions_live,
                "total_upload_bytes": sum(self._payload_bytes[u.client]
                                          for u in win.uploads)}
+        if flt is not None:
+            rec["n_corrupt"] = n_corrupt
         self.history.append(rec)
         return rec
 

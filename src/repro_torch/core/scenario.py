@@ -10,15 +10,19 @@ GPU and no CPU request they raise.
 
 Runtimes: the cohort runtime (``SyncWait``/``SyncDrop``), the per-client
 loop (``runtime="client"``) and the asynchronous buffered runtime
-(``AsyncBuffered``). :func:`scenario_census` tabulates a scenario on the
-host alone.
+(``AsyncBuffered``), each under an optional
+:class:`~repro_torch.core.faults.FaultPolicy` (``faults=``). ``simulate``
+makes runs durable (``checkpoint_every``/``checkpoint_dir``/
+``resume_from``, :mod:`repro_torch.checkpoint.state`).
+:func:`scenario_census` tabulates a scenario on the host alone.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): fault policies, fleet topologies and meshes, checkpointing.
+item): fleet topologies and meshes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import types
 from dataclasses import dataclass
 from typing import Any, ClassVar
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.core._unported import not_ported
 from repro_torch.core.compression import DEVICE_TIERS
+from repro_torch.core.faults import FaultPolicy
 from repro_torch.core.heterogeneity import PROFILES
 from repro_torch.numerics import FORMATS
 
@@ -299,18 +304,26 @@ class AsyncBuffered(TimingPolicy):
 class FLScenario:
     """One experiment: fleet x local x upload x participation x timing,
     plus the execution substrate (``"cohort"``: one step per plan;
-    ``"client"``: the per-client loop, O(#clients) steps)."""
+    ``"client"``: the per-client loop, O(#clients) steps). ``faults``
+    layers a :class:`FaultPolicy` over the run; ``None`` keeps every
+    runtime on its clean path."""
     fleet: FleetSpec
     local: LocalTraining = LocalTraining()
     upload: UploadPolicy = UploadPolicy()
     participation: ParticipationPolicy = ParticipationPolicy()
     timing: TimingPolicy = SyncWait()
     runtime: str = "cohort"         # cohort | client
-    faults: Any = None              # reference wire field; not ported
+    faults: FaultPolicy | None = None
 
     def __post_init__(self):
         if self.runtime not in ("cohort", "client"):
             raise ValueError(f"runtime must be cohort|client, got {self.runtime!r}")
+        if (self.faults is not None and isinstance(self.timing, AsyncBuffered)
+                and self.faults.traces_availability):
+            raise ValueError(
+                "availability traces (period/churn) are round-indexed — "
+                "the async virtual clock has no round index; model "
+                "async flakiness as dropout_rate + retry_backoff")
         if self.runtime == "client":
             if not isinstance(self.timing, SyncWait):
                 raise ValueError("the per-client runtime only supports "
@@ -332,11 +345,12 @@ class FLScenario:
              "timing": self.timing.to_dict(),
              "runtime": self.runtime}
         if self.faults is not None:
-            d["faults"] = self.faults
+            d["faults"] = self.faults.to_dict()
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "FLScenario":
+        faults = d.get("faults")
         return cls(fleet=FleetSpec.from_dict(d["fleet"]),
                    local=LocalTraining.from_dict(d["local"]),
                    upload=UploadPolicy.from_dict(d["upload"]),
@@ -344,7 +358,8 @@ class FLScenario:
                        d["participation"]),
                    timing=timing_from_dict(d["timing"]),
                    runtime=d.get("runtime", "cohort"),
-                   faults=d.get("faults"))
+                   faults=(None if faults is None
+                           else FaultPolicy.from_dict(faults)))
 
 
 # ------------------------------------------------------- typed records
@@ -406,11 +421,6 @@ class RunResult:
 
 # ------------------------------------------------------------- factory
 
-def _check_ported(scenario: FLScenario) -> None:
-    if scenario.faults is not None:
-        raise not_ported("FLScenario.faults (fault injection)", "Faults")
-
-
 def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
                  clients: list | None = None, shards: list | None = None,
                  device=None):
@@ -419,7 +429,6 @@ def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
     ``clients``/``shards`` override the fleet's data build."""
     from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
                                             FLServer)
-    _check_ported(scenario)
     dev = resolve_device(device)
     if clients is None:
         clients = scenario.fleet.build_clients(shards)
@@ -434,7 +443,8 @@ def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
                   local_lr=scenario.local.local_lr,
                   server_lr=scenario.local.server_lr,
                   upload_quant=scenario.upload.quant,
-                  error_feedback=scenario.upload.error_feedback)
+                  error_feedback=scenario.upload.error_feedback,
+                  faults=scenario.faults)
     if scenario.runtime == "client":
         return FLServer(clients=clients, **common)
     if isinstance(timing, AsyncBuffered):
@@ -507,6 +517,18 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
 
     The per-client runtime (``runtime="client"``) runs eager whatever
     ``engine`` says. ``result.agg_backend`` reports the backend used.
+
+    Durable runs: ``checkpoint_every=N`` saves the whole server state
+    (params, optimizer state, EF buffers, the async version store and
+    scheduler heap, the history) into ``checkpoint_dir`` every N rounds
+    or windows of the whole trajectory (absolute boundaries, so a
+    resumed run saves where the uninterrupted one does);
+    ``resume_from=path`` restores the latest checkpoint there and runs
+    the remaining ``rounds - restored_step``, and is also the save
+    target when ``checkpoint_dir`` is not given. Every draw is stateless
+    per round, so a killed and resumed run is bitwise the uninterrupted
+    one. The files are the reference's format: either package resumes
+    the other's.
     """
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
@@ -514,20 +536,33 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     if mesh is not None and mesh is not False:
         raise not_ported("mesh= (sharded edge fleets)", "Topology")
-    if (checkpoint_every is not None or checkpoint_dir is not None
-            or resume_from is not None):
-        raise not_ported("checkpointing", "Checkpointing")
-    _check_ported(scenario)
+    ckpt_dir = checkpoint_dir if checkpoint_dir is not None else resume_from
+    if checkpoint_every is not None:
+        if checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1 rounds")
+        if ckpt_dir is None:
+            raise ValueError("checkpoint_every needs checkpoint_dir "
+                             "(or resume_from) to write into")
     dev = resolve_device(device)
     model, optimizer, params = _default_bundle(model, optimizer, params,
                                                init_seed, dev)
     srv = build_server(scenario, model, optimizer, params, clients=clients,
                        shards=shards, device=dev)
+    done = 0
+    if resume_from is not None:
+        from repro_torch.checkpoint.state import restore_run_state
+        done = restore_run_state(srv, resume_from, scenario=scenario)
+        if done > rounds:
+            raise ValueError(
+                f"checkpoint at step {done} is past rounds={rounds}")
     agg_backend = "sequential"
     is_async = isinstance(scenario.timing, AsyncBuffered)
     if engine == "eager" or scenario.runtime == "client":
-        for _ in range(rounds):
-            srv.step() if is_async else srv.round()
+        advance_one = srv.step if is_async else srv.round
+
+        def advance(k):
+            for _ in range(k):
+                advance_one()
     else:
         from repro_torch.core.engine import ScanEngine, WindowScanEngine
         if is_async:
@@ -537,7 +572,19 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
                              agg="pallas" if engine == "scan_pallas"
                              else "sequential")
         agg_backend = eng.agg_backend
-        eng.run(rounds)
+        advance = eng.run
+    if checkpoint_every is None:
+        if rounds > done:
+            advance(rounds - done)
+    else:
+        from repro_torch.checkpoint.state import save_run_state
+        while done < rounds:
+            k = min(checkpoint_every - done % checkpoint_every,
+                    rounds - done)
+            advance(k)
+            done += k
+            if done % checkpoint_every == 0:
+                save_run_state(srv, ckpt_dir, scenario=scenario)
     return RunResult(scenario=scenario,
                      records=tuple(RoundRecord.from_history(h)
                                    for h in srv.history),
@@ -563,7 +610,6 @@ def scenario_census(scenario: FLScenario, params=None) -> dict:
     from repro_torch.configs.paper_mlp import config as mlp_config
     from repro_torch.core.heterogeneity import round_time
     from repro_torch.models import mlp
-    _check_ported(scenario)
     if params is None:
         params = mlp.init(torch.Generator().manual_seed(0), mlp_config())
     spec = scenario.fleet
@@ -596,6 +642,24 @@ def scenario_census(scenario: FLScenario, params=None) -> dict:
            "total_upload_bytes_per_round": total_bytes * n_sel / spec.n_clients,
            "tiers": [{"tier": tier, "profile": prof, **g}
                      for (tier, prof), g in per_group.items()]}
+    flt = scenario.faults
+    if flt is not None:
+        # steady-state availability = diurnal duty x P(no crash in the
+        # rejoin window)
+        duty = (math.ceil(flt.duty_cycle * flt.period) / flt.period
+                if flt.period > 0 else 1.0)
+        p_up = duty * (1.0 - flt.churn_rate) ** flt.rejoin_after
+        out["faults"] = {
+            "availability_expected": p_up,
+            "dropout_rate": flt.dropout_rate,
+            "corrupt_rate": flt.corrupt_rate,
+            "expected_participants_per_round":
+                n_sel * p_up * (1.0 - flt.dropout_rate),
+            "finite_guard": flt.finite_guard,
+            "clip_norm": flt.clip_norm,
+            "max_retry_delay_s": sum(flt.retry_backoff * 2.0 ** a
+                                     for a in range(flt.max_retries)),
+        }
     timing = scenario.timing
     if isinstance(timing, AsyncBuffered):
         out["buffer_size"] = timing.buffer_size

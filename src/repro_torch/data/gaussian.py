@@ -14,3 +14,11 @@ def make_gaussian_dataset(generator: torch.Generator, n: int,
     x = mu + std * torch.randn((n, num_features), generator=generator)
     return {"x": x.to(torch.float32), "y": y}
 
+
+
+def paper_splits(generator: torch.Generator, n_train: int, n_val: int = 1000,
+                 n_test: int = 1000, num_features: int = 5):
+    """The paper's train / validation / test sets, drawn one after the
+    other from ``generator``."""
+    return tuple(make_gaussian_dataset(generator, n, num_features)
+                 for n in (n_train, n_val, n_test))

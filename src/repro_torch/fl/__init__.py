@@ -11,12 +11,31 @@ runtime:
 ``runtime="client"`` runs the per-client :class:`FLServer`, and
 ``timing=AsyncBuffered(...)`` the virtual-clock :class:`AsyncFLServer`
 (``engine="scan"``: :class:`WindowScanEngine`).
+
+Resilience: a :class:`FaultPolicy` layers availability traces, mid-round
+dropouts, corrupted uploads and the server's defences over any scenario,
+and ``simulate(..., checkpoint_every=N, checkpoint_dir=...)`` /
+``resume_from=...`` make runs durable; a killed and resumed run is
+bitwise the uninterrupted one, and the checkpoints are the reference's
+format::
+
+    sc = FLScenario(fleet=spec, faults=FaultPolicy(
+        period=24, duty_cycle=0.7, churn_rate=0.05,
+        dropout_rate=0.1, corrupt_rate=0.01))
+    simulate(sc, 1000, checkpoint_every=100, checkpoint_dir="ckpt/")
+    simulate(sc, 1000, resume_from="ckpt/")   # continues after a kill
 """
+from repro_torch.checkpoint import (Checkpointer, load_pytree,
+                                    save_pytree)  # noqa: F401
+from repro_torch.checkpoint.state import (latest_run_step, restore_run_state,
+                                          save_run_state)  # noqa: F401
 from repro_torch.core.compression import (CompressionPlan, DEVICE_TIERS,
                                           SubmodelSpec, default_tier_plans,
-                                          expand_update, submodel_spec)  # noqa: F401
+                                          expand_update, slice_submodel,
+                                          submodel_spec)  # noqa: F401
 from repro_torch.core.engine import (ScanEngine, WindowScanEngine,
                                      simulate_rounds)  # noqa: F401
+from repro_torch.core.faults import FaultPolicy  # noqa: F401
 from repro_torch.core.federated import (AsyncFLServer, Client, Cohort,
                                         CohortFLServer, FLServer,
                                         build_cohorts,

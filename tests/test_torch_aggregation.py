@@ -65,6 +65,36 @@ def test_scatter_accumulate_finalize_bitwise(width):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
+@pytest.mark.parametrize("width", [False, True])
+def test_scatter_accumulate_coverage_bitwise(width):
+    """The fault layer's coverage denominator (``cov=``, integer-valued
+    per coordinate at the tier's local shapes), with and without a
+    staleness weight: the finalized aggregate is the reference's bit for
+    bit."""
+    jp, tp, tiers = _setup(width, seed=1)
+    rng = np.random.default_rng(7)
+    acc_j = JA.zeros_like_acc(jp, dense_den=True)
+    acc_t = TA.zeros_like_acc(tp, dense_den=True)
+    for i, (spec_j, spec_t, g_j, g_t, m_j, m_t, w, n) in enumerate(tiers):
+        cov = {k: rng.integers(0, int(n) + 1, v.shape).astype(np.float32)
+               for k, v in g_t.items()}
+        cov_j = jax.tree.unflatten(jax.tree.structure(jp),
+                                   [jnp.asarray(v) for v in cov.values()])
+        s = None if i % 2 else 0.7071067811865476
+        acc_j = JA.scatter_accumulate(
+            acc_j, g_j, m_j, spec_j, jnp.float32(w), jnp.float32(n),
+            staleness_weight=None if s is None else jnp.float32(s),
+            cov=cov_j)
+        acc_t = TA.scatter_accumulate(
+            acc_t, g_t, m_t, spec_t, w, n, staleness_weight=s,
+            cov={k: torch.from_numpy(v) for k, v in cov.items()})
+    out_j = [np.asarray(x) for x in jax.tree.leaves(JA.finalize(acc_j))]
+    out_t = [v.numpy() for v in TA.finalize(acc_t).values()]
+    for a, b in zip(out_j, out_t):
+        assert a.shape == b.shape
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
 @pytest.mark.parametrize("local_steps", [1, 5])
 @pytest.mark.parametrize("width", [False, True])
 def test_cohort_round_time_exact(local_steps, width):

@@ -321,13 +321,15 @@ def test_scenario_json_round_trips_across_packages(name):
 
 
 def test_async_runtime_refuses_faults():
+    """The faults the virtual clock cannot model (round-indexed
+    availability traces) are refused, as in the reference."""
     sc = _scenarios(T)["masked_jitter"]
-    with pytest.raises(NotImplementedError, match="Faults"):
+    with pytest.raises(ValueError, match="round-indexed"):
         T.AsyncFLServer.from_clients(
             sc.fleet.build_clients(), "cpu", model=MODEL,
             optimizer=optim.sgd(1.0),
             params=tmlp.init(torch.Generator().manual_seed(0), config()),
-            buffer_size=2, faults={"dropout_rate": 0.1})
+            buffer_size=2, faults=T.FaultPolicy(period=4, duty_cycle=0.5))
     with pytest.raises(TypeError, match="AsyncFLServer"):
         T.WindowScanEngine(T.build_server(
             T.FLScenario(fleet=sc.fleet), MODEL, optim.sgd(1.0),

@@ -176,9 +176,3 @@ def test_client_runtime_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="participation"):
         T.FLScenario(fleet=fleet, runtime="client",
                      participation=T.ParticipationPolicy(fraction=0.5))
-    with pytest.raises(NotImplementedError, match="Faults"):
-        T.FLServer(model=None, optimizer=optim.sgd(1.0),
-                   clients=fleet.build_clients(),
-                   params=tmlp.init(torch.Generator().manual_seed(0),
-                                    config()),
-                   faults={"dropout_rate": 0.1})

@@ -94,14 +94,15 @@ def test_simulate_without_device_never_drops_to_cpu(monkeypatch):
 @pytest.mark.parametrize("case", ["async", "client", "faults", "topology",
                                   "mesh", "checkpoint", "census",
                                   "dirichlet"])
-def test_unported_parts_raise(case):
-    """What is still unported raises, naming its ROADMAP item. The async
-    and per-client runtimes, the census and the Dirichlet partition run
-    now; their cases hold the parts around them that do not: a fault
-    policy on either runtime or in the census, and checkpointing."""
+def test_unported_parts_raise(case, tmp_path):
+    """What is still unported raises, naming its ROADMAP item: fleet
+    topologies and meshes. The other cases held parts that are ported
+    since (a fault policy on the async and per-client runtimes and in the
+    census, checkpointing, the Dirichlet partition) and now run."""
     fleet = T.FleetSpec.cycling(TIERS, 4)
     sc = T.FLScenario(fleet=fleet)
-    faults = {"dropout_rate": 0.1}
+    faults = T.FaultPolicy(dropout_rate=0.1)
+    d = str(tmp_path)
     run = {
         "async": lambda: T.simulate(T.FLScenario(
             fleet=fleet, timing=T.AsyncBuffered(), faults=faults), 1,
@@ -114,15 +115,25 @@ def test_unported_parts_raise(case):
                                         topology={"edges": [[0, 1]]}),
         "mesh": lambda: T.simulate(sc, 1, device="cpu", mesh=True),
         "checkpoint": lambda: T.simulate(sc, 1, device="cpu",
-                                         checkpoint_dir="unused"),
+                                         checkpoint_every=1,
+                                         checkpoint_dir=d),
         "census": lambda: T.scenario_census(T.FLScenario(
             fleet=fleet, faults=faults)),
         "dirichlet": lambda: T.simulate(T.FLScenario(fleet=T.FleetSpec(
             tiers=TIERS, n_samples=64, partition="dirichlet")), 1,
-            device="cpu", checkpoint_every=1, resume_from="unused"),
+            device="cpu", checkpoint_every=1, checkpoint_dir=d),
     }[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run()
+    if case in ("topology", "mesh"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run()
+        return
+    out = run()
+    if case == "census":
+        assert out["faults"]["dropout_rate"] == 0.1
+    else:
+        assert out.final.loss is not None
+    if case in ("checkpoint", "dirichlet"):
+        assert T.latest_run_step(d) == 1
 
 
 def test_port_imports_neither_jax_nor_reference():
