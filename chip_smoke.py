@@ -109,6 +109,28 @@
    checkpoint removed (what a kill after step 2 leaves) and resumed:
    steps 3-4 bitwise (losses, tier losses, params), the state's save and
    restore timed; flash_attention 4 wgmma launches per step.
+   Phase "topology": hierarchical fleets. (a) the reference's five
+   topology scenarios (sync_wait at participation 0.5, sync_drop at
+   0.004 s, FedAvg with 3 local steps at lr 0.5, fp8_e4m3 uploads with
+   EF at participation 0.6, width) on the bench fleet over 8 contiguous
+   edges, 20 rounds each eager, scan (chunks of 5), scan with mesh=True
+   (the one-card mesh) and, for sync_wait, quant_ef and width, scan on a
+   4-block mesh of the one card: params, optimizer state and every
+   record bitwise across them all;
+   losses finite; fake_quant launched on every run and the aggregation
+   kernel on none (counters zeroed just before each run);
+   engine="scan_pallas" refused; a 16-client, 4-edge fleet's 3 rounds
+   within 1e-5 of the port's CPU path. (b) sync_wait under (a)'s
+   availability policy of phase faults, eager and scan bitwise, equal
+   counts. (c) fp8 EF cut at 10 of 20 rounds and resumed, eager and
+   scan, bitwise; the npz holds the (E, cap, ...) EF rows; save and
+   restore timed. (d) the reference's acceptance fleet: 100,000 clients
+   of the four tiers over 8 edges, FedSGD, ScanEngine(chunk_rounds=10),
+   a warm chunk of 11 rounds then 10 timed: ms per round, a profiled
+   round's device-busy share, seconds to build the clients and the
+   grids, peak memory, the census's cross_shard_bytes_per_round (equal
+   to the 256-client fleet's), and the engine's record counts, wall and
+   bytes equal to an eager round's of the same server.
 4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
    compute), compressed for each tier hub / high / mid / low / embedded
    through ``repro_torch.launch.serve``: batch 4, prompt 64, 32 greedy
@@ -1894,6 +1916,268 @@ def phase_checkpoint(device, faults: dict) -> dict:
     return got
 
 
+# ------------------------------------------------------------ topology
+
+TOPO_EDGES = 8
+TOPO_CHUNK = 5
+ACCEPT_CLIENTS = 100_000            # benchmarks/fl_bench.py:354-396
+ACCEPT_CHUNK = 10
+# the 4-block runs: one per edge-step branch (fedsgd weighted sum, fp8
+# uploads with EF, width slices); sync_drop and fedavg take the first two
+FOUR_BLOCKS = ("sync_wait", "quant_ef", "width")
+
+
+def _topo_scenarios(fleet) -> dict:
+    """The reference's five topology scenarios (tests/test_topology.py)
+    on ``fleet``."""
+    from repro_torch.fl import (FLScenario, LocalTraining,
+                                ParticipationPolicy, SyncDrop, UploadPolicy)
+    return {
+        "sync_wait": FLScenario(
+            fleet=fleet, participation=ParticipationPolicy(0.5, seed=11)),
+        "sync_drop": FLScenario(fleet=fleet, timing=SyncDrop(0.004)),
+        "fedavg": FLScenario(fleet=fleet, local=LocalTraining(
+            mode="fedavg", local_steps=3, local_lr=0.5)),
+        "quant_ef": FLScenario(
+            fleet=fleet, upload=UploadPolicy("fp8_e4m3", error_feedback=True),
+            participation=ParticipationPolicy(0.6, seed=5)),
+        "width": FLScenario(fleet=fleet,
+                            local=LocalTraining(submodel="width")),
+    }
+
+
+def _topo_run(sc, engine: str, device, label: str, n: int = ROUNDS,
+              mesh=None, flat_ms=None):
+    """``simulate`` on a topology fleet for ``n`` rounds, timed, with the
+    launch counters zeroed just before and read just after: fake_quant
+    launches (every quantized plan's edge copies and fp8 uploads), the
+    aggregation kernel none (refused on topology fleets)."""
+    import torch
+    from repro_torch.fl import simulate
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.kernels.grad_aggregate import grad_aggregate
+    from repro_torch.kernels.structured_scatter import structured_scatter
+    aggs = (fleet_aggregate, grad_aggregate, structured_scatter)
+    for fn in (fake_quant,) + aggs:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(sc, n, engine=engine, device=device, mesh=mesh,
+                   chunk_rounds=TOPO_CHUNK if engine == "scan" else None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    fq, agg = fake_quant.launches, sum(fn.launches for fn in aggs)
+    losses = [r.loss for r in res.records if r.loss is not None]
+    on = "none" if mesh is None else (
+        f"{res.server.mesh.size} block(s) on "
+        f"{sorted({str(d) for d in res.server.mesh.devices})}")
+    flat = "" if flat_ms is None else f" (flat fleet {flat_ms:.3f})"
+    print(f"topology {label} engine={engine} mesh={on}: ms_per_round="
+          f"{ms:.3f}{flat} loss[1]={losses[0]:.6f} loss[{n}]="
+          f"{losses[-1]:.6f} fake_quant={fq} aggregation_launches={agg}")
+    check(len(losses) == n and all(math.isfinite(l) for l in losses),
+          f"topology {label}/{engine}: losses finite")
+    check(fq > 0, f"topology {label}/{engine}: fake_quant launched ({fq})")
+    check(agg == 0, f"topology {label}/{engine}: the aggregation kernel "
+                    f"never launched")
+    return res, fq
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tensors(v)]
+    return [tree]
+
+
+def _same_state(a, b) -> bool:
+    """Two runs' params and optimizer state bitwise, every record equal."""
+    import torch
+    la, lb = _tensors(a.opt_state), _tensors(b.opt_state)
+    return (_same_params(a.params, b.params) == 0.0 and len(la) == len(lb)
+            and all(torch.equal(x, y) for x, y in zip(la, lb))
+            and a.records == b.records)
+
+
+def _npz_ef_shapes(npz: str) -> dict:
+    """The EF leaves' shapes in a run checkpoint."""
+    import numpy as np
+    with np.load(npz) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        return {m["name"]: tuple(z[k].shape) for k, m in meta.items()
+                if m["name"].startswith("ef/")}
+
+
+def phase_topology(device, ms_log: dict) -> dict:
+    """Hierarchical fleets on the card: (a) the reference's five topology
+    scenarios on the 256-client bench fleet over 8 edges, eager, scan,
+    scan on the default (one-device) mesh and on a 4-block mesh of the
+    one card; (b) the availability fault policy; (c) a kill and resume
+    with fp8 EF rows; (d) the reference's 100,000-client, 8-edge
+    acceptance fleet. Returns the fake_quant launches (each run's
+    counters zeroed just before it)."""
+    import shutil
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.fl import (FaultPolicy, FleetSpec, FLScenario,
+                                ParticipationPolicy, ScanEngine,
+                                build_server, make_edge_mesh, save_run_state,
+                                scenario_census, simulate)
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.models import mlp
+    fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16,
+                              edges=TOPO_EDGES)
+    scenarios = _topo_scenarios(fleet)
+    n_fq = 0
+
+    # agreement with the port's CPU path on a small input
+    small = FLScenario(fleet=FleetSpec.cycling(BENCH_TIERS, 16, edges=4),
+                       participation=ParticipationPolicy(0.5, seed=11))
+    cpu = simulate(small, 3, device="cpu")
+    gpu = simulate(small, 3, engine="scan", device=device)
+    diff = max((cpu.params[k] - gpu.params[k].cpu()).abs().max().item()
+               for k in cpu.params)
+    check(diff <= 1e-5, f"topology small fleet: CUDA scan params vs CPU "
+                        f"eager, max_abs_err {diff} <= 1e-5")
+    try:
+        simulate(scenarios["sync_wait"], 1, engine="scan_pallas",
+                 device=device)
+        refused = False
+    except ValueError as e:
+        refused = "pallas" in str(e)
+    check(refused, "topology: engine='scan_pallas' refused (ValueError)")
+
+    # (a) five scenarios, eager / scan / default mesh / 4 blocks
+    simulate(scenarios["sync_wait"], 2, engine="scan", device=device)
+    four = make_edge_mesh(TOPO_EDGES, devices=[device] * 4)
+    # the flat fleets doing the same work (full participation)
+    flat_of = {"sync_drop": "masked", "width": "width"}
+    for name, sc in scenarios.items():
+        flat = flat_of.get(name)
+        e, k1 = _topo_run(sc, "eager", device, name,
+                          flat_ms=ms_log.get((flat, "eager")))
+        s, k2 = _topo_run(sc, "scan", device, name,
+                          flat_ms=ms_log.get((flat, "scan")))
+        m, k3 = _topo_run(sc, "scan", device, name, mesh=True)
+        n_fq += k1 + k2 + k3
+        d = _same_params(e.params, s.params)
+        print(f"topology {name}: scan vs eager max_abs_err={d}; "
+              f"participants per round="
+              f"{sorted({r.n_participants for r in s.records})}")
+        check(_same_state(e, s), f"topology {name}: scan params, opt_state "
+                                 f"and every record == eager (bitwise)")
+        check(m.server.mesh.size == 1 and _same_state(s, m),
+              f"topology {name}: scan on mesh=True (1 device) == unsharded "
+              f"(bitwise)")
+        if name in FOUR_BLOCKS:
+            f, k4 = _topo_run(sc, "scan", device, name, mesh=four)
+            n_fq += k4
+            check(f.server.mesh.size == 4 and _same_state(s, f),
+                  f"topology {name}: scan on 4 blocks of the card == "
+                  f"unsharded (bitwise)")
+
+    # (b) availability, churn and dropouts on sync_wait
+    sc = FLScenario(fleet=fleet, participation=ParticipationPolicy(0.5,
+                                                                   seed=11),
+                    faults=FaultPolicy(**AVAIL_FAULTS))
+    e, k1 = _topo_run(sc, "eager", device, "sync_wait availability")
+    s, k2 = _topo_run(sc, "scan", device, "sync_wait availability")
+    n_fq += k1 + k2
+    print(f"topology availability: participants per round="
+          f"{[r.n_participants for r in s.records]} dropouts="
+          f"{sum(r.n_dropouts for r in s.records)}")
+    check(_same_state(e, s) and _fault_counts(e) == _fault_counts(s),
+          "topology availability: scan == eager (bitwise), participant, "
+          "dropout and drop counts equal")
+    check(min(r.n_participants for r in s.records) < fleet.n_clients,
+          f"topology availability: rounds with fewer participants than "
+          f"{fleet.n_clients}")
+
+    # (c) kill and resume with fp8 EF rows
+    sc = scenarios["quant_ef"]
+    fake_quant.launches = 0
+    for engine in ("eager", "scan"):
+        res = _kill_and_resume(sc, engine, device, "topology quant_ef",
+                               ROUNDS)
+    cap = [c.cap for c in res.server.cohorts]
+    d = _ckpt_dir()
+    try:
+        shapes = _npz_ef_shapes(save_run_state(res.server, d, scenario=sc))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"topology checkpoint: {len(shapes)} EF leaves, e.g. "
+          f"{ {k: v for k, v in shapes.items() if k.endswith('0/w')} }")
+    check(all(shapes[f"ef/{ci}/layers/0/w"] == (TOPO_EDGES, c, 5, 10)
+              for ci, c in enumerate(cap)),
+          "topology checkpoint: the npz holds the (E, cap, ...) EF rows")
+    _save_restore(sc, res, device, "topology quant_ef (edge EF grids)")
+    n_fq += fake_quant.launches
+
+    # (d) the reference's acceptance fleet
+    spec = FleetSpec.cycling(BENCH_TIERS, ACCEPT_CLIENTS,
+                             samples_per_client=16, edges=TOPO_EDGES)
+    sc = FLScenario(fleet=spec)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clients = spec.build_clients()
+    t_clients = time.perf_counter() - t0
+    srv = build_server(sc, types.SimpleNamespace(loss_fn=mlp.loss_fn),
+                       optim.sgd(1.0),
+                       mlp.init(torch.Generator().manual_seed(0), config()),
+                       clients=clients, device=device)
+    torch.cuda.synchronize()
+    t_grids = time.perf_counter() - t0 - t_clients
+    del clients
+    eng = ScanEngine(srv, chunk_rounds=ACCEPT_CHUNK)
+    fake_quant.launches = 0
+    warm = eng.run(ACCEPT_CHUNK + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = eng.run(ACCEPT_CHUNK)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ACCEPT_CHUNK * 1e3
+    n_fq += fake_quant.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile_window(f"topology {ACCEPT_CLIENTS}", lambda: eng.run(1), 1,
+                   "round")
+    eager = srv.round()
+    last = timed[-1]
+    t0 = time.perf_counter()
+    big = scenario_census(sc)
+    t_census = time.perf_counter() - t0
+    small_bytes = scenario_census(scenarios["sync_drop"])[
+        "cross_shard_bytes_per_round"]
+    losses = [r["loss"] for r in warm + timed] + [eager["loss"]]
+    print(f"topology {ACCEPT_CLIENTS} clients x {TOPO_EDGES} edges: "
+          f"ms_per_round={ms:.3f} (scan, chunk {ACCEPT_CHUNK}) "
+          f"build_clients_s={t_clients:.3f} build_grids_s={t_grids:.3f} "
+          f"peak_mem_gib={peak:.3f} cap={[c.cap for c in srv.cohorts]} "
+          f"cross_shard_bytes_per_round="
+          f"{big['cross_shard_bytes_per_round']:.0f} census_s="
+          f"{t_census:.3f} loss[1]={losses[0]:.6f} "
+          f"loss[{len(losses)}]={losses[-1]:.6f}")
+    check(all(math.isfinite(l) for l in losses),
+          f"topology {ACCEPT_CLIENTS}: losses finite")
+    check(big["cross_shard_bytes_per_round"] == small_bytes,
+          f"topology {ACCEPT_CLIENTS}: cross_shard_bytes_per_round equals "
+          f"the 256-client fleet's ({small_bytes:.0f})")
+    check(all(eager[k] == last[k] for k in
+              ("n_participants", "n_dropped", "round_wall_time",
+               "total_upload_bytes"))
+          and last["n_participants"] == ACCEPT_CLIENTS,
+          f"topology {ACCEPT_CLIENTS}: the engine's record counts, wall and "
+          f"bytes == an eager round's of the same server")
+    del srv, eng
+    torch.cuda.empty_cache()
+    print(f"topology: fake_quant launches={n_fq}")
+    return {"fake_quant": n_fq}
+
+
 # --------------------------------------------------------------- serve
 
 SERVE_TIERS = ("hub", "high", "mid", "low", "embedded")
@@ -2156,6 +2440,7 @@ def main() -> int:
               ("async", lambda: phase_async(device, clean_ms)),
               ("faults", lambda: phase_faults(device, clean_ms)),
               ("checkpoint", lambda: phase_checkpoint(device, out["faults"])),
+              ("topology", lambda: phase_topology(device, clean_ms)),
               ("serve", lambda: phase_serve(device)),
               ("train", lambda: phase_train(device))]
     try:
@@ -2175,7 +2460,8 @@ def main() -> int:
     launches["structured_scatter"] += flt["structured_scatter"]
     launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
                                + out["train"]["fake_quant"]
-                               + flt["fake_quant"] + ckpt["fake_quant"])
+                               + flt["fake_quant"] + ckpt["fake_quant"]
+                               + out["topology"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
@@ -2188,7 +2474,7 @@ def main() -> int:
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + faults + "
-          f"checkpoint + serve + train, matmul entry points): "
+          f"checkpoint + topology + serve + train, matmul entry points): "
           f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (

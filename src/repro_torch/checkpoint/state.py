@@ -31,6 +31,7 @@ import tempfile
 import torch
 
 from repro_torch.checkpoint.checkpointer import load_pytree, save_pytree
+from repro_torch.core.topology import EdgeCohort, edge_sharding, unshard
 
 _SCHEMA = 1
 
@@ -56,12 +57,16 @@ def latest_run_step(directory: str) -> int | None:
 
 def _cohort_ef_template(server, ci: int) -> dict:
     """Zero residuals shaped like cohort ``ci``'s EF buffer (made lazily
-    by the runtime, so a fresh server may not have one yet)."""
-    from repro_torch.core.federated import (_init_cohort_ef,
+    by the runtime, so a fresh server may not have one yet): ``(size,
+    ...)`` for a cohort, ``(E, cap, ...)`` for an edge grid, on the
+    server's (hub) device."""
+    from repro_torch.core.federated import (_init_cohort_ef, _init_edge_ef,
                                             _local_param_struct)
     cohort = server.cohorts[ci]
-    return _init_cohort_ef(cohort.size,
-                           _local_param_struct(server.params, cohort.plan))
+    struct = _local_param_struct(server.params, cohort.plan)
+    if isinstance(cohort, EdgeCohort):
+        return _init_edge_ef(cohort.n_edges, cohort.cap, struct)
+    return _init_cohort_ef(cohort.size, struct)
 
 
 def save_run_state(server, directory: str, *, scenario=None,
@@ -86,7 +91,10 @@ def save_run_state(server, directory: str, *, scenario=None,
         idx = [ci for ci, c in enumerate(server.cohorts)
                if c.ef_buffer is not None]
         meta["ef_cohorts"] = idx
-        arrays["ef"] = {str(ci): server.cohorts[ci].ef_buffer for ci in idx}
+        # an edge grid's EF rows in the mesh's blocks are saved whole
+        arrays["ef"] = {str(ci): {k: unshard(v, server.device) for k, v in
+                                  server.cohorts[ci].ef_buffer.items()}
+                        for ci in idx}
         if kind != "AsyncFLServer":
             step = server.step
         else:
@@ -168,8 +176,12 @@ def restore_run_state(server, directory: str, *, scenario=None,
             server.clients[i].ef_buffer = loaded["client_ef"][str(i)]
         server.step = meta["step"]
         return meta["step"]
+    mesh = getattr(server, "mesh", None)
     for ci in meta["ef_cohorts"]:
-        server.cohorts[ci].ef_buffer = loaded["ef"][str(ci)]
+        ef = loaded["ef"][str(ci)]
+        if mesh is not None and isinstance(server.cohorts[ci], EdgeCohort):
+            ef = {k: edge_sharding(mesh).put(v) for k, v in ef.items()}
+        server.cohorts[ci].ef_buffer = ef
     if kind != "AsyncFLServer":
         server.step = meta["step"]
         return meta["step"]

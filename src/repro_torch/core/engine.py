@@ -21,6 +21,19 @@ sync instead of one per round.
   A policy that touches uploads swaps each cohort's step for its fault
   twin and aggregates with per-coordinate coverage, which the fused
   kernel has no column for: it runs ``agg="sequential"`` only.
+- Topology fleets (every cohort an
+  :class:`~repro_torch.core.topology.EdgeCohort`): each cohort runs the
+  eager round's edge step (``federated.edge_step_fn``) on its block(s) of
+  the grid and the hub chains the per-edge partials in edge order
+  (``federated._hub_combine``), the loss partial of each edge after its
+  update, as the eager round does; a cohort nobody joined adds exact
+  zeros. The chunk's ``(E, R, cap)`` participation grids go to the device
+  once per chunk (once per block under a mesh); the per-edge counts stay
+  host floats, as every count of the port's aggregation does. The
+  records' wall-clock and bytes are computed on the host in float64 with
+  the eager round's expressions, so topology records equal the eager
+  ones exactly. The fused kernel has no edge axis: ``agg="sequential"``
+  only, as in the reference.
 
 Aggregation backends (``agg``; the one actually used is ``agg_backend``):
 
@@ -56,11 +69,16 @@ from repro_torch.core.faults import (availability_mask, corrupt_mask,
                                      corrupt_seq_mask, dropout_mask)
 from repro_torch.core.federated import (AsyncFLServer, CohortFLServer,
                                         _apply_fns, _cohort_upload,
+                                        _edge_ef, _edge_upload,
                                         _fault_cohort_upload,
-                                        _guard_cov_active, _init_cohort_ef,
-                                        _local_param_struct, cohort_step_fn,
-                                        fault_cohort_step_fn, window_groups)
+                                        _guard_cov_active, _hub_combine,
+                                        _init_cohort_ef,
+                                        _local_param_struct, _n_batch,
+                                        _place_edges, cohort_step_fn,
+                                        edge_step_fn, fault_cohort_step_fn,
+                                        window_groups)
 from repro_torch.core.schedule import materialize_windows
+from repro_torch.core.topology import EdgeCohort, scatter_part
 
 AGG_BACKENDS = ("sequential", "pallas")
 
@@ -84,6 +102,13 @@ class ScanEngine:
         if self.chunk_rounds < 0:
             raise ValueError("chunk_rounds must be >= 0 (0 = one chunk per run)")
         srv = self.server
+        self._topology = (len(srv.cohorts) > 0
+                          and isinstance(srv.cohorts[0], EdgeCohort))
+        if self._topology and self.agg != "sequential":
+            raise ValueError(
+                "topology fleets aggregate per (plan, edge) partial — "
+                "the fused pallas backends have no edge axis; use "
+                "agg='sequential'")
         self._fault_uploads = (srv.faults is not None
                                and srv.faults.touches_uploads)
         if self._fault_uploads and self.agg != "sequential":
@@ -91,8 +116,8 @@ class ScanEngine:
                 "upload corruption/defenses aggregate with per-coordinate "
                 "coverage denominators — the fused fleet_aggregate kernel "
                 "has no coverage column; use agg='sequential'")
-        step_fn = (functools.partial(fault_cohort_step_fn,
-                                     faults=srv.faults)
+        step_fn = (edge_step_fn if self._topology else
+                   functools.partial(fault_cohort_step_fn, faults=srv.faults)
                    if self._fault_uploads else cohort_step_fn)
         self._steps = [step_fn(srv.model.loss_fn, c.plan, srv.mode,
                                srv.local_steps, srv.local_lr,
@@ -105,7 +130,7 @@ class ScanEngine:
         # a width=1.0 fleet has identity specs and takes the masked path
         self._any_sliced = any(s is not None and not s.is_identity
                                for s in self._specs)
-        self._times = [srv.cohort_times(ci, c.data["x"].shape[1])
+        self._times = [srv.cohort_times(ci, _n_batch(c))
                        for ci, c in enumerate(srv.cohorts)]
         dev = srv.device
         self._T_dev = [torch.as_tensor(t["T"], dtype=torch.float32).to(dev)
@@ -192,6 +217,31 @@ class ScanEngine:
                 agg, srv.opt_state, params, xs["step"][r])
         return loss_sum, wall, up_bytes
 
+    def _grid_round(self, r: int, xs: dict, efs: list) -> torch.Tensor:
+        """One topology round on the device: each cohort's edge step on
+        its blocks, the hub's fixed-order combine; returns the loss
+        sum."""
+        srv = self.server
+        params = srv.params
+        acc = zeros_like_acc(params, dense_den=srv.any_structured)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=srv.device)
+        for ci, (cohort, step) in enumerate(zip(srv.cohorts, self._steps)):
+            ef = efs[ci]
+            if srv.upload_quant is not None and not srv.error_feedback:
+                ef = _edge_ef(srv, cohort, params)
+            g_sums, masks, l_sums, new_ef = _edge_upload(
+                srv, cohort, step, params,
+                [blk[:, r] for blk in xs["part"][ci]], ef)
+            if srv.error_feedback:
+                efs[ci] = new_ef
+            acc, loss_sum = _hub_combine(acc, loss_sum, g_sums, masks, l_sums,
+                                         self._specs[ci], cohort.plan.weight,
+                                         xs["count"][r][ci])
+        if xs["has"][r]:
+            srv.params, srv.opt_state = self._apply(
+                finalize(acc), srv.opt_state, params, xs["step"][r])
+        return loss_sum
+
     def _host_masks(self, R: int):
         """The chunk's participation, replaying the eager round on the
         host in its order: sampling, availability, the float64 deadline
@@ -243,6 +293,8 @@ class ScanEngine:
         srv = self.server
         if srv.upload_quant is None:
             return [{} for _ in srv.cohorts]
+        if self._topology:
+            return [_edge_ef(srv, c, srv.params) for c in srv.cohorts]
         return [c.ef_buffer if (c.ef_buffer is not None and srv.error_feedback)
                 else _init_cohort_ef(c.size, self._local_structs[ci])
                 for ci, c in enumerate(srv.cohorts)]
@@ -261,9 +313,12 @@ class ScanEngine:
         xs = {
             "step": list(range(step0, step0 + R)),
             "has": [any(p.any() for p in parts[r]) for r in range(R)],
-            "count": [[float(p.sum()) for p in parts[r]] for r in range(R)],
-            "part": per_cohort(parts, torch.float32),
         }
+        if self._topology:
+            return self._run_grid_chunk(R, xs, parts, wparts, dropped,
+                                        dropouts)
+        xs["count"] = [[float(p.sum()) for p in parts[r]] for r in range(R)]
+        xs["part"] = per_cohort(parts, torch.float32)
         if srv.faults is not None:
             xs["wpart"] = per_cohort(wparts, torch.float32)
         if self._fault_uploads:
@@ -300,6 +355,57 @@ class ScanEngine:
                 rec["n_dropouts"] = dropouts[r]
                 rec["n_corrupt"] = (int(sum(c.sum() for c in corrs[r]))
                                     if self._fault_uploads else 0)
+            srv.history.append(rec)
+            recs.append(rec)
+        return recs
+
+    def _run_grid_chunk(self, R: int, xs: dict, parts, wparts, dropped,
+                        dropouts) -> list[dict]:
+        """A topology chunk: the ``(E, R, cap)`` participation grid of each
+        cohort placed once (in the mesh's blocks), the per-edge counts on
+        the host, the rounds, one sync; records on the host in float64
+        with the eager round's expressions."""
+        srv = self.server
+        step0 = srv.step
+        # (E, R, cap): the edge axis leads, so the blocks split it
+        xs["part"] = [_place_edges(srv, torch.from_numpy(np.stack(
+            [scatter_part(c, parts[r][ci]) for r in range(R)], axis=1)))
+            for ci, c in enumerate(srv.cohorts)]
+        xs["count"] = [[np.bincount(c.edge_index[parts[r][ci]],
+                                    minlength=c.n_edges)
+                        for ci, c in enumerate(srv.cohorts)]
+                       for r in range(R)]
+        efs = self._ef_state()
+        losses = [self._grid_round(r, xs, efs) for r in range(R)]
+        srv.step = step0 + R
+        if srv.upload_quant is not None and srv.error_feedback:
+            for c, ef in zip(srv.cohorts, efs):
+                c.ef_buffer = ef
+        # the chunk's single device -> host sync
+        loss_host = torch.stack(losses).cpu().numpy()
+        recs = []
+        for r in range(R):
+            n_p, wall, up = 0, 0.0, 0.0
+            for ci, p in enumerate(parts[r]):
+                # who ran burns wall-clock, who uploaded is billed
+                wp = wparts[r][ci]
+                if wp.any():
+                    wall = max(wall, float(self._times[ci]["T"][wp].max()))
+                if p.any():
+                    n_p += int(p.sum())
+                    up += float(self._times[ci]["payload_bytes"][p].sum())
+            rec = {
+                "step": step0 + r + 1,
+                "loss": float(loss_host[r]) / n_p if n_p else None,
+                "n_participants": n_p,
+                "n_dropped": dropped[r],
+                "round_wall_time": (srv.deadline if srv.straggler == "drop"
+                                    and dropped[r] else wall),
+                "total_upload_bytes": up,
+            }
+            if srv.faults is not None:
+                rec["n_dropouts"] = dropouts[r]
+                rec["n_corrupt"] = 0
             srv.history.append(rec)
             recs.append(rec)
         return recs

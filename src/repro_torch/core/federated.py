@@ -23,6 +23,12 @@ error feedback. Three runtimes share that loop:
   global version each client last downloaded, one cohort step per
   (cohort, version) group.
 
+A hierarchical fleet (``CohortFLServer.topology``, a
+:class:`~repro_torch.core.topology.FleetTopology`) arranges each cohort
+as an ``(E, cap, ...)`` edge grid: :func:`edge_step_fn` computes every
+edge gateway's partial aggregate and the hub chains the partials in
+fixed edge order (:func:`_hub_combine`).
+
 A :class:`~repro_torch.core.faults.FaultPolicy` (``faults=``) layers
 availability traces, mid-round dropouts, corrupted uploads and the
 server's defences over any of the three (the reference's semantics,
@@ -50,6 +56,9 @@ from repro_torch.core.faults import (FaultPolicy, availability_mask,
 from repro_torch.core.heterogeneity import (PROFILES, cohort_round_time,
                                             round_time)
 from repro_torch.core.schedule import RetrySpec, VirtualClockScheduler
+from repro_torch.core.topology import (EdgeBlocks, EdgeCohort,
+                                       build_edge_cohorts, edge_blocks,
+                                       edge_sharding, scatter_part)
 from repro_torch.data.federated import stack_shards
 from repro_torch.numerics import FORMATS
 
@@ -80,9 +89,13 @@ class Cohort:
         return len(self.client_ids)
 
 
-def build_cohorts(clients: list[Client], device) -> list[Cohort]:
+def build_cohorts(clients: list[Client], device, topology=None) -> list:
     """Group clients by plan (first-appearance order; client order kept
-    within a cohort) and stack their shards onto ``device``."""
+    within a cohort) and stack their shards onto ``device``. With a
+    :class:`~repro_torch.core.topology.FleetTopology` the same groups are
+    arranged as edge grids instead (:func:`build_edge_cohorts`)."""
+    if topology is not None:
+        return build_edge_cohorts(clients, topology, device)
     groups: dict[CompressionPlan, list[Client]] = {}
     for c in clients:
         groups.setdefault(c.plan, []).append(c)
@@ -104,6 +117,13 @@ def _local_param_struct(params: dict, plan: CompressionPlan) -> dict:
 def _init_cohort_ef(size: int, params: dict) -> dict:
     """Zero residuals, one row per client, in each leaf's dtype."""
     return {k: torch.zeros((size,) + tuple(p.shape), dtype=p.dtype,
+                           device=p.device) for k, p in params.items()}
+
+
+def _init_edge_ef(n_edges: int, cap: int, params: dict) -> dict:
+    """The edge grid's residuals: one zero row per ``(edge, grid row)``
+    cell; padding cells keep zeros (their participation never flips)."""
+    return {k: torch.zeros((n_edges, cap) + tuple(p.shape), dtype=p.dtype,
                            device=p.device) for k, p in params.items()}
 
 
@@ -285,6 +305,152 @@ def fault_cohort_step_fn(loss_fn: Callable, plan: CompressionPlan, mode: str,
             ups = clip_updates(ups, faults.clip_norm)
         u_sum = {k: torch.tensordot(part, u, dims=1) for k, u in ups.items()}
         return u_sum, masks, cov, torch.sum(part * losses), ef
+    return f
+
+
+# ------------------------------------------------------------ edge step
+
+def _block_compress(p: dict, plan: CompressionPlan, n_edges: int):
+    """``compress_params(p, plan, batch=1)`` over a block's leading copies,
+    ``n_edges`` equal groups of them. Pruning, fake-quant and their
+    straight-through backward are elementwise or exact (a max, integer
+    counts), so a copy's bits do not depend on how many share the call;
+    k-means clustering sums through batched products, so a plan with a
+    codebook compresses one edge's group at a time."""
+    if not plan.cluster_k:
+        return compress_params(p, plan, batch=1)
+    n = next(iter(p.values())).shape[0] // n_edges
+    parts = [compress_params({k: v[j * n:(j + 1) * n] for k, v in p.items()},
+                             plan, batch=1) for j in range(n_edges)]
+    cp = {k: torch.cat([c[k] for c, _ in parts]) for k in p}
+    masks = {k: m if m.dim() == 0 else torch.cat([ms[k] for _, ms in parts])
+             for k, m in parts[0][1].items()}
+    return cp, masks
+
+
+def _edge_leaves(cp: dict, rows: slice | int) -> dict:
+    """Fresh autograd leaves holding ``cp``'s rows for one edge."""
+    return {k: v[rows].detach().requires_grad_(True) for k, v in cp.items()}
+
+
+def _through_compression(cp: dict, p: dict, d_cp: dict) -> dict:
+    """The gradient w.r.t. ``p`` of ``d_cp``, a gradient w.r.t. the
+    compressed ``cp``: the compression's straight-through backward."""
+    keys = list(p)
+    return dict(zip(keys, torch.autograd.grad(
+        [cp[k] for k in keys], [p[k] for k in keys],
+        grad_outputs=[d_cp[k] for k in keys])))
+
+
+def _edge_client_updates_fn(loss_fn: Callable, plan: CompressionPlan,
+                            mode: str, local_steps: int,
+                            local_lr: float) -> Callable:
+    """:func:`_client_updates_fn` over a block of ``nb`` edges of ``cap``
+    clients, ``(params, batches, nb, cap) -> (losses, updates, masks)``
+    with ``nb * cap`` client rows: the compressions batched over the
+    block, each edge's forward and backward on its own ``cap`` rows."""
+    inner = plan.inner()
+    base = _base_fn(plan)
+
+    def edge_grads(w: dict, batches: dict, nb: int, cap: int):
+        losses, grads = [], []
+        for j in range(nb):
+            rows = slice(j * cap, (j + 1) * cap)
+            wj = _edge_leaves(w, rows)
+            with torch.enable_grad():
+                lj = loss_fn(wj, {k: v[j] for k, v in batches.items()})
+                grads.append(_grads(lj.sum(), wj))
+            losses.append(lj.detach())
+        return (torch.cat(losses),
+                {k: torch.cat([g[k] for g in grads]) for k in w})
+
+    if mode == "fedsgd":
+        def f(params, batches, nb, cap):
+            p0 = base(params)
+            with torch.enable_grad():
+                pc = _leaf_copies(p0, nb * cap)
+                cp, _ = _block_compress(pc, inner, nb)
+            losses, d_cp = edge_grads(cp, batches, nb, cap)
+            grads = _through_compression(cp, pc, d_cp)
+            with torch.no_grad():
+                _, masks = compress_params(p0, inner)
+            return losses, grads, masks
+        return f
+
+    def f(params, batches, nb, cap):
+        with torch.no_grad():
+            cp0, masks = compress_params(base(params), inner)
+        w = {k: v.detach() for k, v in _leaf_copies(cp0, nb * cap).items()}
+        for _ in range(local_steps):
+            losses, g = edge_grads(w, batches, nb, cap)
+            with torch.no_grad():
+                w = {k: v - local_lr * g[k] for k, v in w.items()}
+                w = _block_compress(w, inner, nb)[0]
+        return losses, {k: v - cp0[k] for k, v in w.items()}, masks
+    return f
+
+
+def edge_step_fn(loss_fn: Callable, plan: CompressionPlan, mode: str,
+                 local_steps: int, local_lr: float,
+                 upload_fmt: str | None) -> Callable:
+    """The EDGE step: :func:`cohort_step_fn` with a leading edge axis,
+    ``(params, (nb,cap,n,...) batches, (nb,cap) part, (nb,cap,...) ef) ->
+    ((nb,...) update sums, (nb,...) masks, (nb,) loss sums, ef)`` for a
+    block of ``nb`` edges: every edge gateway's partial aggregate.
+
+    Each edge's bits must not depend on how many edges share the block (a
+    sharded run is bitwise the unsharded one), and a batched product or
+    reduction may round differently at another batch count. So the model
+    compressions run once over the block (elementwise ops and exact
+    reductions: :func:`_block_compress`), and every product and inexact
+    reduction runs per edge in the edge's own shapes: its forward and
+    backward, its participation-weighted sums. fedsgd without upload
+    quantization differentiates each edge's weighted loss sum against
+    the edge's copy of the (sliced) params; the other branches take the
+    block's ``nb * cap`` client rows and sum each edge's with its part
+    row after the upload (quantization and EF are elementwise)."""
+    if mode == "fedsgd" and upload_fmt is None:
+        inner = plan.inner()
+        base = _base_fn(plan)
+
+        def f(params, batches, part, ef):
+            nb = part.shape[0]
+            with torch.enable_grad():
+                p = _leaf_copies(base(params), nb)
+                cp, masks = _block_compress(p, inner, nb)
+            d_cp, l_sums = [], []
+            for j in range(nb):
+                wj = _edge_leaves(cp, j)
+                with torch.enable_grad():
+                    lj = torch.sum(part[j] * loss_fn(
+                        wj, {k: v[j] for k, v in batches.items()}))
+                    d_cp.append(_grads(lj, wj))
+                l_sums.append(lj.detach())
+            g = _through_compression(
+                cp, p, {k: torch.stack([d[k] for d in d_cp]) for k in p})
+            masks = {k: m.expand(nb) if m.dim() == 0 else m
+                     for k, m in masks.items()}
+            return g, masks, torch.stack(l_sums), ef
+        return f
+
+    updates_of = _edge_client_updates_fn(loss_fn, plan, mode, local_steps,
+                                         local_lr)
+
+    def f(params, batches, part, ef):
+        nb, cap = part.shape
+        losses, ups, masks = updates_of(params, batches, nb, cap)
+        flat = {k: v.reshape((nb * cap,) + tuple(v.shape[2:]))
+                for k, v in ef.items()}
+        ups, flat = _quantize_clients(ups, part.reshape(-1), flat, upload_fmt)
+        u_sums = {k: torch.stack([torch.tensordot(
+            part[j], u[j * cap:(j + 1) * cap], dims=1) for j in range(nb)])
+            for k, u in ups.items()}
+        l_sums = torch.stack([torch.sum(part[j] * losses[j * cap:(j + 1) * cap])
+                              for j in range(nb)])
+        masks = {k: m.expand((nb,) + tuple(m.shape)) for k, m in masks.items()}
+        return u_sums, masks, l_sums, {
+            k: v.reshape((nb, cap) + tuple(v.shape[1:]))
+            for k, v in flat.items()}
     return f
 
 
@@ -552,6 +718,92 @@ def _guard_cov_active(faults: FaultPolicy | None) -> bool:
             and faults.finite_guard)
 
 
+def _n_batch(cohort) -> int:
+    """Samples per client: axis 2 of an edge grid, axis 1 of a cohort."""
+    return cohort.data["x"].shape[2 if isinstance(cohort, EdgeCohort) else 1]
+
+
+def _place_edges(server, t: torch.Tensor) -> tuple:
+    """``t``'s leading edge axis in the server's blocks: one block on the
+    server's device, or the mesh's blocks (one copy each)."""
+    if server.mesh is None:
+        return (t.to(server.device),)
+    return edge_sharding(server.mesh).put(t).blocks
+
+
+def _edge_ef(server, cohort: EdgeCohort, params: dict) -> dict:
+    """An edge cohort's residuals for its next step: its grid buffer
+    (zeros the first time, and every time when feedback is off; in the
+    mesh's blocks under a mesh), or an empty dict without upload
+    quantization."""
+    if server.upload_quant is None:
+        return {}
+    if cohort.ef_buffer is not None and server.error_feedback:
+        return cohort.ef_buffer
+    ef = _init_edge_ef(cohort.n_edges, cohort.cap,
+                       _local_param_struct(params, cohort.plan))
+    if server.mesh is not None:
+        ef = {k: edge_sharding(server.mesh).put(v) for k, v in ef.items()}
+    return ef
+
+
+def _edge_upload(server, cohort: EdgeCohort, step: Callable, params: dict,
+                 part_blocks, ef: dict):
+    """``step`` (an :func:`edge_step_fn`) on each block of the cohort's
+    grid, on the block's device against its own copy of ``params``.
+    Returns the per-edge ``(update_sums, masks, loss_sums)`` stacked on
+    the hub (the server's device) and the new EF grid, in blocks as the
+    data is."""
+    hub = server.device
+    outs = []
+    for b, part in enumerate(part_blocks):
+        dev = part.device
+        outs.append(step({k: v.to(dev) for k, v in params.items()},
+                         {k: edge_blocks(v)[b]
+                          for k, v in cohort.data.items()},
+                         part, {k: edge_blocks(v)[b] for k, v in ef.items()}))
+    if len(outs) == 1 and server.mesh is None:
+        return outs[0]
+
+    def hub_cat(i):
+        return {k: torch.cat([o[i][k].to(hub) for o in outs])
+                for k in outs[0][i]}
+    return (hub_cat(0), hub_cat(1),
+            torch.cat([o[2].to(hub) for o in outs]),
+            {k: EdgeBlocks([o[3][k] for o in outs]) for k in outs[0][3]})
+
+
+def _hub_combine(acc, loss_sum: torch.Tensor, g_sums: dict, masks: dict,
+                 l_sums: torch.Tensor, spec, weight: float, counts):
+    """The hub's fixed-order combine of one plan's edge partials: edges in
+    index order through ``scatter_accumulate``, then the loss partial of
+    each. The only arithmetic across edges; an empty edge adds exact
+    zeros. Shared by the eager round and the engine."""
+    for e in range(len(counts)):
+        acc = scatter_accumulate(acc, {k: v[e] for k, v in g_sums.items()},
+                                 {k: v[e] for k, v in masks.items()}, spec,
+                                 weight, float(counts[e]))
+        loss_sum = loss_sum + l_sums[e]
+    return acc, loss_sum
+
+
+def _edge_cohort_upload(server, cohort: EdgeCohort, part_flat, params: dict):
+    """One edge cohort's participation-masked upload: the flat sampled
+    mask scattered into the ``(E, cap)`` grid, the edge step per block,
+    the grid EF buffer kept. Returns the per-edge ``(update_sums, masks,
+    loss_sums)`` for the hub's combine."""
+    step = edge_step_fn(server.model.loss_fn, cohort.plan, server.mode,
+                        server.local_steps, server.local_lr,
+                        server.upload_quant)
+    part = _place_edges(server, torch.from_numpy(scatter_part(cohort,
+                                                              part_flat)))
+    g_sums, masks, l_sums, new_ef = _edge_upload(
+        server, cohort, step, params, part, _edge_ef(server, cohort, params))
+    if server.upload_quant is not None and server.error_feedback:
+        cohort.ef_buffer = new_ef
+    return g_sums, masks, l_sums
+
+
 @dataclass
 class CohortFLServer:
     """Cohort-vectorized federated runtime: a round costs O(#plans) steps
@@ -580,6 +832,11 @@ class CohortFLServer:
     faults: FaultPolicy | None = None
     seed: int = 0
     step: int = 0
+    # hierarchical fleets: the FleetTopology the cohorts were gridded
+    # against (None: a flat fleet), and the EdgeMesh shard_fleet placed
+    # the grids on (None: unsharded)
+    topology: Any = None
+    mesh: Any = field(default=None, init=False, repr=False)
     history: list = field(default_factory=list)
     _times_cache: dict = field(default_factory=dict, init=False, repr=False)
     _spec_cache: dict = field(default_factory=dict, init=False, repr=False)
@@ -591,11 +848,18 @@ class CohortFLServer:
             raise ValueError(f"straggler must be wait|drop, got {self.straggler!r}")
         if self.straggler == "drop" and self.deadline is None:
             raise ValueError("straggler='drop' requires a deadline (seconds)")
+        if (self.faults is not None and self.faults.touches_uploads
+                and self.topology is not None):
+            raise ValueError(
+                "upload corruption/defenses are not modeled for hierarchical "
+                "fleets (quarantine would happen at the edge gateways); "
+                "availability/churn/dropout faults are fine")
 
     @classmethod
-    def from_clients(cls, clients: list[Client], device,
+    def from_clients(cls, clients: list[Client], device, topology=None,
                      **kw) -> "CohortFLServer":
-        return cls(cohorts=build_cohorts(clients, device), **kw)
+        return cls(cohorts=build_cohorts(clients, device, topology),
+                   topology=topology, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -678,7 +942,7 @@ class CohortFLServer:
         off = 0
         for ci, (cohort, part) in enumerate(zip(self.cohorts, sampled)):
             off0, off = off, off + cohort.size
-            times = self.cohort_times(ci, cohort.data["x"].shape[1])
+            times = self.cohort_times(ci, _n_batch(cohort))
             part = part.copy()
             if flt is not None:
                 part &= avail[off0:off]
@@ -699,6 +963,17 @@ class CohortFLServer:
                 continue
             upload_bytes += float(times["payload_bytes"][active].sum())
             n_part_total += n_p
+            if isinstance(cohort, EdgeCohort):
+                # each edge forwards its partial (update sum, masks, loss)
+                # and the hub chains them in edge order
+                g_sums, masks, l_sums = _edge_cohort_upload(
+                    self, cohort, active, self.params)
+                acc, loss_sum = _hub_combine(
+                    acc, loss_sum, g_sums, masks, l_sums, self.cohort_spec(ci),
+                    cohort.plan.weight,
+                    np.bincount(cohort.edge_index[active],
+                                minlength=cohort.n_edges))
+                continue
             cov = None
             if flt is not None and flt.touches_uploads:
                 c_row = corr[off0:off] & active

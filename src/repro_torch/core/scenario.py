@@ -11,13 +11,13 @@ GPU and no CPU request they raise.
 Runtimes: the cohort runtime (``SyncWait``/``SyncDrop``), the per-client
 loop (``runtime="client"``) and the asynchronous buffered runtime
 (``AsyncBuffered``), each under an optional
-:class:`~repro_torch.core.faults.FaultPolicy` (``faults=``). ``simulate``
-makes runs durable (``checkpoint_every``/``checkpoint_dir``/
+:class:`~repro_torch.core.faults.FaultPolicy` (``faults=``). A fleet
+with a :class:`~repro_torch.core.topology.FleetTopology` runs the cohort
+runtime on edge grids, optionally placed over an
+:class:`~repro_torch.core.topology.EdgeMesh` (``simulate(mesh=...)``).
+``simulate`` makes runs durable (``checkpoint_every``/``checkpoint_dir``/
 ``resume_from``, :mod:`repro_torch.checkpoint.state`).
 :func:`scenario_census` tabulates a scenario on the host alone.
-
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): fleet topologies and meshes.
 """
 from __future__ import annotations
 
@@ -29,10 +29,11 @@ from typing import Any, ClassVar
 
 import torch
 
-from repro_torch.core._unported import not_ported
-from repro_torch.core.compression import DEVICE_TIERS
+from repro_torch.core.compression import DEVICE_TIERS, active_param_count
 from repro_torch.core.faults import FaultPolicy
 from repro_torch.core.heterogeneity import PROFILES
+from repro_torch.core.topology import (FleetTopology, cross_shard_bytes,
+                                       shard_fleet)
 from repro_torch.numerics import FORMATS
 
 __all__ = [
@@ -70,22 +71,29 @@ class FleetSpec:
     """Who trains: one device tier per client (plan + Eq. (1) profile)
     plus the data partition that feeds them. The port draws its default
     data from a ``torch.Generator`` seeded with ``data_seed`` (other
-    numbers than the reference's ``jax.random`` draws, by design)."""
+    numbers than the reference's ``jax.random`` draws, by design).
+
+    ``topology`` (optional) arranges the fleet hierarchically: a
+    :class:`~repro_torch.core.topology.FleetTopology` partitioning the
+    client ids into edge groups, each reporting one partial aggregate to
+    the hub a round. Its JSON form ``{"edges": ...}`` is coerced."""
     tiers: tuple[str, ...]
     profiles: tuple[str, ...] | None = None
     n_samples: int = 0              # total dataset size; validated at build
     partition: str = "iid"          # iid | dirichlet
     alpha: float = 0.5              # dirichlet concentration
     data_seed: int = 0
-    topology: Any = None            # reference wire field; not ported
+    topology: FleetTopology | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "tiers", tuple(self.tiers))
         if self.profiles is not None:
             object.__setattr__(self, "profiles", tuple(self.profiles))
+        if isinstance(self.topology, dict):
+            object.__setattr__(self, "topology",
+                               FleetTopology.from_dict(self.topology))
         if self.topology is not None:
-            raise not_ported("FleetSpec.topology (hierarchical fleets)",
-                              "Topology")
+            self.topology.validate(len(self.tiers))
         if not self.tiers:
             raise ValueError("FleetSpec needs at least one client tier")
         for t in self.tiers:
@@ -101,14 +109,19 @@ class FleetSpec:
 
     @classmethod
     def cycling(cls, tiers, n_clients: int, *, profiles=None,
-                samples_per_client: int = 16, **kw) -> "FleetSpec":
+                samples_per_client: int = 16, edges: int | None = None,
+                **kw) -> "FleetSpec":
         """``n_clients`` cycling over a short tier (and optionally
-        profile) pattern, equal IID-able shards."""
+        profile) pattern, equal IID-able shards. ``edges=E`` attaches a
+        contiguous E-group :class:`FleetTopology`."""
         t = tuple(tiers[i % len(tiers)] for i in range(n_clients))
         p = (None if profiles is None else
              tuple(profiles[i % len(profiles)] for i in range(n_clients)))
+        topo = (None if edges is None
+                else FleetTopology.contiguous(n_clients, edges))
         return cls(tiers=t, profiles=p,
-                   n_samples=n_clients * samples_per_client, **kw)
+                   n_samples=n_clients * samples_per_client,
+                   topology=topo, **kw)
 
     @property
     def n_clients(self) -> int:
@@ -154,7 +167,10 @@ class FleetSpec:
                                                self.client_profiles))]
 
     def to_dict(self) -> dict:
-        return _fields_dict(self)
+        d = _fields_dict(self)
+        if self.topology is not None:
+            d["topology"] = self.topology.to_dict()
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "FleetSpec":
@@ -162,7 +178,7 @@ class FleetSpec:
         d["tiers"] = tuple(d["tiers"])
         if d.get("profiles") is not None:
             d["profiles"] = tuple(d["profiles"])
-        return cls(**d)
+        return cls(**d)           # a topology dict is coerced in post_init
 
 
 # ------------------------------------------------------------- policies
@@ -318,12 +334,20 @@ class FLScenario:
     def __post_init__(self):
         if self.runtime not in ("cohort", "client"):
             raise ValueError(f"runtime must be cohort|client, got {self.runtime!r}")
-        if (self.faults is not None and isinstance(self.timing, AsyncBuffered)
-                and self.faults.traces_availability):
-            raise ValueError(
-                "availability traces (period/churn) are round-indexed — "
-                "the async virtual clock has no round index; model "
-                "async flakiness as dropout_rate + retry_backoff")
+        if self.faults is not None:
+            if (isinstance(self.timing, AsyncBuffered)
+                    and self.faults.traces_availability):
+                raise ValueError(
+                    "availability traces (period/churn) are round-indexed — "
+                    "the async virtual clock has no round index; model "
+                    "async flakiness as dropout_rate + retry_backoff")
+            if (self.faults.touches_uploads
+                    and self.fleet.topology is not None):
+                raise ValueError(
+                    "upload corruption/defenses are not modeled for "
+                    "hierarchical fleets (quarantine would happen at the "
+                    "edge gateways); availability/churn/dropout faults "
+                    "are fine")
         if self.runtime == "client":
             if not isinstance(self.timing, SyncWait):
                 raise ValueError("the per-client runtime only supports "
@@ -336,6 +360,15 @@ class FLScenario:
             raise ValueError("AsyncBuffered schedules every client on the "
                              "virtual clock; partial participation is a "
                              "sync-only knob")
+        if self.fleet.topology is not None:
+            if self.runtime == "client":
+                raise ValueError("hierarchical topologies ride the cohort "
+                                 "runtime's edge grids; the per-client "
+                                 "loop has no edge axis")
+            if isinstance(self.timing, AsyncBuffered):
+                raise ValueError("AsyncBuffered aggregates per buffered "
+                                 "window, not per edge; topology fleets "
+                                 "are sync-only")
 
     def to_dict(self) -> dict:
         d = {"fleet": self.fleet.to_dict(),
@@ -454,7 +487,8 @@ def build_server(scenario: FLScenario, model, optimizer, params: dict, *,
             time_jitter=timing.time_jitter,
             seed=scenario.participation.seed, **common)
     kw = dict(common, sample_fraction=scenario.participation.fraction,
-              seed=scenario.participation.seed)
+              seed=scenario.participation.seed,
+              topology=scenario.fleet.topology)
     if isinstance(timing, SyncDrop):
         return CohortFLServer.from_clients(clients, dev, straggler="drop",
                                            deadline=timing.deadline, **kw)
@@ -517,6 +551,15 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
 
     The per-client runtime (``runtime="client"``) runs eager whatever
     ``engine`` says. ``result.agg_backend`` reports the backend used.
+    Topology fleets aggregate per (plan, edge) partial and refuse
+    ``"scan_pallas"``, as the reference does.
+
+    ``mesh`` (topology fleets only): place the fleet's edge grids over an
+    :class:`~repro_torch.core.topology.EdgeMesh` through
+    :func:`~repro_torch.core.topology.shard_fleet` before running;
+    placement only, the run stays bitwise the unsharded one. ``True``
+    takes the default mesh over the run's device type (every CUDA
+    device); a mesh is used as given.
 
     Durable runs: ``checkpoint_every=N`` saves the whole server state
     (params, optimizer state, EF buffers, the async version store and
@@ -534,8 +577,6 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if mesh is not None and mesh is not False:
-        raise not_ported("mesh= (sharded edge fleets)", "Topology")
     ckpt_dir = checkpoint_dir if checkpoint_dir is not None else resume_from
     if checkpoint_every is not None:
         if checkpoint_every < 1:
@@ -548,6 +589,8 @@ def simulate(scenario: FLScenario, rounds: int, *, model=None,
                                                init_seed, dev)
     srv = build_server(scenario, model, optimizer, params, clients=clients,
                        shards=shards, device=dev)
+    if mesh is not None and mesh is not False:
+        shard_fleet(srv, None if mesh is True else mesh)
     done = 0
     if resume_from is not None:
         from repro_torch.checkpoint.state import restore_run_state
@@ -618,6 +661,10 @@ def scenario_census(scenario: FLScenario, params=None) -> dict:
     sizes = spec.shard_sizes()
     per_group: dict[tuple[str, str], dict] = {}
     per_client_T: list[float] = []
+    per_client_bytes: list[float] = []
+    per_client_active: list[float] = []
+    client_plans: list = []
+    active_memo: dict = {}
     total_bytes = 0.0
     for i, (tier, prof) in enumerate(zip(spec.tiers, spec.client_profiles)):
         plan = DEVICE_TIERS[tier]
@@ -625,6 +672,11 @@ def scenario_census(scenario: FLScenario, params=None) -> dict:
             plan = plan.as_width_sliced()
         t = round_time(params, plan, PROFILES[prof], sizes[i], local_steps)
         per_client_T.append(t["T"])
+        per_client_bytes.append(t["payload_bytes"])
+        if plan not in active_memo:
+            active_memo[plan] = float(active_param_count(params, plan))
+        per_client_active.append(active_memo[plan])
+        client_plans.append(plan)
         total_bytes += t["payload_bytes"]
         g = per_group.setdefault((tier, prof), {"count": 0, "n_shard": 0})
         g["count"] += 1
@@ -642,6 +694,21 @@ def scenario_census(scenario: FLScenario, params=None) -> dict:
            "total_upload_bytes_per_round": total_bytes * n_sel / spec.n_clients,
            "tiers": [{"tier": tier, "profile": prof, **g}
                      for (tier, prof), g in per_group.items()]}
+    if spec.topology is not None:
+        # per edge group: who reports there, the largest sub-model the
+        # edge must hold, its Eq. (1) critical path and its device ->
+        # edge uplink; and the edge -> hub traffic, which depends on the
+        # plans and the edge count, never on the client count
+        topo = spec.topology
+        out["n_edges"] = topo.n_edges
+        out["cross_shard_bytes_per_round"] = cross_shard_bytes(
+            params, list(dict.fromkeys(client_plans)), topo.n_edges)
+        out["edge_groups"] = [
+            {"edge": e, "clients": len(ids),
+             "active_params_max": max(per_client_active[c] for c in ids),
+             "round_wall_time": max(per_client_T[c] for c in ids),
+             "uplink_bytes": sum(per_client_bytes[c] for c in ids)}
+            for e, ids in enumerate(topo.edges)]
     flt = scenario.faults
     if flt is not None:
         # steady-state availability = diurnal duty x P(no crash in the

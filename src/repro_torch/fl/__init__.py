@@ -12,6 +12,17 @@ runtime:
 ``timing=AsyncBuffered(...)`` the virtual-clock :class:`AsyncFLServer`
 (``engine="scan"``: :class:`WindowScanEngine`).
 
+Hierarchical fleets attach a :class:`FleetTopology`
+(``FleetSpec(topology=...)`` or ``FleetSpec.cycling(..., edges=E)``):
+devices report to edge gateways, each edge forwards one partial
+aggregate, and the hub combines them in fixed edge order. The edge grids
+may be placed over a mesh of devices, bitwise the unsharded run::
+
+    from repro_torch.fl import make_edge_mesh, simulate
+
+    sc = FLScenario(fleet=FleetSpec.cycling(tiers, 100_000, edges=8))
+    result = simulate(sc, 30, engine="scan", mesh=make_edge_mesh(8))
+
 Resilience: a :class:`FaultPolicy` layers availability traces, mid-round
 dropouts, corrupted uploads and the server's defences over any scenario,
 and ``simulate(..., checkpoint_every=N, checkpoint_dir=...)`` /
@@ -44,6 +55,12 @@ from repro_torch.core.heterogeneity import (PROFILES, DeviceProfile,
                                             cohort_round_time, fits,
                                             memory_overhead,
                                             round_time)  # noqa: F401
+from repro_torch.core.topology import (EdgeBlocks, EdgeCohort, EdgeMesh,
+                                       FleetTopology, build_edge_cohorts,
+                                       cross_shard_bytes, edge_sharding,
+                                       make_edge_mesh, replicated_sharding,
+                                       scatter_part,
+                                       shard_fleet)  # noqa: F401
 from repro_torch.core.scenario import (AsyncBuffered, FleetSpec, FLScenario,
                                        LocalTraining, ParticipationPolicy,
                                        RoundRecord, RunResult, SyncDrop,

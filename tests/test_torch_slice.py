@@ -2,8 +2,8 @@
 JSON written by ``repro`` and read by ``repro_torch``, the reference's
 params and shards carried across through numpy, ``simulate`` for 5
 rounds on every engine. Plus the port's boundaries: it imports neither
-JAX nor the reference, it never drops to the CPU on its own, and the
-parts not yet ported refuse to run."""
+JAX nor the reference, it never drops to the CPU on its own, and it
+refuses what the reference refuses."""
 import json
 import os
 import subprocess
@@ -93,12 +93,14 @@ def test_simulate_without_device_never_drops_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("case", ["async", "client", "faults", "topology",
                                   "mesh", "checkpoint", "census",
-                                  "dirichlet"])
+                                  "dirichlet", "topology_upload_faults"])
 def test_unported_parts_raise(case, tmp_path):
-    """What is still unported raises, naming its ROADMAP item: fleet
-    topologies and meshes. The other cases held parts that are ported
-    since (a fault policy on the async and per-client runtimes and in the
-    census, checkpointing, the Dirichlet partition) and now run."""
+    """The parts that were unported at first now run, or refuse what the
+    reference refuses with its messages: a topology that does not cover
+    the fleet ("fleet has"), a mesh on a flat fleet ("topology server"),
+    upload faults on a topology fleet ("hierarchical"). The other cases
+    (a fault policy on the async and per-client runtimes and in the
+    census, checkpointing, the Dirichlet partition) run."""
     fleet = T.FleetSpec.cycling(TIERS, 4)
     sc = T.FLScenario(fleet=fleet)
     faults = T.FaultPolicy(dropout_rate=0.1)
@@ -122,9 +124,15 @@ def test_unported_parts_raise(case, tmp_path):
         "dirichlet": lambda: T.simulate(T.FLScenario(fleet=T.FleetSpec(
             tiers=TIERS, n_samples=64, partition="dirichlet")), 1,
             device="cpu", checkpoint_every=1, checkpoint_dir=d),
+        "topology_upload_faults": lambda: T.FLScenario(
+            fleet=T.FleetSpec.cycling(TIERS, 8, edges=2,
+                                      samples_per_client=16),
+            faults=T.FaultPolicy(corrupt_rate=0.1)),
     }[case]
-    if case in ("topology", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    refused = {"topology": "fleet has", "mesh": "topology server",
+               "topology_upload_faults": "hierarchical"}
+    if case in refused:
+        with pytest.raises(ValueError, match=refused[case]):
             run()
         return
     out = run()
