@@ -20,14 +20,21 @@
      bitwise the eager call, also after its inputs change in place;
    - fake_quant bitwise against the plain ``quantize_em`` for every
      format with e > 0, at every compressible leaf shape of llama3.2-3b
-     (full config) and the paper MLP's leaf and upload shapes, with
+     and of granite-moe-1b-a400m (full configs; the MoE expert leaves are
+     4-D, (24, 32, 1024, 512) and (24, 32, 512, 1024)), of qwen3-moe-30b-a3b
+     and llava-next-34b at full width and the 4 layers the MoE serve phase
+     runs (expert leaves up to (4, 128, 2048, 768); llava's projector
+     (7168, 7168)), and the paper MLP's leaf and upload shapes, with
      specials and f32 subnormals mixed in;
    - flash_attention at the train shape (B 2, T = S 1024, H 24, Hkv 8,
      hd 128) in f32 (atol/rtol 2e-5) and bf16 (one bf16 quantum of the
      plain version's f32 result, plus 2e-5), and in each dtype with a
      window, a q_offset with a ragged S and a ragged non-causal case;
      in bf16 also granite-3-2b's widths (hd 64), a q_offset < 0 whose
-     blind rows must be exactly 0, and the smoke config's hd 32. Each
+     blind rows must be exactly 0, the MoE train phase's shapes
+     (granite-moe-1b-a400m's 16 / 8 heads at hd 64, B 2, T = S 1024;
+     llava-next-34b's 56 / 8 heads at hd 128, B 1, T = S 2048), and the
+     smoke config's hd 32. Each
      case's launch must take its route: bf16 at hd 64 and 128 the
      tensor-core kernel (wgmma), f32 and hd 32 the CUDA-core one (simt);
    then times kernel and plain version with CUDA events (median), the
@@ -35,7 +42,8 @@
    bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, 67 TFLOP/s f32)
    and, for attention, PyTorch's scaled_dot_product_attention as a
    yardstick (the train bf16 and f32 rows are flash_attention's two
-   routes in the kernels line; granite's row is printed only);
+   routes in the kernels line; the granite, granite-moe and llava rows
+   are printed only);
    - masked_matmul and codebook_matmul through the public kernel API at
      llama3.2-3b's MLP widths (one layer's wi (3072, 8192) and wo (8192,
      3072), x at M = 256 and 8192), plus a ragged shape and the paper
@@ -148,6 +156,24 @@
    losses to rtol 1e-3. On the llama smoke
    config the card's f32 step must agree with the port's CPU path over 2
    steps, its flash_attention launches all on the simt kernel.
+6. Phase "moe serve": granite-moe-1b-a400m whole (24 layers, 32 experts
+   top-8, 1,334,628,352 params) through ``launch.serve`` for every tier
+   as in 4, fake_quant once per compressible leaf (10, the router
+   excluded) per quantized tier, and a profiled window of 8 decode
+   steps on the low tier; then qwen3-moe-30b-a3b and llava-next-34b at
+   full width cut to 4 layers (of 48 and 60), tiers hub and low (llava's
+   prefill covers 1152 patches + 64 tokens). In f32 at 2 layers of full
+   width the decode replay must agree with prefill: granite-moe at
+   capacity factor E / k = 4.0, which drops nothing (at 1.25 decode's
+   capacity of 1 drops choices that prefill keeps), and llava against a
+   prefill of the prompt without patches, which the patches must move.
+7. Phase "moe train": granite-moe-1b-a400m's smoke config, the card's
+   f32 step against the CPU path as in 5; then granite-moe whole, bf16,
+   flash, 4 tiers, AdamW, 8 x 1024, 5 steps: losses finite, 96
+   flash_attention launches per step all on the wgmma kernel (hd 64), 30
+   fake_quant; one step profiled; then llava-next-34b at full width, 1
+   layer, 4 x 2048 (896 text + 1152 patch positions), 2 steps: losses
+   finite, flash on the wgmma kernel at hd 128.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -178,6 +204,7 @@ BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
 LM_ARCH = "llama3.2-3b"
+MOE_ARCH = "granite-moe-1b-a400m"
 TRAIN_LAYERS = 4                    # the train phase's depth cut (of 28)
 TRAIN_STEPS = 5
 BENCH_TIERS = ("hub", "high", "mid", "low")
@@ -567,18 +594,28 @@ def _route_errors(kernel: str, err: dict, rows: dict, names: dict) -> None:
 
 
 def _fq_shapes() -> dict:
-    """shape -> label: every compressible leaf shape of llama3.2-3b at its
-    full config (the serve phase checks the table against the real
-    params), and the paper MLP's leaf shapes and upload shapes (a
+    """shape -> label: every compressible leaf shape of llama3.2-3b and of
+    granite-moe-1b-a400m at their full configs, and of qwen3-moe-30b-a3b
+    and llava-next-34b at full width and the depth the MoE serve phase
+    runs them (``WIDE_LAYERS``), the 4-D expert leaves and llava's
+    projector included (the serve phases check the tables against the
+    real params); and the paper MLP's leaf shapes and upload shapes (a
     256-client axis in front of every leaf)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.paper_mlp import config
     from repro_torch.core.compression import compressible
     shapes = {}
-    for name, shape in _lm_leaf_shapes(get_config(LM_ARCH)).items():
-        if compressible(name, torch.empty(shape, device="meta")):
-            shapes.setdefault(shape, f"llama {name}")
+    for arch, tag, layers in ((LM_ARCH, "llama", None),
+                              (MOE_ARCH, "granite-moe", None),
+                              (QWEN_MOE, "qwen3-moe", WIDE_LAYERS),
+                              (LLAVA, "llava", WIDE_LAYERS)):
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        for name, shape in _lm_leaf_shapes(cfg).items():
+            if compressible(name, torch.empty(shape, device="meta")):
+                shapes.setdefault(shape, f"{tag} {name}")
     for name, p in _mlp_params(config(), "cpu").items():
         shapes.setdefault(tuple(p.shape), f"paper-mlp {name}")
         shapes.setdefault((256,) + tuple(p.shape), f"paper-mlp upload {name}")
@@ -586,16 +623,39 @@ def _fq_shapes() -> dict:
 
 
 def _lm_leaf_shapes(cfg) -> dict:
+    """name -> shape of every leaf of the decoder at ``cfg`` (dense, MoE
+    or VLM), in the reference's flatten order."""
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
-    return {"embed": (cfg.vocab_size, d), "final_norm": (d,),
-            "layers.attn.wk.w": (L, d, cfg.num_kv_heads, hd),
-            "layers.attn.wo.w": (L, cfg.num_heads * hd, d),
-            "layers.attn.wq.w": (L, d, cfg.num_heads, hd),
-            "layers.attn.wv.w": (L, d, cfg.num_kv_heads, hd),
-            "layers.ln1": (L, d), "layers.ln2": (L, d),
-            "layers.mlp.wg.w": (L, d, cfg.d_ff),
-            "layers.mlp.wi.w": (L, d, cfg.d_ff),
-            "layers.mlp.wo.w": (L, cfg.d_ff, d)}
+    e, f = cfg.num_experts, cfg.d_ff
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
+              "layers.attn.wk.w": (L, d, cfg.num_kv_heads, hd),
+              "layers.attn.wo.w": (L, cfg.num_heads * hd, d),
+              "layers.attn.wq.w": (L, d, cfg.num_heads, hd),
+              "layers.attn.wv.w": (L, d, cfg.num_kv_heads, hd),
+              "layers.ln1": (L, d), "layers.ln2": (L, d)}
+    if cfg.is_moe:
+        shapes.update({"layers.moe.router.w": (L, d, e),
+                       "layers.moe.we_g": (L, e, d, f),
+                       "layers.moe.we_i": (L, e, d, f),
+                       "layers.moe.we_o": (L, e, f, d)})
+    else:
+        shapes.update({"layers.mlp.wg.w": (L, d, f),
+                       "layers.mlp.wi.w": (L, d, f),
+                       "layers.mlp.wo.w": (L, f, d)})
+    if not cfg.tie_embeddings:
+        shapes["lm_head.w"] = (d, cfg.vocab_size)
+    if cfg.family == "vlm":
+        shapes["projector.w"] = (d, d)
+    return dict(sorted(shapes.items()))
+
+
+def _n_compressible(cfg) -> int:
+    """How many leaves of the decoder at ``cfg`` compress: the fake_quant
+    launches of one quantized compression."""
+    import torch
+    from repro_torch.core.compression import compressible
+    return sum(compressible(n, torch.empty(s, device="meta"))
+               for n, s in _lm_leaf_shapes(cfg).items())
 
 
 def _flash_cases(device):
@@ -603,12 +663,16 @@ def _flash_cases(device):
     the train phase's shape in bf16 (the wgmma kernel) and f32 (the simt
     kernel), then a window, a q_offset with a ragged S and a ragged
     non-causal case in each dtype; granite-3-2b's widths (hd 64) and a
-    q_offset < 0 whose first rows see no key, in bf16; and the smoke
-    config's hd 32 in bf16, which the simt kernel serves."""
+    q_offset < 0 whose first rows see no key, in bf16; the MoE train
+    phase's shapes in bf16: granite-moe-1b-a400m's 16 / 8 heads at hd 64,
+    batch 2 per tier over 1024 positions, and llava-next-34b's 56 / 8
+    heads (a GQA ratio of 7) at hd 128, batch 1 per tier over 2048; and
+    the smoke config's hd 32 in bf16, which the simt kernel serves."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     cfg = get_config(LM_ARCH)
     granite = get_config("granite-3-2b")
+    granite_moe, llava = get_config(MOE_ARCH), get_config(LLAVA)
     smoke = get_smoke_config(LM_ARCH)
     gen = torch.Generator(device=device).manual_seed(5)
 
@@ -632,6 +696,9 @@ def _flash_cases(device):
         ("granite_bf16", *qkv(2, 1024, 1024, bf16, granite), {}, "wgmma"),
         ("masked_rows_bf16", *qkv(1, 300, 300, bf16), dict(q_offset=-100),
          "wgmma"),
+        ("granite_moe_bf16", *qkv(2, 1024, 1024, bf16, granite_moe), {},
+         "wgmma"),
+        ("llava_bf16", *qkv(1, 2048, 2048, bf16, llava), {}, "wgmma"),
         ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
@@ -725,7 +792,8 @@ def phase_lm_kernels(device) -> dict:
                   f"see no key are exactly 0")
         key = (want, _dtype_name(q.dtype))
         err[key] = max(err.get(key, 0.0), e)
-        if label not in ("train_bf16", "train_f32", "granite_bf16"):
+        if label not in ("train_bf16", "train_f32", "granite_bf16",
+                         "granite_moe_bf16", "llava_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -2250,23 +2318,20 @@ def phase_serve(device) -> int:
 
 # --------------------------------------------------------------- train
 
-def phase_train(device) -> dict:
-    """The tier-loop LM train step; returns launches of the main run."""
+def _train_smoke_vs_cpu(arch: str, device) -> dict:
+    """Two f32 SGD tier-loop steps of ``arch``'s smoke config with flash,
+    on the CPU and on the card from one init: losses to rtol 1e-4, params
+    to atol 1e-5, every flash_attention launch on the simt kernel (hd
+    32). Returns the launches per route (counters zeroed just before)."""
     import torch
     from repro_torch import optim
-    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
-    from repro_torch.core.compression import (DEVICE_TIERS,
-                                              default_tier_plans,
-                                              magnitude_mask)
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.core.compression import default_tier_plans
     from repro_torch.core.steps import make_hetero_train_step
     from repro_torch.data.synthetic import make_train_batch
-    from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.train import train
     from repro_torch.models import get_model
-
-    # the card's f32 step against the port's CPU path, smoke config
-    cfg = get_smoke_config(LM_ARCH).replace(use_flash=True)
+    cfg = get_smoke_config(arch).replace(use_flash=True)
     model = get_model(cfg)
     init = model.init(torch.Generator().manual_seed(0))
     runs = {}
@@ -2289,18 +2354,40 @@ def phase_train(device) -> dict:
     smoke_routes = dict(routes)
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(device)]
     e = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
-    print(f"train smoke f32: cpu losses={lc} cuda losses={lg} "
+    tag = "" if arch == LM_ARCH else f" {arch}"
+    print(f"train smoke f32{tag}: cpu losses={lc} cuda losses={lg} "
           f"params max_abs_err={e} flash launches per route="
           f"{json.dumps(smoke_routes)}")
     smoke_n = cfg.num_layers * 4 * 2
     check(smoke_routes == {"wgmma": 0, "simt": smoke_n},
-          f"train smoke f32: flash_attention launched {smoke_n} times, all "
-          f"on the simt kernel ({cfg.num_layers} layers x 4 tiers x 2 "
+          f"train smoke f32{tag}: flash_attention launched {smoke_n} times, "
+          f"all on the simt kernel ({cfg.num_layers} layers x 4 tiers x 2 "
           f"steps on the card)")
     check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
-          "train smoke f32: card losses == CPU losses to rtol 1e-4")
-    check(e <= 1e-5, f"train smoke f32: card params == CPU params to atol "
-                     f"1e-5 after 2 SGD steps, max_abs_err {e}")
+          f"train smoke f32{tag}: card losses == CPU losses to rtol 1e-4")
+    check(e <= 1e-5, f"train smoke f32{tag}: card params == CPU params to "
+                     f"atol 1e-5 after 2 SGD steps, max_abs_err {e}")
+    return smoke_routes
+
+
+def phase_train(device) -> dict:
+    """The tier-loop LM train step; returns launches of the main run."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.compression import (DEVICE_TIERS,
+                                              default_tier_plans,
+                                              magnitude_mask)
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+
+    # the card's f32 step against the port's CPU path, smoke config
+    smoke_routes = _train_smoke_vs_cpu(LM_ARCH, device)
+    routes = flash_attention.route_launches
 
     # the main path: full width, cut to TRAIN_LAYERS layers, bf16, flash
     cfg = get_config(LM_ARCH).replace(num_layers=TRAIN_LAYERS, use_flash=True)
@@ -2387,6 +2474,245 @@ def phase_train(device) -> dict:
     return got
 
 
+# ------------------------------------------------------- MoE and VLM
+
+QWEN_MOE = "qwen3-moe-30b-a3b"
+LLAVA = "llava-next-34b"
+WIDE_LAYERS = 4     # qwen3-moe (of 48) and llava (of 60) serve at full width
+DECODE_STEPS = 8    # the profiled MoE decode window
+
+
+def _serve_tiers(cfg, params, tiers, label: str, device) -> int:
+    """``launch.serve`` of ``params`` for each tier at batch 4, prompt 64,
+    32 tokens; returns fake_quant launches (counter zeroed before each
+    call): one per compressible leaf for a quantized tier, 0 for the
+    hub."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.launch.serve import serve
+    batch, prompt, gen = 4, 64, 32
+    n_leaves = _n_compressible(cfg)
+    total = 0
+    for tier in tiers:
+        quantized = DEVICE_TIERS[tier].quant_em()[0] > 0
+        torch.cuda.reset_peak_memory_stats()
+        fake_quant.launches = 0
+        res = serve(cfg, tier, batch=batch, prompt_len=prompt, gen=gen,
+                    params=params, device=device)
+        n = fake_quant.launches
+        total += n
+        print(f"serve {label} {tier}: compress_s={res['compress_s']:.6f} "
+              f"prefill_s={res['prefill_s']:.6f} "
+              f"decode_s={res['decode_s']:.6f} decode_tokens_per_s="
+              f"{gen * batch / res['decode_s']:.3f} fake_quant_launches={n} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"sample={res['tokens'][0, :8].tolist()}")
+        check(bool(torch.isfinite(res["prefill_logits"]).all()
+                   and torch.isfinite(res["replay_logits"]).all()),
+              f"serve {label} {tier}: logits finite")
+        check(n == (n_leaves if quantized else 0),
+              f"serve {label} {tier}: fake_quant launched {n} times "
+              f"({n_leaves} compressible leaves if quantized, 0 for the hub)")
+    return total
+
+
+def _full_params(cfg, label: str, device) -> dict:
+    """Seeded params of ``cfg`` on the card, checked against the leaf table
+    the fake_quant checks ran on."""
+    from repro_torch.models import get_model
+    params = get_model(cfg).init(0, device=device)
+    check({k: tuple(v.shape) for k, v in params.items()}
+          == _lm_leaf_shapes(cfg),
+          f"{label}: the params' leaves are the decoder's leaf table")
+    print(f"serve {label}: layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"params={sum(p.numel() for p in params.values())} "
+          f"dtype={cfg.dtype} experts={cfg.num_experts} "
+          f"top_k={cfg.experts_per_token} patches={cfg.num_patches}")
+    return params
+
+
+def _profile_decode(cfg, params, tier: str, device) -> None:
+    """A profiled window of DECODE_STEPS decode steps at batch 4 on the
+    tier's compressed params: the device busy share of a MoE decode
+    step."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS
+    from repro_torch.core.steps import compress_for_serving, make_serve_step
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    cparams = compress_for_serving(params, DEVICE_TIERS[tier])
+    step = make_serve_step(model)
+    cache = model.init_cache(4, 2 * DECODE_STEPS, device=device)
+    tok = torch.ones((4, 1), dtype=torch.int32, device=device)
+    step(cparams, cache, tok, 0)
+
+    def window():
+        for pos in range(1, DECODE_STEPS + 1):
+            step(cparams, cache, tok, pos)
+    profile_window(f"decode {cfg.name} {tier}", window, DECODE_STEPS, "step")
+
+
+def _replay_check(label: str, replay, prefill) -> None:
+    """Decode's replay of the prompt against prefill's last-token logits,
+    in f32 at 2 layers: the same math summed in other orders moves logits
+    of O(1) by ~1e-6; a wrong position, mask, slot or route moves them by
+    O(1)."""
+    import torch
+    e = (replay - prefill).abs().max().item()
+    check(torch.allclose(replay, prefill, rtol=1e-3, atol=1e-4),
+          f"serve {label} f32 2-layer: decode replay == prefill last-token "
+          f"logits (rtol 1e-3, atol 1e-4), max_abs_err {e}, "
+          f"max|logit| {prefill.abs().max().item():.3f}")
+
+
+def phase_moe_serve(device) -> int:
+    """The MoE and VLM serve paths at full width; returns fake_quant
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import DEVICE_TIERS
+    from repro_torch.core.steps import compress_for_serving, make_prefill_step
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import _num_groups, capacity
+
+    # granite-moe-1b-a400m whole, every tier
+    cfg = get_config(MOE_ARCH)
+    params = _full_params(cfg, MOE_ARCH, device)
+    serve(cfg, "mid", batch=4, prompt_len=8, gen=2, params=params,
+          device=device)                      # warm-up
+    total = _serve_tiers(cfg, params, SERVE_TIERS, MOE_ARCH, device)
+    _profile_decode(cfg, params, "low", device)
+    del params
+    torch.cuda.empty_cache()
+
+    # qwen3-moe-30b-a3b and llava-next-34b at full width, cut in depth
+    for arch in (QWEN_MOE, LLAVA):
+        full = get_config(arch)
+        cfg = full.replace(num_layers=WIDE_LAYERS)
+        params = _full_params(cfg, f"{arch} ({WIDE_LAYERS} of "
+                                   f"{full.num_layers} layers)", device)
+        n = 4 * (64 + cfg.num_patches)
+        if cfg.is_moe:
+            print(f"serve {arch}: prefill groups {_num_groups(n, 1)} of "
+                  f"{n // _num_groups(n, 1)} tokens, capacity "
+                  f"{capacity(n // _num_groups(n, 1), cfg)} per expert; "
+                  f"decode capacity {capacity(4, cfg)}")
+        total += _serve_tiers(cfg, params, ("hub", "low"), arch, device)
+        del params
+        torch.cuda.empty_cache()
+
+    # decode replay against prefill, f32 at 2 layers of full width; MoE
+    # at a capacity factor that drops nothing (E / k), as the reference's
+    # smoke config does: at 1.25, decode at batch 4 has capacity 1 and
+    # drops choices that prefill keeps
+    cfg = get_config(MOE_ARCH)
+    cfg = cfg.replace(num_layers=2, dtype="float32",
+                      capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    res = serve(cfg, "mid", batch=4, prompt_len=64, gen=1, device=device)
+    _replay_check(MOE_ARCH, res["replay_logits"], res["prefill_logits"])
+    # VLM: the replay sees the text alone, so it is held against a prefill
+    # of the same prompt without patches; the patches must move prefill
+    cfg = get_config(LLAVA).replace(num_layers=2, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=device)
+    res = serve(cfg, "mid", batch=4, prompt_len=64, gen=1, params=params,
+                device=device)
+    prompt = TokenStream(cfg.vocab_size, 4, 64, seed=0).batch_at(0)[
+        "tokens"][:, :64].to(device)
+    text, _ = make_prefill_step(model)(
+        compress_for_serving(params, DEVICE_TIERS["mid"]), {"tokens": prompt})
+    _replay_check(LLAVA, res["replay_logits"], text)
+    moved = (res["prefill_logits"] - text).abs().max().item()
+    check(moved > 1e-2, f"serve {LLAVA} f32 2-layer: the patches move "
+                        f"prefill's last-token logits (max {moved})")
+    return total
+
+
+def phase_moe_train(device) -> dict:
+    """The tier-loop train step on the MoE and VLM families; returns the
+    launches of its runs."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+
+    smoke_routes = _train_smoke_vs_cpu(MOE_ARCH, device)
+    routes = flash_attention.route_launches
+    got = {"flash_attention_simt": smoke_routes["simt"]}
+
+    def run(cfg, label, steps, batch, seq, n_tiers=4):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for r in routes:
+            routes[r] = 0
+        fake_quant.launches = 0
+        res = train(cfg, steps=steps, batch=batch, seq=seq, n_tiers=n_tiers,
+                    lr=3e-4, warmup=2, seed=0, device=device, log_every=1)
+        launches = {"fake_quant": fake_quant.launches, **routes}
+        losses, secs = res["losses"], res["sec_per_step"]
+        steady = secs[1:] if len(secs) > 1 else secs
+        sps = sum(steady) / len(steady)
+        print(f"train {label}: losses={losses} tier_losses (hub, high, mid, "
+              f"low)={res['tier_losses']}")
+        print(f"train {label}: sec_per_step={secs} mean_sec_per_step(steps "
+              f"2..{steps})={sps:.6f} tokens_per_s={batch * seq / sps:.3f} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+              f"launches={json.dumps(launches)}")
+        check(all(math.isfinite(x) for x in losses)
+              and all(math.isfinite(x) for t in res["tier_losses"]
+                      for x in t), f"train {label}: losses finite")
+        per_step = cfg.num_layers * n_tiers
+        check(launches["wgmma"] == per_step * steps
+              and launches["simt"] == 0,
+              f"train {label}: flash_attention launched {per_step} per step "
+              f"({cfg.num_layers} layers x {n_tiers} tiers), all on the "
+              f"wgmma kernel at hd {cfg.head_dim}")
+        n_fq = 3 * _n_compressible(cfg)
+        check(launches["fake_quant"] == n_fq * steps,
+              f"train {label}: fake_quant launched {n_fq} per step (3 "
+              f"quantized tiers x {n_fq // 3} leaves)")
+        for k in ("fake_quant", "wgmma"):
+            got[k] = got.get(k, 0) + launches[k]
+        return res
+
+    # granite-moe-1b-a400m whole: every layer, full width
+    cfg = get_config(MOE_ARCH).replace(use_flash=True)
+    print(f"train {MOE_ARCH}: layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"experts={cfg.num_experts} top_k={cfg.experts_per_token} "
+          f"dtype={cfg.dtype} use_flash=True tiers=4 batch=8 seq=1024 "
+          f"steps={TRAIN_STEPS}")
+    res = run(cfg, MOE_ARCH, TRAIN_STEPS, 8, 1024)
+    # one more step of the same run, profiled
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 2, TRAIN_STEPS))
+    step = make_hetero_train_step(get_model(cfg), opt, default_tier_plans(4))
+    b = make_train_batch(cfg, ShapeConfig("t", 1024, 8, "train"), n_tiers=4,
+                         seed=0, index=TRAIN_STEPS)
+    b = {k: v.to(device) for k, v in b.items()}
+    profile_window(f"train step {MOE_ARCH}", lambda: step(res["state"], b),
+                   1, "step")
+    del res, step, b
+
+    # llava-next-34b at full width, one layer: 896 text + 1152 patch
+    # positions, flash at hd 128
+    cfg = get_config(LLAVA).replace(num_layers=1, use_flash=True)
+    print(f"train {LLAVA}: layers=1 (of 60) d_model={cfg.d_model} "
+          f"head_dim={cfg.head_dim} patches={cfg.num_patches} dtype="
+          f"{cfg.dtype} use_flash=True tiers=4 batch=4 seq=2048 steps=2")
+    run(cfg, LLAVA, 2, 4, 2048)
+    return {"fake_quant": got["fake_quant"],
+            "flash_attention_wgmma": got["wgmma"],
+            "flash_attention_simt": got["flash_attention_simt"]}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2442,7 +2768,9 @@ def main() -> int:
               ("checkpoint", lambda: phase_checkpoint(device, out["faults"])),
               ("topology", lambda: phase_topology(device, clean_ms)),
               ("serve", lambda: phase_serve(device)),
-              ("train", lambda: phase_train(device))]
+              ("train", lambda: phase_train(device)),
+              ("moe serve", lambda: phase_moe_serve(device)),
+              ("moe train", lambda: phase_moe_train(device))]
     try:
         for name, run in phases:
             t_phase = time.perf_counter()
@@ -2461,20 +2789,25 @@ def main() -> int:
     launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
                                + out["train"]["fake_quant"]
                                + flt["fake_quant"] + ckpt["fake_quant"]
-                               + out["topology"]["fake_quant"])
+                               + out["topology"]["fake_quant"]
+                               + out["moe serve"]
+                               + out["moe train"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
     # cores (flash: the smoke f32 train step's launches; codebook: idx rows
     # TMA refuses), the bf16 train row on the tensor cores
-    launches["flash_attention"] = out["train"]["flash_attention_simt"]
-    launches["flash_attention_wgmma"] = (out["train"]["flash_attention_wgmma"]
-                                         + ckpt["flash_attention_wgmma"])
+    launches["flash_attention"] = (out["train"]["flash_attention_simt"]
+                                   + out["moe train"]["flash_attention_simt"])
+    launches["flash_attention_wgmma"] = (
+        out["train"]["flash_attention_wgmma"] + ckpt["flash_attention_wgmma"]
+        + out["moe train"]["flash_attention_wgmma"])
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + faults + "
-          f"checkpoint + topology + serve + train, matmul entry points): "
+          f"checkpoint + topology + serve + train + moe serve + moe train, "
+          f"matmul entry points): "
           f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (

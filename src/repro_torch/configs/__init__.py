@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config("llama3.2-3b")`` etc.
 
-The dense family is ported; the other arch ids of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The decoder's three families (dense, MoE, VLM) are ported; the other
+arch ids of the reference raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -11,17 +12,17 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, SHAPES, smoke_red
 
 # arch id -> module name (arch ids contain chars illegal in module names)
 _ARCH_MODULES = {
+    "granite-moe-1b-a400m": "granite_moe_1b",
     "granite-3-2b": "granite_3_2b",
     "llama3.2-3b": "llama3_2_3b",
     "deepseek-7b": "deepseek_7b",
+    "llava-next-34b": "llava_next_34b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
 }
 
 # arch id -> the ROADMAP (queue 1) item that ports its family
 _NOT_PORTED = {
-    "granite-moe-1b-a400m": "item 11 (MoE family, models/moe.py)",
-    "qwen3-moe-30b-a3b": "item 11 (MoE family, models/moe.py)",
-    "llava-next-34b": "item 12 (VLM projector)",
     "xlstm-1.3b": "item 13 (xLSTM family)",
     "zamba2-2.7b": "item 14 (Zamba hybrid family)",
     "whisper-tiny": "item 15 (Whisper encoder-decoder)",

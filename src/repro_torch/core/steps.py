@@ -18,7 +18,11 @@ one gradient and two accumulators are live at a time):
     (``loss``, as the reference reports it) and each tier's own loss
     (``tier_loss``, in plan order).
 
-Batches arrive shaped (n_tiers, per_tier_batch, T+1). The plans are
+Batches arrive shaped (n_tiers, per_tier_batch, ...): every key of the
+batch (``tokens``, and ``patches`` for VLM) has the tier axis first.
+``num_groups`` is passed to the model's loss, prefill and decode, as in
+the reference (the data shards a MoE layer groups its tokens by; 1 on
+one card). The plans are
 static, so a hub tier (no pruning, no quantization) launches no
 fake_quant kernel, and int-k stays plain.
 
@@ -53,7 +57,8 @@ def _grads(loss: torch.Tensor, leaves: dict) -> dict:
     return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
-def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan]):
+def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
+                           *, num_groups: int = 1):
     arrs = plan_arrays(plans)
     wsum = float(sum(p.weight for p in plans))
     # compressed weights live in the model's compute dtype
@@ -70,7 +75,8 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan]):
             cp, masks = compress_with_masks(
                 leaves, arrs["density"][t], arrs["e_bits"][t],
                 arrs["m_bits"][t], out_dtype=cdt)
-            loss = model.loss_fn(cp, {"tokens": batch["tokens"][t]})
+            loss = model.loss_fn(cp, {k: v[t] for k, v in batch.items()},
+                                 num_groups=num_groups)
             grads = _grads(loss, leaves)
             acc = accumulate_cohort(acc, grads, masks, arrs["weight"][t], 1.0)
             loss_sum = loss_sum + f32(arrs["weight"][t]) * loss.detach()
@@ -88,13 +94,13 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan]):
     return train_step
 
 
-def make_fedsgd_train_step(model, optimizer):
+def make_fedsgd_train_step(model, optimizer, *, num_groups: int = 1):
     """Baseline: classic FedSGD (identical uncompressed local models) —
     the McMahan et al. comparison point."""
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         leaves = {k: v.detach().requires_grad_()
                   for k, v in state["params"].items()}
-        loss = model.loss_fn(leaves, batch)
+        loss = model.loss_fn(leaves, batch, num_groups=num_groups)
         new_params, new_opt = optimizer.update(_grads(loss, leaves),
                                                state["opt"], state["params"],
                                                step=state["step"])
@@ -110,15 +116,17 @@ def compress_for_serving(params: dict, plan: CompressionPlan) -> dict:
     return compress_params(params, plan)[0]
 
 
-def make_serve_step(model):
+def make_serve_step(model, *, num_groups: int = 1):
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        return model.decode_step(params, cache, tokens, pos,
+                                 num_groups=num_groups)
     return serve_step
 
 
-def make_prefill_step(model, *, window: int = 0):
+def make_prefill_step(model, *, window: int = 0, num_groups: int = 1):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, window=window)
+        return model.prefill(params, batch, window=window,
+                             num_groups=num_groups)
     return prefill_step

@@ -2,7 +2,7 @@
 the reference's (``data/synthetic.py``): batch i is a pure function of
 (seed, i) through numpy's ``default_rng((seed, i))``, so the tokens are
 bitwise the reference's. Tokens follow a truncated Zipf law. Batches are
-int32 CPU tensors; the caller moves them to its device."""
+CPU tensors (tokens int32); the caller moves them to its device."""
 from __future__ import annotations
 
 import numpy as np
@@ -35,14 +35,22 @@ class TokenStream:
 def make_train_batch(cfg, shape, *, n_tiers: int = 0, seed: int = 0,
                      index: int = 0) -> dict:
     """A train batch {"tokens": (B, T+1)}, or (n_tiers, B/n_tiers, T+1)
-    when n_tiers > 0. The dense family only."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} batches are not ported yet: ROADMAP queue 1 item "
-            f"{12 if cfg.family == 'vlm' else 15}")
+    when n_tiers > 0. For VLM also "patches" (..., P, D) in
+    ``cfg.dtype``, drawn first, and T - P + 1 text tokens, so that
+    patches and text fill T positions. Audio batches are not ported."""
+    if cfg.family == "audio":
+        raise NotImplementedError("audio batches are not ported yet: "
+                                  "ROADMAP queue 1 item 15")
     rng = np.random.default_rng((seed, index))
     b, t = shape.global_batch, shape.seq_len
     lead = (n_tiers, b // n_tiers) if n_tiers else (b,)
+    batch = {}
+    if cfg.family == "vlm":
+        t -= cfg.num_patches
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (*lead, cfg.num_patches, cfg.d_model))).to(
+                getattr(torch, cfg.dtype))
     toks = _zipf_tokens(rng, (int(np.prod(lead)), t + 1), cfg.vocab_size)
-    return {"tokens": torch.from_numpy(
-        toks.astype(np.int32).reshape(*lead, t + 1))}
+    batch["tokens"] = torch.from_numpy(
+        toks.astype(np.int32).reshape(*lead, t + 1))
+    return batch

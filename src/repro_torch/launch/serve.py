@@ -1,6 +1,7 @@
 """Serving entry point: run a model AS DEPLOYED on an IoT device tier —
-compress once with the tier's plan, prefill a batch of prompts, replay
-the prompt into a fresh ring cache, decode greedily.
+compress once with the tier's plan, prefill a batch of prompts (for VLM
+behind stub patch embeddings), replay the prompt's text into a fresh
+ring cache, decode greedily.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --tier low --batch 4 --prompt-len 64 --gen 32 --device cpu
@@ -33,10 +34,13 @@ def serve(cfg, tier: str = "mid", *, batch: int = 4, prompt_len: int = 64,
           gen: int = 32, window: int = 0, seed: int = 0, device=None,
           params: dict | None = None) -> dict:
     """Compress ``params`` (random from ``seed`` if None) for ``tier``,
-    prefill ``batch`` prompts of ``prompt_len`` tokens, replay them into
-    a cache of prompt_len + gen slots and decode ``gen`` tokens greedily.
+    prefill ``batch`` prompts of ``prompt_len`` tokens (VLM: behind
+    ``num_patches`` f32 patch embeddings drawn from ``seed`` on the
+    device), replay the text into a cache of prompt_len + gen slots and
+    decode ``gen`` tokens greedily, as the reference does.
     Returns the tokens (B, gen + 1), prefill's last-token logits, the
-    logits of the replay's last step (the same position), and the wall
+    logits of the replay's last step (prefill's last position; for VLM
+    the last text position without the patches before it), and the wall
     times of compression, prefill and decode."""
     device = resolve_device(device)
     model = get_model(cfg)
@@ -49,12 +53,18 @@ def serve(cfg, tier: str = "mid", *, batch: int = 4, prompt_len: int = 64,
     t_compress = time.perf_counter() - t0
     prompt = TokenStream(cfg.vocab_size, batch, prompt_len, seed=seed) \
         .batch_at(0)["tokens"][:, :prompt_len].to(device)
+    inputs = {"tokens": prompt}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.randn(
+            (batch, cfg.num_patches, cfg.d_model), dtype=torch.float32,
+            device=device,
+            generator=torch.Generator(device=device).manual_seed(seed))
     prefill = make_prefill_step(model, window=window)
     step = make_serve_step(model)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, _ = prefill(cparams, {"tokens": prompt})
+    logits, _ = prefill(cparams, inputs)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 

@@ -45,7 +45,10 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     shape = ShapeConfig("cli", seq, batch, "train")
     model = get_model(cfg)
     opt = optim.adamw(optim.warmup_cosine(lr, warmup, steps))
-    step_fn = make_hetero_train_step(model, opt, default_tier_plans(n_tiers))
+    # one card is one data shard: num_groups 1 (the reference's is
+    # num_batch_shards(mesh), ROADMAP queue 1 item 17)
+    step_fn = make_hetero_train_step(model, opt, default_tier_plans(n_tiers),
+                                     num_groups=1)
     state = TrainState.create(model, opt, seed, device=device)
     n_params = sum(x.numel() for x in state["params"].values())
     print(f"arch={cfg.name} params={n_params:,} device={device} "

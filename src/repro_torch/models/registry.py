@@ -1,14 +1,15 @@
 """Model registry: one uniform interface per architecture family.
 
 ``get_model(cfg)`` returns a namespace with:
-  init(key, device=None)                        -> params
-  loss_fn(params, batch)                        -> scalar loss      (train)
-  prefill(params, batch, *, window)             -> (logits, cache)  (prefill)
-  decode_step(params, cache, tokens, pos)       -> (logits, cache)  (decode)
-  init_cache(batch, cache_len, device=None)     -> cache dict
+  init(key, device=None)                          -> params
+  loss_fn(params, batch, *, num_groups)           -> scalar loss      (train)
+  prefill(params, batch, *, window, num_groups)   -> (logits, cache)  (prefill)
+  decode_step(params, cache, tokens, pos, *, num_groups)
+                                                  -> (logits, cache)  (decode)
+  init_cache(batch, cache_len, device=None)       -> cache dict
 
-The dense family is ported; the others raise ``NotImplementedError``
-naming their ROADMAP item.
+The decoder's families (dense, MoE, VLM) are ported; the others raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,8 +19,6 @@ from types import SimpleNamespace
 from repro_torch.models import decoder
 
 _NOT_PORTED = {
-    "moe": "item 11 (MoE family, models/moe.py)",
-    "vlm": "item 12 (VLM projector)",
     "ssm": "item 13 (xLSTM family)",
     "hybrid": "item 14 (Zamba hybrid family)",
     "audio": "item 15 (Whisper encoder-decoder)",
@@ -31,11 +30,13 @@ def get_model(cfg) -> SimpleNamespace:
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"the {fam} family is not ported yet: "
                                   f"ROADMAP queue 1 {_NOT_PORTED[fam]}")
-    if fam != "dense":
+    if fam not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {fam!r}")
 
-    def prefill(params, batch, *, window=0):
-        return decoder.prefill(params, batch["tokens"], cfg, window=window)
+    def prefill(params, batch, *, window=0, num_groups=1):
+        return decoder.prefill(params, batch["tokens"], cfg,
+                               patches=batch.get("patches"), window=window,
+                               num_groups=num_groups)
 
     return SimpleNamespace(
         cfg=cfg,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs.base import ShapeConfig as JShape
 from repro.core import compression as JC
@@ -46,8 +47,10 @@ def _t(x):
 
 
 def test_dense_configs_match_reference():
-    assert ARCHS == ["granite-3-2b", "llama3.2-3b", "deepseek-7b",
-                     "qwen2.5-32b"]
+    """Every arch of the reference's decoder families is registered, in
+    the reference's order, and its smoke config is the reference's."""
+    assert ARCHS == [a for a in J_ARCHS if a not in (
+        "xlstm-1.3b", "zamba2-2.7b", "whisper-tiny")]
     for arch in ARCHS:
         assert vars(get_smoke_config(arch)) == vars(j_smoke(arch))
     full = get_config("llama3.2-3b")
@@ -56,8 +59,7 @@ def test_dense_configs_match_reference():
         (28, 3072, 24, 8, 128, 8192, 128256)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llava-next-34b",
-                                  "xlstm-1.3b", "zamba2-2.7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "whisper-tiny"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
