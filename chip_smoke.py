@@ -24,8 +24,12 @@
      4-D, (24, 32, 1024, 512) and (24, 32, 512, 1024)), of qwen3-moe-30b-a3b
      and llava-next-34b at full width and the 4 layers the MoE serve phase
      runs (expert leaves up to (4, 128, 2048, 768); llava's projector
-     (7168, 7168)), and the paper MLP's leaf and upload shapes, with
-     specials and f32 subnormals mixed in;
+     (7168, 7168)), of xlstm-1.3b and zamba2-2.7b at their full configs
+     (xLSTM's 5-D r_gates (6, 4, 4, 512, 512) and its (6, 7, 4096, 12288)
+     qkv of 2.11e9 elements; Zamba's stacked (54, 80) vectors; a leaf past
+     2^30 elements launched whole and held against the plain version
+     slice by slice along its leading axis), and the paper MLP's leaf and
+     upload shapes, with specials and f32 subnormals mixed in;
    - flash_attention at the train shape (B 2, T = S 1024, H 24, Hkv 8,
      hd 128) in f32 (atol/rtol 2e-5) and bf16 (one bf16 quantum of the
      plain version's f32 result, plus 2e-5), and in each dtype with a
@@ -33,17 +37,19 @@
      in bf16 also granite-3-2b's widths (hd 64), a q_offset < 0 whose
      blind rows must be exactly 0, the MoE train phase's shapes
      (granite-moe-1b-a400m's 16 / 8 heads at hd 64, B 2, T = S 1024;
-     llava-next-34b's 56 / 8 heads at hd 128, B 1, T = S 2048), and the
-     smoke config's hd 32. Each
+     llava-next-34b's 56 / 8 heads at hd 128, B 1, T = S 2048), the
+     recurrent train phase's zamba2-2.7b shared block (32 / 32 heads at
+     hd 80, B 2, T = S 1024) and the smoke config's hd 32. Each
      case's launch must take its route: bf16 at hd 64 and 128 the
-     tensor-core kernel (wgmma), f32 and hd 32 the CUDA-core one (simt);
+     tensor-core kernel (wgmma), f32, hd 80 and hd 32 the CUDA-core one
+     (simt);
    then times kernel and plain version with CUDA events (median), the
    kernel's device time from the profiler, the bound (the larger of
    bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, 67 TFLOP/s f32)
    and, for attention, PyTorch's scaled_dot_product_attention as a
    yardstick (the train bf16 and f32 rows are flash_attention's two
-   routes in the kernels line; the granite, granite-moe and llava rows
-   are printed only);
+   routes in the kernels line; the granite, granite-moe, llava and zamba
+   rows are printed only);
    - masked_matmul and codebook_matmul through the public kernel API at
      llama3.2-3b's MLP widths (one layer's wi (3072, 8192) and wo (8192,
      3072), x at M = 256 and 8192), plus a ragged shape and the paper
@@ -73,8 +79,9 @@
      f32 and the int8 bf16 train rows codebook_matmul's.
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
-   width-sliced twin (scan, scan_pallas) and FedAvg with fp8 uploads and
-   error feedback on the six-tier quickstart fleet (scan, scan_pallas).
+   width-sliced twin (scan, scan_pallas) and, 10 rounds, FedAvg with fp8
+   uploads and error feedback on the six-tier quickstart fleet (scan,
+   scan_pallas).
    Launch counters are zeroed just before each scan_pallas run and read
    just after: one fleet_aggregate launch a round, none through the
    one-leaf wrappers; scan_pallas must equal scan bitwise on the masked
@@ -121,7 +128,7 @@
    topology scenarios (sync_wait at participation 0.5, sync_drop at
    0.004 s, FedAvg with 3 local steps at lr 0.5, fp8_e4m3 uploads with
    EF at participation 0.6, width) on the bench fleet over 8 contiguous
-   edges, 20 rounds each eager, scan (chunks of 5), scan with mesh=True
+   edges, 10 rounds each eager, scan (chunks of 5), scan with mesh=True
    (the one-card mesh) and, for sync_wait, quant_ef and width, scan on a
    4-block mesh of the one card: params, optimizer state and every
    record bitwise across them all;
@@ -140,8 +147,9 @@
    to the 256-client fleet's), and the engine's record counts, wall and
    bytes equal to an eager round's of the same server.
 4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
-   compute), compressed for each tier hub / high / mid / low / embedded
-   through ``repro_torch.launch.serve``: batch 4, prompt 64, 32 greedy
+   compute), compressed for the tiers hub (none), low (pruned + fp8) and
+   embedded (k-means + fp4) through ``repro_torch.launch.serve``: batch
+   4, prompt 64, 32 greedy
    tokens; fake_quant must launch 10 times per quantized tier and never
    for the hub. At 2 layers of full width in f32, the decode replay of the
    prompt must agree with prefill's last-token logits.
@@ -157,8 +165,8 @@
    config the card's f32 step must agree with the port's CPU path over 2
    steps, its flash_attention launches all on the simt kernel.
 6. Phase "moe serve": granite-moe-1b-a400m whole (24 layers, 32 experts
-   top-8, 1,334,628,352 params) through ``launch.serve`` for every tier
-   as in 4, fake_quant once per compressible leaf (10, the router
+   top-8, 1,334,628,352 params) through ``launch.serve`` for the tiers
+   of 4, fake_quant once per compressible leaf (10, the router
    excluded) per quantized tier, and a profiled window of 8 decode
    steps on the low tier; then qwen3-moe-30b-a3b and llava-next-34b at
    full width cut to 4 layers (of 48 and 60), tiers hub and low (llava's
@@ -174,13 +182,29 @@
    fake_quant; one step profiled; then llava-next-34b at full width, 1
    layer, 4 x 2048 (896 text + 1152 patch positions), 2 steps: losses
    finite, flash on the wgmma kernel at hd 128.
+8. Phase "recurrent serve": xlstm-1.3b whole (48 layers, 3,530,676,560
+   params) at the tiers of 4 and zamba2-2.7b whole (54 layers,
+   2,422,670,240 params) at hub and low, as in 6 (fake_quant 18 per
+   quantized tier), each with a profiled window of 8 decode steps on the
+   low tier; then, in f32 at full width and a 512-token prompt (two
+   256-chunks carried), the decode replay against prefill: xLSTM at 8
+   layers (one superblock), Zamba at 6 (one application of the shared
+   block, a cache exactly as long as the prompt: its decode attends to
+   unwritten slots, as the reference's).
+9. Phase "recurrent train": both smoke configs' f32 step against the CPU
+   path as in 5; then bf16, flash, 4 tiers, AdamW, 8 x 1024, 3 steps, at
+   full width: xLSTM at 16 of 48 layers (two superblocks), Zamba at 12 of
+   54 (two applications) at peak lr 3e-5: losses finite and the mean
+   loss falling over the last two steps, fake_quant 54 per step, Zamba's
+   flash 8 per step on the simt kernel (hd 80); one step of each
+   profiled.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
 faults), checkpoint save / restore ms and bytes, val_acc, prefill s,
-decode tokens/s, sec/step and peak memory, a profiled window of each FL
-fleet, of the client and async runtimes, one serve call and one train
-step, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
+decode tokens/s, sec/step and peak memory, a profiled window (a
+device-only trace) of each FL fleet, of the client and async runtimes,
+one serve call, decode steps and train steps, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
 structured_scatter both from the grouped kernel; flash_attention,
 masked_matmul and codebook_matmul once per route, each row with its
 device ms and its max_abs_err over its route's cases in the dtype of its
@@ -203,10 +227,14 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
+FEDAVG_ROUNDS = 10                  # the slice's FedAvg fleet: ~10x a FedSGD round
 LM_ARCH = "llama3.2-3b"
 MOE_ARCH = "granite-moe-1b-a400m"
+XLSTM = "xlstm-1.3b"
+ZAMBA = "zamba2-2.7b"
 TRAIN_LAYERS = 4                    # the train phase's depth cut (of 28)
 TRAIN_STEPS = 5
+HUGE = 1 << 30                      # fake_quant leaves checked by slices
 BENCH_TIERS = ("hub", "high", "mid", "low")
 QUICKSTART_TIERS = ("hub", "high", "mid", "mid", "low", "embedded")
 LARGE_LEAF = (3072, 8192)           # llama3.2-3b's layers.mlp.wi.w
@@ -248,9 +276,13 @@ def bound_ms(n_bytes: int, flops: float = 0.0,
 
 
 def device_events(prof) -> list:
-    """The device-side events (kernels, copies) of a profiler trace."""
+    """(name, us) of each device-side event (kernel, copy) of a profiler
+    trace, read from its raw events: building the profiler's event list
+    for a window of ~10^6 events takes minutes of host time."""
     from torch.autograd import DeviceType
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 200):
@@ -266,9 +298,8 @@ def kernel_device_ms(fn, kernel: str, calls: int = 200):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in device_events(prof) if kernel in e.name]
-    return (sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
-            if ev else None)
+    ev = [us for name, us in device_events(prof) if kernel in name]
+    return sum(ev) / calls / 1e3 if ev else None
 
 
 # ------------------------------------------------------------- kernels
@@ -594,12 +625,14 @@ def _route_errors(kernel: str, err: dict, rows: dict, names: dict) -> None:
 
 
 def _fq_shapes() -> dict:
-    """shape -> label: every compressible leaf shape of llama3.2-3b and of
-    granite-moe-1b-a400m at their full configs, and of qwen3-moe-30b-a3b
-    and llava-next-34b at full width and the depth the MoE serve phase
-    runs them (``WIDE_LAYERS``), the 4-D expert leaves and llava's
-    projector included (the serve phases check the tables against the
-    real params); and the paper MLP's leaf shapes and upload shapes (a
+    """shape -> label: every compressible leaf shape of llama3.2-3b,
+    granite-moe-1b-a400m, xlstm-1.3b and zamba2-2.7b at their full
+    configs, and of qwen3-moe-30b-a3b and llava-next-34b at full width and
+    the depth the MoE serve phase runs them (``WIDE_LAYERS``): the 4-D
+    expert leaves, llava's projector, xLSTM's (6, 7, 4096, 12288) qkv
+    (2.11e9 elements) and 5-D r_gates, Zamba's stacked (54, 80) vectors
+    included (the serve phases check the tables against the real
+    params); and the paper MLP's leaf shapes and upload shapes (a
     256-client axis in front of every leaf)."""
     import torch
     from repro_torch.configs import get_config
@@ -609,7 +642,9 @@ def _fq_shapes() -> dict:
     for arch, tag, layers in ((LM_ARCH, "llama", None),
                               (MOE_ARCH, "granite-moe", None),
                               (QWEN_MOE, "qwen3-moe", WIDE_LAYERS),
-                              (LLAVA, "llava", WIDE_LAYERS)):
+                              (LLAVA, "llava", WIDE_LAYERS),
+                              (XLSTM, "xlstm", None),
+                              (ZAMBA, "zamba", None)):
         cfg = get_config(arch)
         if layers:
             cfg = cfg.replace(num_layers=layers)
@@ -622,9 +657,53 @@ def _fq_shapes() -> dict:
     return shapes
 
 
+def _recurrent_leaf_shapes(cfg) -> dict:
+    """name -> shape of every leaf of xLSTM (``ssm``) or the Zamba hybrid
+    (``hybrid``) at ``cfg``, in the reference's flatten order."""
+    d, v, w = cfg.d_model, cfg.vocab_size, cfg.conv_width
+    shapes = {"embed": (v, d), "final_norm": (d,), "lm_head.w": (d, v)}
+    if cfg.family == "ssm":
+        nsb, nm = cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+        d_in, h = cfg.ssm_expand * d, cfg.num_heads
+        hds = d // h
+        m = {"conv_b": (d_in,), "conv_w": (d_in, w), "down.w": (d_in, d),
+             "gates.b": (2 * h,), "gates.w": (d_in, 2 * h), "ln": (d,),
+             "mnorm": (d_in,), "qkv.w": (d_in, 3 * d_in), "skip": (d_in,),
+             "up.w": (d, 2 * d_in)}
+        sl = {"down.w": (d, d), "gates_x.b": (4 * d,),
+              "gates_x.w": (d, 4 * d), "gnorm": (d,), "ln": (d,),
+              "r_gates": (4, h, hds, hds)}
+        shapes.update({f"blocks.mlstm.{k}": (nsb, nm, *s)
+                       for k, s in m.items()})
+        shapes.update({f"blocks.slstm.{k}": (nsb, *s) for k, s in sl.items()})
+    else:
+        n_layers, hd = cfg.num_layers, cfg.head_dim
+        d_in = cfg.ssm_expand * d
+        nh, n = d_in // cfg.ssm_headdim, cfg.ssm_state
+        conv = d_in + 2 * n
+        m = {"ln": (d,), "mamba.a_log": (nh,), "mamba.conv_b": (conv,),
+             "mamba.conv_w": (conv, w), "mamba.d_skip": (nh,),
+             "mamba.dt_bias": (nh,), "mamba.gate_norm": (d_in,),
+             "mamba.in_proj.w": (d, 2 * d_in + 2 * n + nh),
+             "mamba.out_proj.w": (d_in, d)}
+        shapes.update({f"layers.{k}": (n_layers, *s) for k, s in m.items()})
+        shapes.update({
+            "shared.attn.wk.w": (d, cfg.num_kv_heads, hd),
+            "shared.attn.wo.w": (cfg.num_heads * hd, d),
+            "shared.attn.wq.w": (d, cfg.num_heads, hd),
+            "shared.attn.wv.w": (d, cfg.num_kv_heads, hd),
+            "shared.ln1": (d,), "shared.ln2": (d,),
+            "shared.mlp.wg.w": (d, cfg.d_ff), "shared.mlp.wi.w": (d, cfg.d_ff),
+            "shared.mlp.wo.w": (cfg.d_ff, d)})
+    return dict(sorted(shapes.items()))
+
+
 def _lm_leaf_shapes(cfg) -> dict:
-    """name -> shape of every leaf of the decoder at ``cfg`` (dense, MoE
-    or VLM), in the reference's flatten order."""
+    """name -> shape of every leaf of the LM at ``cfg`` (the decoder's
+    dense, MoE or VLM; xLSTM; the Zamba hybrid), in the reference's
+    flatten order."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_leaf_shapes(cfg)
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
     e, f = cfg.num_experts, cfg.d_ff
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
@@ -650,7 +729,7 @@ def _lm_leaf_shapes(cfg) -> dict:
 
 
 def _n_compressible(cfg) -> int:
-    """How many leaves of the decoder at ``cfg`` compress: the fake_quant
+    """How many leaves of the LM at ``cfg`` compress: the fake_quant
     launches of one quantized compression."""
     import torch
     from repro_torch.core.compression import compressible
@@ -666,13 +745,17 @@ def _flash_cases(device):
     q_offset < 0 whose first rows see no key, in bf16; the MoE train
     phase's shapes in bf16: granite-moe-1b-a400m's 16 / 8 heads at hd 64,
     batch 2 per tier over 1024 positions, and llava-next-34b's 56 / 8
-    heads (a GQA ratio of 7) at hd 128, batch 1 per tier over 2048; and
-    the smoke config's hd 32 in bf16, which the simt kernel serves."""
+    heads (a GQA ratio of 7) at hd 128, batch 1 per tier over 2048;
+    zamba2-2.7b's shared block in the recurrent train phase, 32 / 32 heads
+    at hd 80 (not a wgmma width, so the simt kernel), batch 2 per tier
+    over 1024; and the smoke config's hd 32 in bf16, which the simt
+    kernel serves."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     cfg = get_config(LM_ARCH)
     granite = get_config("granite-3-2b")
     granite_moe, llava = get_config(MOE_ARCH), get_config(LLAVA)
+    zamba = get_config(ZAMBA)
     smoke = get_smoke_config(LM_ARCH)
     gen = torch.Generator(device=device).manual_seed(5)
 
@@ -699,6 +782,7 @@ def _flash_cases(device):
         ("granite_moe_bf16", *qkv(2, 1024, 1024, bf16, granite_moe), {},
          "wgmma"),
         ("llava_bf16", *qkv(1, 2048, 2048, bf16, llava), {}, "wgmma"),
+        ("zamba_bf16", *qkv(2, 1024, 1024, bf16, zamba), {}, "simt"),
         ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
@@ -733,27 +817,42 @@ def phase_lm_kernels(device) -> dict:
     fq_err = 0.0
     for i, (shape, label) in enumerate(shapes):
         x = _fq_input(shape, device, seed=10 + i)
+        # a leaf past HUGE elements: the plain version's temporaries do not
+        # fit beside it, so the one whole-leaf launch is held against the
+        # plain version slice by slice along the leading axis
+        huge = x.numel() > HUGE
         bad, err = [], 0.0
         for n, f in fmts.items():
             out = fake_quant(x, f.e_bits, f.m_bits)
-            ref = quantize_em(x, f.e_bits, f.m_bits)
-            if not _bitwise(out, ref):
-                bad.append(n)
-            err = max(err, _max_abs_err(out, ref))
-            del out, ref
+            pairs = ([(out[j], quantize_em(x[j], f.e_bits, f.m_bits))
+                      for j in range(shape[0])] if huge
+                     else [(out, quantize_em(x, f.e_bits, f.m_bits))])
+            for a, b in pairs:
+                if not _bitwise(a, b) and n not in bad:
+                    bad.append(n)
+                err = max(err, _max_abs_err(a, b))
+            del out, pairs
         fq_err = max(fq_err, err)
         check(not bad, f"fake_quant {label} {shape} == quantize_em (bitwise) "
-                       f"for {sorted(fmts)}; mismatched: {bad}, "
-                       f"max_abs_err {err}")
+                       f"for {sorted(fmts)}{' slice by slice' * huge}; "
+                       f"mismatched: {bad}, max_abs_err {err}")
+        # the recurrent families' leaves are timed only where they are new
+        # in kind: past HUGE elements, or 5-D
+        if label.startswith(("xlstm", "zamba")) and not huge \
+                and x.dim() < 5:
+            del x
+            continue
         big = x.numel() > 10_000_000
         reps, inner = (5, 3) if big else (15, 20)
         n_bytes = 8 * x.numel()
         ms = time_ms(lambda: fake_quant(x, 4, 3), reps, inner)
-        pms = time_ms(lambda: quantize_em(x, 4, 3), reps, inner)
+        xp = x[0] if huge else x
+        pms = time_ms(lambda: quantize_em(xp, 4, 3), reps, inner)
         dms = kernel_device_ms(lambda: fake_quant(x, 4, 3),
                                "fake_quant_kernel", calls=10 if big else 200)
         print(f"kernel fake_quant {label} {shape} fp8_e4m3: ms={ms:.6f} "
-              f"plain_ms={pms:.6f} bound_ms={bound_ms(n_bytes):.6f} "
+              f"plain_ms{'_of_one_leading_slice' * huge}={pms:.6f} "
+              f"bound_ms={bound_ms(n_bytes):.6f} "
               f"device_ms={dms} bytes={n_bytes}")
         if label == "llama embed":
             rows["fake_quant"] = dict(ms=ms, plain_ms=pms, device_ms=dms,
@@ -793,7 +892,7 @@ def phase_lm_kernels(device) -> dict:
         key = (want, _dtype_name(q.dtype))
         err[key] = max(err.get(key, 0.0), e)
         if label not in ("train_bf16", "train_f32", "granite_bf16",
-                         "granite_moe_bf16", "llava_bf16"):
+                         "granite_moe_bf16", "llava_bf16", "zamba_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -1229,30 +1328,31 @@ def phase_matmul_kernels(device) -> tuple[dict, dict]:
 
 # --------------------------------------------------------------- slice
 
-def _run(scenario, engine, device, label, ms_log=None):
-    """``simulate`` for ROUNDS rounds, timed; the ms per round also go
+def _run(scenario, engine, device, label, ms_log=None, rounds=ROUNDS):
+    """``simulate`` for ``rounds`` rounds, timed; the ms per round also go
     into ``ms_log[(label, engine)]`` when given."""
     import torch
     from repro_torch.fl import simulate
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = simulate(scenario, ROUNDS, engine=engine, device=device)
+    res = simulate(scenario, rounds, engine=engine, device=device)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    ms = (time.perf_counter() - t0) / rounds * 1e3
     if ms_log is not None:
         ms_log[(label, engine)] = ms
     losses = res.losses
     print(f"slice {label} engine={engine}: ms_per_round={ms:.3f} "
           f"agg_backend={res.agg_backend} loss[1]={losses[0]:.6f} "
-          f"loss[{ROUNDS}]={losses[-1]:.6f}")
+          f"loss[{rounds}]={losses[-1]:.6f}")
     check(all(l is not None and l == l and abs(l) != float("inf")
               for l in losses), f"{label}/{engine}: losses finite")
     check(losses[-1] < losses[0], f"{label}/{engine}: loss falls over "
-                                  f"{ROUNDS} rounds")
+                                  f"{rounds} rounds")
     return res
 
 
-def _fused_run(scenario, device, label, expect_backend, ms_log=None):
+def _fused_run(scenario, device, label, expect_backend, ms_log=None,
+               rounds=ROUNDS):
     """The main path: scan_pallas with every launch counter zeroed just
     before and read just after; one fleet_aggregate launch a round, and
     none through the one-leaf wrappers."""
@@ -1266,15 +1366,15 @@ def _fused_run(scenario, device, label, expect_backend, ms_log=None):
                 "fake_quant": fake_quant}
     for fn in counters.values():
         fn.launches = 0
-    res = _run(scenario, "scan_pallas", device, label, ms_log)
+    res = _run(scenario, "scan_pallas", device, label, ms_log, rounds)
     got = {k: fn.launches for k, fn in counters.items()}
     print(f"slice {label}: launches={json.dumps(got)} per_round="
-          f"{json.dumps({k: v / ROUNDS for k, v in got.items()})}")
+          f"{json.dumps({k: v / rounds for k, v in got.items()})}")
     check(res.agg_backend == expect_backend,
           f"{label}: agg_backend == {expect_backend!r}")
     for k, n in (("fleet_aggregate", 1), ("grad_aggregate", 0),
                  ("structured_scatter", 0)):
-        check(got[k] == n * ROUNDS, f"{label}: {k} launched {n} per round")
+        check(got[k] == n * rounds, f"{label}: {k} launched {n} per round")
     return res, got
 
 
@@ -1382,24 +1482,25 @@ def _same_params(a, b) -> float:
 def profile_window(label: str, fn, n: int, per: str) -> None:
     """Where a window's time goes: host wall time of ``fn()`` (``n``
     rounds, steps or calls) against the device time of every kernel and
-    copy it ran. The profiler slows the host, so the wall time here reads
-    above the unprofiled one."""
+    copy it ran. The trace is the device's alone (nothing here reads the
+    host's operators, and tracing them slows the host); the tracing still
+    slows the host a little, so the wall time reads above the unprofiled
+    one."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = device_events(prof)
-    busy_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    busy_ms = sum(us for _, us in ev) / 1e3
     by_name = collections.Counter()
-    for e in ev:
-        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    for name, us in ev:
+        by_name[name[:60]] += us / 1e3
     print(f"profile {label}: wall_ms_per_{per}={wall_ms / n:.3f} "
           f"device_busy_ms_per_{per}={busy_ms / n:.3f} "
           f"device_busy_share={busy_ms / wall_ms:.4f} "
@@ -1474,8 +1575,9 @@ def phase_slice(device, ms_log: dict) -> dict:
     check(_same_params(ref.params, res.params) == 0.0,
           "width: scan_pallas params == scan params (bitwise)")
 
-    ref = _run(fedavg, "scan", device, "fedavg_fp8_ef")
-    res, got = _fused_run(fedavg, device, "fedavg_fp8_ef", "pallas")
+    ref = _run(fedavg, "scan", device, "fedavg_fp8_ef", rounds=FEDAVG_ROUNDS)
+    res, got = _fused_run(fedavg, device, "fedavg_fp8_ef", "pallas",
+                          rounds=FEDAVG_ROUNDS)
     launches["grad_aggregate"] += got["fleet_aggregate"]
     launches["fake_quant"] += got["fake_quant"]
     d = _same_params(ref.params, res.params)
@@ -1987,6 +2089,7 @@ def phase_checkpoint(device, faults: dict) -> dict:
 # ------------------------------------------------------------ topology
 
 TOPO_EDGES = 8
+TOPO_ROUNDS = 10                    # (a) and (b); (c) cuts 20 at 10
 TOPO_CHUNK = 5
 ACCEPT_CLIENTS = 100_000            # benchmarks/fl_bench.py:354-396
 ACCEPT_CHUNK = 10
@@ -2014,7 +2117,7 @@ def _topo_scenarios(fleet) -> dict:
     }
 
 
-def _topo_run(sc, engine: str, device, label: str, n: int = ROUNDS,
+def _topo_run(sc, engine: str, device, label: str, n: int = TOPO_ROUNDS,
               mesh=None, flat_ms=None):
     """``simulate`` on a topology fleet for ``n`` rounds, timed, with the
     launch counters zeroed just before and read just after: fake_quant
@@ -2248,7 +2351,8 @@ def phase_topology(device, ms_log: dict) -> dict:
 
 # --------------------------------------------------------------- serve
 
-SERVE_TIERS = ("hub", "high", "mid", "low", "embedded")
+# one tier with no compression, one pruned + fp8, one k-means + fp4
+SERVE_TIERS = ("hub", "low", "embedded")
 
 
 def phase_serve(device) -> int:
@@ -2293,10 +2397,11 @@ def phase_serve(device) -> int:
         check(n == (10 if quantized else 0),
               f"serve {tier}: fake_quant launched {n} times "
               f"(10 quantized leaves, 0 for the hub)")
+        del res
     profile_window("serve low", lambda: serve(
         cfg, "low", batch=batch, prompt_len=prompt, gen=gen, params=params,
         device=device), 1, "call")
-    del params, res
+    del params
     torch.cuda.empty_cache()
 
     # prefill vs the decode replay of the same prompt, in f32 at 2 layers
@@ -2317,6 +2422,16 @@ def phase_serve(device) -> int:
 
 
 # --------------------------------------------------------------- train
+
+def _attn_calls(cfg) -> int:
+    """Attention calls in one forward: every decoder layer, each
+    application of Zamba's shared block, none in xLSTM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
 
 def _train_smoke_vs_cpu(arch: str, device) -> dict:
     """Two f32 SGD tier-loop steps of ``arch``'s smoke config with flash,
@@ -2358,11 +2473,11 @@ def _train_smoke_vs_cpu(arch: str, device) -> dict:
     print(f"train smoke f32{tag}: cpu losses={lc} cuda losses={lg} "
           f"params max_abs_err={e} flash launches per route="
           f"{json.dumps(smoke_routes)}")
-    smoke_n = cfg.num_layers * 4 * 2
+    smoke_n = _attn_calls(cfg) * 4 * 2
     check(smoke_routes == {"wgmma": 0, "simt": smoke_n},
           f"train smoke f32{tag}: flash_attention launched {smoke_n} times, "
-          f"all on the simt kernel ({cfg.num_layers} layers x 4 tiers x 2 "
-          f"steps on the card)")
+          f"all on the simt kernel ({_attn_calls(cfg)} attention calls x 4 "
+          f"tiers x 2 steps on the card)")
     check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
           f"train smoke f32{tag}: card losses == CPU losses to rtol 1e-4")
     check(e <= 1e-5, f"train smoke f32{tag}: card params == CPU params to "
@@ -2553,16 +2668,16 @@ def _profile_decode(cfg, params, tier: str, device) -> None:
     profile_window(f"decode {cfg.name} {tier}", window, DECODE_STEPS, "step")
 
 
-def _replay_check(label: str, replay, prefill) -> None:
+def _replay_check(label: str, replay, prefill, layers: int = 2) -> None:
     """Decode's replay of the prompt against prefill's last-token logits,
-    in f32 at 2 layers: the same math summed in other orders moves logits
-    of O(1) by ~1e-6; a wrong position, mask, slot or route moves them by
-    O(1)."""
+    in f32 at a few layers: the same math summed in other orders moves
+    logits of O(1) by ~1e-6; a wrong position, mask, slot, route or
+    carried state moves them by O(1)."""
     import torch
     e = (replay - prefill).abs().max().item()
     check(torch.allclose(replay, prefill, rtol=1e-3, atol=1e-4),
-          f"serve {label} f32 2-layer: decode replay == prefill last-token "
-          f"logits (rtol 1e-3, atol 1e-4), max_abs_err {e}, "
+          f"serve {label} f32 {layers}-layer: decode replay == prefill "
+          f"last-token logits (rtol 1e-3, atol 1e-4), max_abs_err {e}, "
           f"max|logit| {prefill.abs().max().item():.3f}")
 
 
@@ -2631,55 +2746,80 @@ def phase_moe_serve(device) -> int:
     return total
 
 
-def phase_moe_train(device) -> dict:
-    """The tier-loop train step on the MoE and VLM families; returns the
-    launches of its runs."""
+def _train_run(cfg, label: str, steps: int, batch: int, seq: int,
+               route: str, device, n_tiers: int = 4, lr: float = 3e-4):
+    """``launch.train`` of ``cfg`` (AdamW(warmup_cosine(lr, 2, steps)),
+    ``n_tiers`` tiers), its counters zeroed just before: losses finite,
+    flash_attention once per attention call per tier and step, all on
+    ``route``, fake_quant once per compressible leaf per quantized tier
+    and step. Returns (the run, its launches)."""
     import torch
-    from repro_torch import optim
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.core.compression import default_tier_plans
-    from repro_torch.core.steps import make_hetero_train_step
-    from repro_torch.data.synthetic import make_train_batch
     from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.train import train
+    routes = flash_attention.route_launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for r in routes:
+        routes[r] = 0
+    fake_quant.launches = 0
+    res = train(cfg, steps=steps, batch=batch, seq=seq, n_tiers=n_tiers,
+                lr=lr, warmup=2, seed=0, device=device, log_every=1)
+    launches = {"fake_quant": fake_quant.launches, **routes}
+    losses, secs = res["losses"], res["sec_per_step"]
+    steady = secs[1:] if len(secs) > 1 else secs
+    sps = sum(steady) / len(steady)
+    print(f"train {label}: losses={losses} tier_losses (hub, high, mid, "
+          f"low)={res['tier_losses']}")
+    print(f"train {label}: sec_per_step={secs} mean_sec_per_step(steps "
+          f"2..{steps})={sps:.6f} tokens_per_s={batch * seq / sps:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"launches={json.dumps(launches)}")
+    check(all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(x) for t in res["tier_losses"] for x in t),
+          f"train {label}: losses finite")
+    per_step = _attn_calls(cfg) * n_tiers
+    check(launches[route] == per_step * steps
+          and sum(launches[r] for r in routes) == per_step * steps,
+          f"train {label}: flash_attention launched {per_step} per step "
+          f"({_attn_calls(cfg)} attention calls x {n_tiers} tiers), all on "
+          f"the {route} kernel at hd {cfg.head_dim}")
+    n_fq = 3 * _n_compressible(cfg)
+    check(launches["fake_quant"] == n_fq * steps,
+          f"train {label}: fake_quant launched {n_fq} per step (3 "
+          f"quantized tiers x {n_fq // 3} leaves)")
+    return res, launches
+
+
+def _profile_train_step(cfg, state, steps: int, label: str, device,
+                        lr: float = 3e-4) -> None:
+    """One more step of a ``_train_run`` (batch index ``steps``, 8 x 1024
+    over 4 tiers), profiled."""
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
     from repro_torch.models import get_model
+    opt = optim.adamw(optim.warmup_cosine(lr, 2, steps))
+    step = make_hetero_train_step(get_model(cfg), opt, default_tier_plans(4))
+    b = make_train_batch(cfg, ShapeConfig("t", 1024, 8, "train"), n_tiers=4,
+                         seed=0, index=steps)
+    b = {k: v.to(device) for k, v in b.items()}
+    profile_window(f"train step {label}", lambda: step(state, b), 1, "step")
+
+
+def phase_moe_train(device) -> dict:
+    """The tier-loop train step on the MoE and VLM families; returns the
+    launches of its runs."""
+    from repro_torch.configs import get_config
 
     smoke_routes = _train_smoke_vs_cpu(MOE_ARCH, device)
-    routes = flash_attention.route_launches
     got = {"flash_attention_simt": smoke_routes["simt"]}
 
-    def run(cfg, label, steps, batch, seq, n_tiers=4):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for r in routes:
-            routes[r] = 0
-        fake_quant.launches = 0
-        res = train(cfg, steps=steps, batch=batch, seq=seq, n_tiers=n_tiers,
-                    lr=3e-4, warmup=2, seed=0, device=device, log_every=1)
-        launches = {"fake_quant": fake_quant.launches, **routes}
-        losses, secs = res["losses"], res["sec_per_step"]
-        steady = secs[1:] if len(secs) > 1 else secs
-        sps = sum(steady) / len(steady)
-        print(f"train {label}: losses={losses} tier_losses (hub, high, mid, "
-              f"low)={res['tier_losses']}")
-        print(f"train {label}: sec_per_step={secs} mean_sec_per_step(steps "
-              f"2..{steps})={sps:.6f} tokens_per_s={batch * seq / sps:.3f} "
-              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
-              f"launches={json.dumps(launches)}")
-        check(all(math.isfinite(x) for x in losses)
-              and all(math.isfinite(x) for t in res["tier_losses"]
-                      for x in t), f"train {label}: losses finite")
-        per_step = cfg.num_layers * n_tiers
-        check(launches["wgmma"] == per_step * steps
-              and launches["simt"] == 0,
-              f"train {label}: flash_attention launched {per_step} per step "
-              f"({cfg.num_layers} layers x {n_tiers} tiers), all on the "
-              f"wgmma kernel at hd {cfg.head_dim}")
-        n_fq = 3 * _n_compressible(cfg)
-        check(launches["fake_quant"] == n_fq * steps,
-              f"train {label}: fake_quant launched {n_fq} per step (3 "
-              f"quantized tiers x {n_fq // 3} leaves)")
+    def run(cfg, label, steps, batch, seq):
+        res, launches = _train_run(cfg, label, steps, batch, seq, "wgmma",
+                                   device)
         for k in ("fake_quant", "wgmma"):
             got[k] = got.get(k, 0) + launches[k]
         return res
@@ -2691,15 +2831,8 @@ def phase_moe_train(device) -> dict:
           f"dtype={cfg.dtype} use_flash=True tiers=4 batch=8 seq=1024 "
           f"steps={TRAIN_STEPS}")
     res = run(cfg, MOE_ARCH, TRAIN_STEPS, 8, 1024)
-    # one more step of the same run, profiled
-    opt = optim.adamw(optim.warmup_cosine(3e-4, 2, TRAIN_STEPS))
-    step = make_hetero_train_step(get_model(cfg), opt, default_tier_plans(4))
-    b = make_train_batch(cfg, ShapeConfig("t", 1024, 8, "train"), n_tiers=4,
-                         seed=0, index=TRAIN_STEPS)
-    b = {k: v.to(device) for k, v in b.items()}
-    profile_window(f"train step {MOE_ARCH}", lambda: step(res["state"], b),
-                   1, "step")
-    del res, step, b
+    _profile_train_step(cfg, res["state"], TRAIN_STEPS, MOE_ARCH, device)
+    del res
 
     # llava-next-34b at full width, one layer: 896 text + 1152 patch
     # positions, flash at hd 128
@@ -2711,6 +2844,76 @@ def phase_moe_train(device) -> dict:
     return {"fake_quant": got["fake_quant"],
             "flash_attention_wgmma": got["wgmma"],
             "flash_attention_simt": got["flash_attention_simt"]}
+
+
+# ------------------------------------------------ recurrent families
+
+RECURRENT_SERVE = {XLSTM: ("hub", "low", "embedded"), ZAMBA: ("hub", "low")}
+RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
+RECURRENT_TRAIN = {XLSTM: 16, ZAMBA: 12}    # two superblocks; two applications
+RECURRENT_STEPS = 3
+# AdamW's peak lr: at 3e-4, the other train phases' lr, Zamba's mean loss
+# on an H100 jumps at step 3 under AdamW's first updates and then swings
+# (15.05, 11.47, 12.16 at steps 3-5), the uncompressed tiers the most; at
+# 3e-5 it falls from step 3 on
+RECURRENT_LR = {XLSTM: 3e-4, ZAMBA: 3e-5}
+
+
+def phase_recurrent_serve(device) -> int:
+    """xlstm-1.3b and zamba2-2.7b served whole; returns fake_quant
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    total = 0
+    for arch, tiers in RECURRENT_SERVE.items():
+        cfg = get_config(arch)
+        params = _full_params(cfg, arch, device)
+        serve(cfg, "hub", batch=4, prompt_len=8, gen=2, params=params,
+              device=device)                      # warm-up
+        total += _serve_tiers(cfg, params, tiers, arch, device)
+        _profile_decode(cfg, params, "low", device)
+        del params
+        torch.cuda.empty_cache()
+    # the f32 replay at full width: a prompt of 512 makes prefill run two
+    # 256-chunks and carry the state across. Zamba's decode attends to the
+    # slots not written yet (slot_pos 0, as the reference's init_cache), so
+    # its replay fills a cache exactly as long as the prompt (gen 0)
+    for arch, layers in RECURRENT_REPLAY.items():
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        res = serve(cfg, "mid", batch=4, prompt_len=512,
+                    gen=0 if cfg.family == "hybrid" else 1, device=device)
+        _replay_check(f"{arch} prompt 512", res["replay_logits"],
+                      res["prefill_logits"], layers)
+        del res
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_recurrent_train(device) -> dict:
+    """The tier-loop train step on the recurrent families; returns the
+    launches of its runs."""
+    from repro_torch.configs import get_config
+    got = {"fake_quant": 0, "flash_attention_simt": 0}
+    for arch in RECURRENT_TRAIN:
+        got["flash_attention_simt"] += _train_smoke_vs_cpu(arch, device)["simt"]
+    for arch, layers in RECURRENT_TRAIN.items():
+        full = get_config(arch)
+        cfg = full.replace(num_layers=layers, use_flash=True)
+        steps, lr = RECURRENT_STEPS, RECURRENT_LR[arch]
+        print(f"train {arch}: layers={layers} (of {full.num_layers}) "
+              f"d_model={cfg.d_model} dtype={cfg.dtype} use_flash=True "
+              f"tiers=4 batch=8 seq=1024 steps={steps} lr={lr}")
+        res, launches = _train_run(cfg, arch, steps, 8, 1024, "simt", device,
+                                   lr=lr)
+        c = res["losses"]
+        check(c[-1] < c[-2], f"train {arch}: the mean loss falls over the "
+                             f"last two steps: {c[-2]:.4f} -> {c[-1]:.4f}")
+        got["fake_quant"] += launches["fake_quant"]
+        got["flash_attention_simt"] += launches["simt"]
+        _profile_train_step(cfg, res["state"], steps, arch, device, lr)
+        del res
+    return got
 
 
 # ---------------------------------------------------------------- main
@@ -2770,7 +2973,9 @@ def main() -> int:
               ("serve", lambda: phase_serve(device)),
               ("train", lambda: phase_train(device)),
               ("moe serve", lambda: phase_moe_serve(device)),
-              ("moe train", lambda: phase_moe_train(device))]
+              ("moe train", lambda: phase_moe_train(device)),
+              ("recurrent serve", lambda: phase_recurrent_serve(device)),
+              ("recurrent train", lambda: phase_recurrent_train(device))]
     try:
         for name, run in phases:
             t_phase = time.perf_counter()
@@ -2791,14 +2996,18 @@ def main() -> int:
                                + flt["fake_quant"] + ckpt["fake_quant"]
                                + out["topology"]["fake_quant"]
                                + out["moe serve"]
-                               + out["moe train"]["fake_quant"])
+                               + out["moe train"]["fake_quant"]
+                               + out["recurrent serve"]
+                               + out["recurrent train"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
     # cores (flash: the smoke f32 train step's launches; codebook: idx rows
     # TMA refuses), the bf16 train row on the tensor cores
-    launches["flash_attention"] = (out["train"]["flash_attention_simt"]
-                                   + out["moe train"]["flash_attention_simt"])
+    launches["flash_attention"] = (
+        out["train"]["flash_attention_simt"]
+        + out["moe train"]["flash_attention_simt"]
+        + out["recurrent train"]["flash_attention_simt"])
     launches["flash_attention_wgmma"] = (
         out["train"]["flash_attention_wgmma"] + ckpt["flash_attention_wgmma"]
         + out["moe train"]["flash_attention_wgmma"])
@@ -2806,8 +3015,8 @@ def main() -> int:
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + faults + "
-          f"checkpoint + topology + serve + train + moe serve + moe train, "
-          f"matmul entry points): "
+          f"checkpoint + topology + serve + train + moe serve + moe train + "
+          f"recurrent serve + recurrent train, matmul entry points): "
           f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (

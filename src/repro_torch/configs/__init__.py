@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config("llama3.2-3b")`` etc.
 
-The decoder's three families (dense, MoE, VLM) are ported; the other
-arch ids of the reference raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The decoder's three families (dense, MoE, VLM) and the two recurrent
+ones (xLSTM, the Zamba hybrid) are ported; ``whisper-tiny`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, SHAPES, smoke_red
 _ARCH_MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b",
     "granite-3-2b": "granite_3_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "llama3.2-3b": "llama3_2_3b",
     "deepseek-7b": "deepseek_7b",
     "llava-next-34b": "llava_next_34b",
@@ -23,8 +25,6 @@ _ARCH_MODULES = {
 
 # arch id -> the ROADMAP (queue 1) item that ports its family
 _NOT_PORTED = {
-    "xlstm-1.3b": "item 13 (xLSTM family)",
-    "zamba2-2.7b": "item 14 (Zamba hybrid family)",
     "whisper-tiny": "item 15 (Whisper encoder-decoder)",
 }
 

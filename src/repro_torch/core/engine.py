@@ -242,9 +242,10 @@ class ScanEngine:
                 finalize(acc), srv.opt_state, params, xs["step"][r])
         return loss_sum
 
-    def _host_masks(self, R: int):
+    def _host_masks(self, R: int, participation=None):
         """The chunk's participation, replaying the eager round on the
-        host in its order: sampling, availability, the float64 deadline
+        host in its order: sampling (or the round's pinned per-cohort
+        masks from ``participation``), availability, the float64 deadline
         drop, mid-round crashes. Returns per-round lists of per-cohort
         bool masks: who uploads, who ran (burns wall-clock) and whose
         upload is corrupted (active rows only); and per-round deadline
@@ -255,8 +256,10 @@ class ScanEngine:
         parts, wparts, corrs, dropped, dropouts = [], [], [], [], []
         for r in range(R):
             step = srv.step + r
-            sampled = srv._sample_participation(
+            sampled = (srv._sample_participation(
                 np.random.default_rng([srv.seed, step]))
+                if participation is None
+                else [np.asarray(p, bool) for p in participation[r]])
             if flt is not None:
                 avail = availability_mask(flt, n_total, step)
                 drops = dropout_mask(flt, n_total, step)
@@ -299,10 +302,11 @@ class ScanEngine:
                 else _init_cohort_ef(c.size, self._local_structs[ci])
                 for ci, c in enumerate(srv.cohorts)]
 
-    def _run_chunk(self, R: int) -> list[dict]:
+    def _run_chunk(self, R: int, participation=None) -> list[dict]:
         srv = self.server
         step0 = srv.step
-        parts, wparts, corrs, dropped, dropouts = self._host_masks(R)
+        parts, wparts, corrs, dropped, dropouts = self._host_masks(
+            R, participation)
         C = len(srv.cohorts)
 
         def per_cohort(rows, dtype):
@@ -410,16 +414,24 @@ class ScanEngine:
             recs.append(rec)
         return recs
 
-    def run(self, rounds: int) -> list[dict]:
+    def run(self, rounds: int, participation=None) -> list[dict]:
         """Advance the server ``rounds`` rounds in chunks of
-        ``chunk_rounds`` (0 = one chunk); returns the new records."""
+        ``chunk_rounds`` (0 = one chunk); returns the new records.
+        ``participation`` (optional, tests): one list of per-cohort bool
+        masks per round, overriding the sampled participation as
+        ``CohortFLServer.round(participation=...)`` does."""
         if rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {rounds}")
+        if participation is not None and len(participation) != rounds:
+            raise ValueError(f"participation pins {len(participation)} "
+                             f"rounds for a {rounds}-round run")
         chunk = self.chunk_rounds or rounds
         recs, done = [], 0
         while done < rounds:
             r = min(chunk, rounds - done)
-            recs += self._run_chunk(r)
+            recs += self._run_chunk(
+                r, None if participation is None
+                else participation[done:done + r])
             done += r
         return recs
 

@@ -674,15 +674,18 @@ def _on_device(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
-def _cohort_upload(server, cohort: Cohort, part, params: dict):
-    """One cohort's participation-masked step against ``params``, shared
-    by the sync and async runtimes; keeps the cohort's EF buffer. Returns
+def _cohort_upload(server, cohort: Cohort, part, params: dict,
+                   batches: dict | None = None):
+    """One cohort's participation-masked step against ``params`` on
+    ``batches`` (default: the cohort's data), shared by the sync and
+    async runtimes; keeps the cohort's EF buffer. Returns
     ``(update_sum, masks, loss_sum)``."""
     step = cohort_step_fn(server.model.loss_fn, cohort.plan, server.mode,
                           server.local_steps, server.local_lr,
                           server.upload_quant)
     g_sum, masks, l_sum, new_ef = step(
-        params, cohort.data, _on_device(part, torch.float32, server.device),
+        params, cohort.data if batches is None else batches,
+        _on_device(part, torch.float32, server.device),
         _cohort_ef(server, cohort, params))
     if server.upload_quant is not None and server.error_feedback:
         cohort.ef_buffer = new_ef
@@ -690,7 +693,7 @@ def _cohort_upload(server, cohort: Cohort, part, params: dict):
 
 
 def _fault_cohort_upload(server, cohort: Cohort, part, params: dict,
-                         corrupt, uid):
+                         corrupt, uid, batches: dict | None = None):
     """:func:`_cohort_upload`'s fault twin: the cohort's
     :func:`fault_cohort_step_fn` with the round's per-row corruption
     flags and per-upload uids. Returns ``(update_sum, masks, cov,
@@ -701,7 +704,8 @@ def _fault_cohort_upload(server, cohort: Cohort, part, params: dict,
                                 server.faults)
     dev = server.device
     g_sum, masks, cov, l_sum, new_ef = step(
-        params, cohort.data, _on_device(part, torch.float32, dev),
+        params, cohort.data if batches is None else batches,
+        _on_device(part, torch.float32, dev),
         _cohort_ef(server, cohort, params),
         _on_device(corrupt, torch.float32, dev),
         _on_device(uid, torch.int64, dev))
@@ -718,9 +722,12 @@ def _guard_cov_active(faults: FaultPolicy | None) -> bool:
             and faults.finite_guard)
 
 
-def _n_batch(cohort) -> int:
-    """Samples per client: axis 2 of an edge grid, axis 1 of a cohort."""
-    return cohort.data["x"].shape[2 if isinstance(cohort, EdgeCohort) else 1]
+def _n_batch(cohort, batches: dict | None = None) -> int:
+    """Samples per client of ``batches`` (default: the cohort's data):
+    axis 2 of an edge grid, axis 1 of a cohort."""
+    data = cohort.data if batches is None else batches
+    return next(iter(data.values())).shape[
+        2 if isinstance(cohort, EdgeCohort) else 1]
 
 
 def _place_edges(server, t: torch.Tensor) -> tuple:
@@ -748,19 +755,19 @@ def _edge_ef(server, cohort: EdgeCohort, params: dict) -> dict:
 
 
 def _edge_upload(server, cohort: EdgeCohort, step: Callable, params: dict,
-                 part_blocks, ef: dict):
+                 part_blocks, ef: dict, batches: dict | None = None):
     """``step`` (an :func:`edge_step_fn`) on each block of the cohort's
     grid, on the block's device against its own copy of ``params``.
     Returns the per-edge ``(update_sums, masks, loss_sums)`` stacked on
     the hub (the server's device) and the new EF grid, in blocks as the
     data is."""
     hub = server.device
+    data = cohort.data if batches is None else batches
     outs = []
     for b, part in enumerate(part_blocks):
         dev = part.device
         outs.append(step({k: v.to(dev) for k, v in params.items()},
-                         {k: edge_blocks(v)[b]
-                          for k, v in cohort.data.items()},
+                         {k: edge_blocks(v)[b] for k, v in data.items()},
                          part, {k: edge_blocks(v)[b] for k, v in ef.items()}))
     if len(outs) == 1 and server.mesh is None:
         return outs[0]
@@ -787,7 +794,8 @@ def _hub_combine(acc, loss_sum: torch.Tensor, g_sums: dict, masks: dict,
     return acc, loss_sum
 
 
-def _edge_cohort_upload(server, cohort: EdgeCohort, part_flat, params: dict):
+def _edge_cohort_upload(server, cohort: EdgeCohort, part_flat, params: dict,
+                        batches: dict | None = None):
     """One edge cohort's participation-masked upload: the flat sampled
     mask scattered into the ``(E, cap)`` grid, the edge step per block,
     the grid EF buffer kept. Returns the per-edge ``(update_sums, masks,
@@ -798,7 +806,8 @@ def _edge_cohort_upload(server, cohort: EdgeCohort, part_flat, params: dict):
     part = _place_edges(server, torch.from_numpy(scatter_part(cohort,
                                                               part_flat)))
     g_sums, masks, l_sums, new_ef = _edge_upload(
-        server, cohort, step, params, part, _edge_ef(server, cohort, params))
+        server, cohort, step, params, part, _edge_ef(server, cohort, params),
+        batches)
     if server.upload_quant is not None and server.error_feedback:
         cohort.ef_buffer = new_ef
     return g_sums, masks, l_sums
@@ -908,9 +917,24 @@ class CohortFLServer:
             off += s
         return out
 
-    def round(self, participation: list | None = None) -> dict:
-        """One federated round over all cohorts. ``participation`` (one
-        bool array per cohort) overrides the sampled participation.
+    def _place_batches(self, cohort, batches: dict) -> dict:
+        """A caller's batches where the cohort's data lives: an edge grid
+        in the mesh's blocks (or on the server's device), a cohort's
+        stack on the server's device."""
+        if isinstance(cohort, EdgeCohort) and self.mesh is not None:
+            return {k: edge_sharding(self.mesh).put(torch.as_tensor(v))
+                    for k, v in batches.items()}
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in batches.items()}
+
+    def round(self, cohort_batches: list[dict] | None = None,
+              participation: list | None = None) -> dict:
+        """One federated round over all cohorts, in the reference's
+        argument order. ``cohort_batches`` (one dict per cohort, laid out
+        as the cohort's data) overrides each cohort's stacked local data;
+        ``participation`` (one bool array per cohort) overrides the
+        sampled participation. Deadline drops and faults apply on top of
+        either.
 
         Under a :class:`FaultPolicy`, per cohort in flat client order:
         availability zeros sampled rows first (a down client burns no
@@ -942,7 +966,9 @@ class CohortFLServer:
         off = 0
         for ci, (cohort, part) in enumerate(zip(self.cohorts, sampled)):
             off0, off = off, off + cohort.size
-            times = self.cohort_times(ci, _n_batch(cohort))
+            batches = (None if cohort_batches is None
+                       else self._place_batches(cohort, cohort_batches[ci]))
+            times = self.cohort_times(ci, _n_batch(cohort, batches))
             part = part.copy()
             if flt is not None:
                 part &= avail[off0:off]
@@ -967,7 +993,7 @@ class CohortFLServer:
                 # each edge forwards its partial (update sum, masks, loss)
                 # and the hub chains them in edge order
                 g_sums, masks, l_sums = _edge_cohort_upload(
-                    self, cohort, active, self.params)
+                    self, cohort, active, self.params, batches)
                 acc, loss_sum = _hub_combine(
                     acc, loss_sum, g_sums, masks, l_sums, self.cohort_spec(ci),
                     cohort.plan.weight,
@@ -980,10 +1006,10 @@ class CohortFLServer:
                 n_corrupt += int(c_row.sum())
                 g_sum, masks, cov, l_sum = _fault_cohort_upload(
                     self, cohort, active, self.params, c_row,
-                    self.step * n_total + np.arange(off0, off))
+                    self.step * n_total + np.arange(off0, off), batches)
             else:
                 g_sum, masks, l_sum = _cohort_upload(self, cohort, active,
-                                                     self.params)
+                                                     self.params, batches)
             acc = scatter_accumulate(acc, g_sum, masks, self.cohort_spec(ci),
                                      cohort.plan.weight, n_p, cov=cov)
             loss_sum = loss_sum + l_sum

@@ -116,10 +116,10 @@ def compress_for_serving(params: dict, plan: CompressionPlan) -> dict:
     return compress_params(params, plan)[0]
 
 
-def make_serve_step(model, *, num_groups: int = 1):
+def make_serve_step(model, *, window: int = 0, num_groups: int = 1):
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos,
+        return model.decode_step(params, cache, tokens, pos, window=window,
                                  num_groups=num_groups)
     return serve_step
 

@@ -60,7 +60,7 @@ def serve(cfg, tier: str = "mid", *, batch: int = 4, prompt_len: int = 64,
             device=device,
             generator=torch.Generator(device=device).manual_seed(seed))
     prefill = make_prefill_step(model, window=window)
-    step = make_serve_step(model)
+    step = make_serve_step(model, window=window)
 
     _sync(device)
     t0 = time.perf_counter()

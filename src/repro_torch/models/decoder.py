@@ -31,14 +31,20 @@ def compute_dtype(cfg) -> torch.dtype:
 
 # ------------------------------------------------------------------- init
 
+def make_generator(key, device=None) -> torch.Generator:
+    """``key`` itself if it is a ``torch.Generator`` (the params land on
+    its device), else a generator seeded with the int ``key`` on
+    ``device`` (default ``cuda``)."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=resolve_device(device)).manual_seed(
+        int(key))
+
+
 def init(key, cfg, device=None) -> dict:
     """Random params from ``key`` (an int seed, or a ``torch.Generator``
     whose device the params land on), drawn on the device."""
-    if isinstance(key, torch.Generator):
-        gen = key
-    else:
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(
-            int(key))
+    gen = make_generator(key, device)
     params = {
         "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model),
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
@@ -68,21 +74,11 @@ def init(key, cfg, device=None) -> dict:
     return dict(sorted(params.items()))      # the reference's flatten order
 
 
-def _layers(params: dict, cfg) -> list[dict]:
+def _layers(params: dict) -> list[dict]:
     """Per-layer views ``{"ln1", "ln2", "attn": {...}, "mlp" or "moe":
     {...}}`` of the stacked leaves (``unbind``, whose backward stacks the
     per-layer gradients back into the stacked leaf)."""
-    per = [{} for _ in range(cfg.num_layers)]
-    for name, leaf in params.items():
-        if not name.startswith(LAYER):
-            continue
-        head, _, rest = name[len(LAYER):].partition(".")
-        for lp, x in zip(per, leaf.unbind(0)):
-            if rest:
-                lp.setdefault(head, {})[rest] = x
-            else:
-                lp[head] = x
-    return per
+    return [L.nest(lp) for lp in L.unstack(L.subtree(params, LAYER))]
 
 
 # ----------------------------------------------------------------- blocks
@@ -126,7 +122,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
     losses summed in layer order, 0 for dense and VLM."""
     x = _embed_inputs(params, tokens, cfg, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(params, cfg):
+    for lp in _layers(params):
         x, a = _block(lp, x, cfg, window, num_groups)
         if a is not None:
             aux = aux + a
@@ -159,7 +155,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
     b, t = x.shape[0], x.shape[1]
     pos = torch.arange(t, device=x.device)
     ks, vs = [], []
-    for lp in _layers(params, cfg):
+    for lp in _layers(params):
         h_in = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q = L.rope(L.proj(lp["attn"], "wq", h_in), pos, cfg.rope_theta)
         k = L.rope(L.proj(lp["attn"], "wk", h_in), pos, cfg.rope_theta)
@@ -190,16 +186,17 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
-                cfg, *, num_groups: int = 1):
+                cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step. tokens: (B, 1); pos: int (shared across the
     batch). Writes the cache in place and returns (logits (B, 1, V),
     cache). A sliding window needs no mask here: the ring of
-    ``cache_len`` slots keeps only the newest positions."""
+    ``cache_len`` slots keeps only the newest positions, so ``window``
+    passes to the attention, which ignores it, as in the reference."""
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     c = cache["layers"]
-    for i, lp in enumerate(_layers(params, cfg)):
+    for i, lp in enumerate(_layers(params)):
         cl = {"k": c["k"][i], "v": c["v"][i], "slot_pos": c["slot_pos"][i]}
         h, _ = L.attn_decode(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                             cl, int(pos), cfg)
+                             cl, int(pos), cfg, window=window)
         x, _ = _ffn(lp, x + h, cfg, num_groups)
     return _unembed(params, x, cfg), cache

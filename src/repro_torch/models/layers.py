@@ -180,11 +180,12 @@ def kv_cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def decode_attention(q: torch.Tensor, cache: dict) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, cache: dict, *,
+                     window: int = 0) -> torch.Tensor:
     """Single-token attention against the ring cache. q: (B, 1, H, hd).
     Empty slots (slot_pos < 0) are masked; the ring overwrites slots
-    older than W, so every written slot is in-window by construction
-    (the reference's ``window`` argument here has no effect)."""
+    older than W, so every written slot is in-window by construction:
+    ``window`` is taken and, as in the reference, has no effect."""
     n_rep = q.shape[2] // cache["k"].shape[2]
     k = repeat_kv(cache["k"], n_rep)
     v = repeat_kv(cache["v"], n_rep)
@@ -229,14 +230,18 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *,
     return proj(p, "wo", o.reshape(b, t, -1))
 
 
-def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg):
-    """Single-step decode. x: (B, 1, D); pos: int. Returns (y, cache)."""
+def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,
+                window: int = 0, use_rope: bool = True):
+    """Single-step decode. x: (B, 1, D); pos: int. Returns (y, cache).
+    ``window`` passes to :func:`decode_attention` (no effect there)."""
     b = x.shape[0]
-    ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = rope(proj(p, "wq", x), ppos, cfg.rope_theta)
-    k = rope(proj(p, "wk", x), ppos, cfg.rope_theta)
+    q, k = proj(p, "wq", x), proj(p, "wk", x)
+    if use_rope:
+        ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = rope(q, ppos, cfg.rope_theta)
+        k = rope(k, ppos, cfg.rope_theta)
     cache = kv_cache_update(cache, k, proj(p, "wv", x), pos)
-    o = decode_attention(q, cache)
+    o = decode_attention(q, cache, window=window)
     return proj(p, "wo", o.reshape(b, 1, -1)), cache
 
 
@@ -271,11 +276,135 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token NLL. logits: (B, T, V) f32; labels: (B, T)."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token NLL. logits: (B, T, V) f32; labels: (B, T); with
+    ``mask`` (B, T) the masked mean ``sum(nll * mask) / max(sum(mask),
+    1)``."""
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return torch.mean(logz - ll)
+    nll = logz - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+# ------------------------------------------------- recurrent building
+# blocks of the xLSTM and Mamba2 layers (models/xlstm.py, models/mamba2.py)
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the reference's ``astype(jnp.float32)`` lands on: f32 for
+    f32 and narrower; f64 stays f64, so a float64 run of the port's own
+    forms keeps its precision."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _conv_taps(windows: torch.Tensor, conv_w: torch.Tensor,
+               conv_b: torch.Tensor) -> torch.Tensor:
+    """silu(sum_w windows[..., c, w] * conv_w[c, w] + conv_b[c]): the taps
+    multiplied and summed in f32 (a bf16 product is exact there), rounded
+    once to the input's dtype, then the bias and silu in that dtype, as
+    the reference's conv with f32 accumulation."""
+    dt = windows.dtype
+    acc = acc_dtype(dt)
+    w = conv_w.to(dt).to(acc)
+    out = (windows.to(acc) * w).sum(-1).to(dt)
+    return torch.nn.functional.silu(out + conv_b.to(dt))
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
+                conv_b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, T, C) with weight (C, W), then
+    silu(conv + b). The reference's ``lax.conv_general_dilated`` with
+    weight ``w.T[:, None, :]`` and left padding W-1 is a
+    cross-correlation: tap w multiplies x[t + w - (W-1)], no flip."""
+    width = conv_w.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    return _conv_taps(xp.unfold(1, width, 1), conv_w, conv_b)
+
+
+def causal_conv_step(window: torch.Tensor, conv_w: torch.Tensor,
+                     conv_b: torch.Tensor) -> torch.Tensor:
+    """The decode form of :func:`causal_conv` (the reference's
+    ``einsum("bwc,cw->bc")``): window (B, W, C), the last W inputs, the
+    newest last -> (B, C)."""
+    return _conv_taps(window.transpose(1, 2), conv_w, conv_b)
+
+
+class _Softplus(torch.autograd.Function):
+    """JAX's ``softplus`` = ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), with logaddexp's custom derivative exp(x - out).
+    torch's ``softplus`` is another formula (log1p(exp(x)), the identity
+    above x = 20). The values differ from XLA's CPU ones by at most 2
+    ulps where they are normal (its exp and log1p are its own)."""
+
+    @staticmethod
+    def forward(x):
+        return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        inf0 = torch.zeros_like(x)
+        return g * torch.exp(torch.where(torch.isposinf(x), inf0, x)
+                             - torch.where(torch.isposinf(out), inf0, out))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return _Softplus.apply(x)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def linspace_f32(start: float, stop: float, n: int, device=None):
+    """``jnp.linspace(start, stop, n)`` in f32 by its formula: start *
+    (1 - s) + stop * s with s = iota / (n - 1), then stop itself (XLA's
+    CPU code rounds some entries an ulp apart)."""
+    a = torch.tensor(start, dtype=torch.float32, device=device)
+    b = torch.tensor(stop, dtype=torch.float32, device=device)
+    if n == 1:
+        return a[None]
+    step = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    return torch.cat([a * (1 - step) + b * step, b[None]])
+
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The leaves under ``prefix`` (a dotted path ending in "."), named
+    from there on."""
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def nest(flat: dict) -> dict:
+    """One level of nesting by the first name segment: ``{"ln1": a,
+    "attn.wq.w": b}`` -> ``{"ln1": a, "attn": {"wq.w": b}}``."""
+    out: dict = {}
+    for k, v in flat.items():
+        head, _, rest = k.partition(".")
+        if rest:
+            out.setdefault(head, {})[rest] = v
+        else:
+            out[head] = v
+    return out
+
+
+def unstack(leaves: dict) -> list[dict]:
+    """Per-index views of leaves stacked along a leading axis (``unbind``,
+    whose backward stacks the per-index gradients back into the stacked
+    leaf)."""
+    n = next(iter(leaves.values())).shape[0]
+    out = [{} for _ in range(n)]
+    for k, v in leaves.items():
+        for d, x in zip(out, v.unbind(0)):
+            d[k] = x
+    return out
 
 
 def stack_layers(n: int, init_fn) -> dict:

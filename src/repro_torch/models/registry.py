@@ -4,25 +4,27 @@
   init(key, device=None)                          -> params
   loss_fn(params, batch, *, num_groups)           -> scalar loss      (train)
   prefill(params, batch, *, window, num_groups)   -> (logits, cache)  (prefill)
-  decode_step(params, cache, tokens, pos, *, num_groups)
+  decode_step(params, cache, tokens, pos, *, window, num_groups)
                                                   -> (logits, cache)  (decode)
   init_cache(batch, cache_len, device=None)       -> cache dict
 
-The decoder's families (dense, MoE, VLM) are ported; the others raise
-``NotImplementedError`` naming their ROADMAP item.
+The decoder's families (dense, MoE, VLM), xLSTM (``ssm``) and the Zamba
+hybrid (``hybrid``) are ported; ``audio`` raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import functools
 from types import SimpleNamespace
 
-from repro_torch.models import decoder
+from repro_torch.models import decoder, xlstm, zamba
 
 _NOT_PORTED = {
-    "ssm": "item 13 (xLSTM family)",
-    "hybrid": "item 14 (Zamba hybrid family)",
     "audio": "item 15 (Whisper encoder-decoder)",
 }
+
+_MODULES = {"dense": decoder, "moe": decoder, "vlm": decoder,
+            "ssm": xlstm, "hybrid": zamba}
 
 
 def get_model(cfg) -> SimpleNamespace:
@@ -30,19 +32,23 @@ def get_model(cfg) -> SimpleNamespace:
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"the {fam} family is not ported yet: "
                                   f"ROADMAP queue 1 {_NOT_PORTED[fam]}")
-    if fam not in ("dense", "moe", "vlm"):
+    if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
+    mod = _MODULES[fam]
 
     def prefill(params, batch, *, window=0, num_groups=1):
-        return decoder.prefill(params, batch["tokens"], cfg,
-                               patches=batch.get("patches"), window=window,
-                               num_groups=num_groups)
+        if mod is decoder:
+            return decoder.prefill(params, batch["tokens"], cfg,
+                                   patches=batch.get("patches"),
+                                   window=window, num_groups=num_groups)
+        return mod.prefill(params, batch["tokens"], cfg, window=window,
+                           num_groups=num_groups)
 
     return SimpleNamespace(
         cfg=cfg,
-        init=functools.partial(decoder.init, cfg=cfg),
-        loss_fn=functools.partial(decoder.loss_fn, cfg=cfg),
+        init=functools.partial(mod.init, cfg=cfg),
+        loss_fn=functools.partial(mod.loss_fn, cfg=cfg),
         prefill=prefill,
-        decode_step=functools.partial(decoder.decode_step, cfg=cfg),
-        init_cache=functools.partial(decoder.init_cache, cfg),
+        decode_step=functools.partial(mod.decode_step, cfg=cfg),
+        init_cache=functools.partial(mod.init_cache, cfg),
     )

@@ -84,10 +84,15 @@ def quantize_em(x: torch.Tensor, e_bits: int, m_bits: int) -> torch.Tensor:
     return torch.where(torch.isfinite(x), q, x).to(dt)
 
 
-def quantize_int(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Symmetric per-tensor int-k fake quantization."""
+def quantize_int(x: torch.Tensor, bits: int, *, scale=None) -> torch.Tensor:
+    """Symmetric per-tensor int-k fake quantization; ``scale`` (a number
+    or a tensor) replaces the per-tensor max / qmax, floored at 1e-12
+    like it."""
     dt = x.dtype
     x = x.to(torch.float32)
     qmax = 2.0 ** (bits - 1) - 1.0
-    scale = torch.clamp_min(x.abs().max() / qmax, 1e-12)
+    if scale is None:
+        scale = x.abs().max() / qmax
+    scale = torch.clamp_min(torch.as_tensor(scale, dtype=torch.float32,
+                                            device=x.device), 1e-12)
     return (torch.clamp(torch.round(x / scale), -qmax, qmax) * scale).to(dt)
