@@ -28,8 +28,10 @@
      (xLSTM's 5-D r_gates (6, 4, 4, 512, 512) and its (6, 7, 4096, 12288)
      qkv of 2.11e9 elements; Zamba's stacked (54, 80) vectors; a leaf past
      2^30 elements launched whole and held against the plain version
-     slice by slice along its leading axis), and the paper MLP's leaf and
-     upload shapes, with specials and f32 subnormals mixed in;
+     slice by slice along its leading axis), of whisper-tiny's full config
+     (31 compressible leaves: its tied (51865, 384) embedding, the stacked
+     norms and MLP biases), and the paper MLP's leaf and upload shapes,
+     with specials and f32 subnormals mixed in;
    - flash_attention at the train shape (B 2, T = S 1024, H 24, Hkv 8,
      hd 128) in f32 (atol/rtol 2e-5) and bf16 (one bf16 quantum of the
      plain version's f32 result, plus 2e-5), and in each dtype with a
@@ -39,7 +41,11 @@
      (granite-moe-1b-a400m's 16 / 8 heads at hd 64, B 2, T = S 1024;
      llava-next-34b's 56 / 8 heads at hd 128, B 1, T = S 2048), the
      recurrent train phase's zamba2-2.7b shared block (32 / 32 heads at
-     hd 80, B 2, T = S 1024) and the smoke config's hd 32. Each
+     hd 80, B 2, T = S 1024), the audio train phase's whisper-tiny shapes
+     (6 heads of 64, B 2: the encoder's non-causal T = S = 1500, whose
+     last 64-key tile holds 28 keys; the cross-attention's 1024 queries
+     over the 1500 frames, non-causal; the decoder's causal T = S = 1024)
+     and the smoke config's hd 32. Each
      case's launch must take its route: bf16 at hd 64 and 128 the
      tensor-core kernel (wgmma), f32, hd 80 and hd 32 the CUDA-core one
      (simt);
@@ -48,8 +54,8 @@
    bytes / 3.35 TB/s and operations / 989 TFLOP/s bf16, 67 TFLOP/s f32)
    and, for attention, PyTorch's scaled_dot_product_attention as a
    yardstick (the train bf16 and f32 rows are flash_attention's two
-   routes in the kernels line; the granite, granite-moe, llava and zamba
-   rows are printed only);
+   routes in the kernels line; the granite, granite-moe, llava, zamba
+   and whisper rows are printed only);
    - masked_matmul and codebook_matmul through the public kernel API at
      llama3.2-3b's MLP widths (one layer's wi (3072, 8192) and wo (8192,
      3072), x at M = 256 and 8192), plus a ragged shape and the paper
@@ -91,7 +97,8 @@
    the per-leaf route, each timed.
    Phase "client": the per-client runtime on the paper's 8-device
    Dirichlet fleet (4000 samples, alpha 0.5), 60 rounds each of all-hub
-   FedSGD, hetero FedSGD, FedAvg and fp8 uploads with EF: losses fall,
+   FedSGD, hetero FedSGD and fp8 uploads with EF and 40 of FedAvg (five
+   local steps a round): losses fall,
    val_acc >= 0.97 on 1000 held-out samples; then 2 rounds of the
    256-client bench fleet per client against the cohort runtime, params
    within 1e-5.
@@ -183,7 +190,7 @@
    layer, 4 x 2048 (896 text + 1152 patch positions), 2 steps: losses
    finite, flash on the wgmma kernel at hd 128.
 8. Phase "recurrent serve": xlstm-1.3b whole (48 layers, 3,530,676,560
-   params) at the tiers of 4 and zamba2-2.7b whole (54 layers,
+   params) at low and embedded and zamba2-2.7b whole (54 layers,
    2,422,670,240 params) at hub and low, as in 6 (fake_quant 18 per
    quantized tier), each with a profiled window of 8 decode steps on the
    low tier; then, in f32 at full width and a 512-token prompt (two
@@ -198,6 +205,22 @@
    loss falling over the last two steps, fake_quant 54 per step, Zamba's
    flash 8 per step on the simt kernel (hd 80); one step of each
    profiled.
+10. Phase "audio serve": whisper-tiny whole (4 encoder + 4 decoder
+   layers, 36,463,488 params, 1500 frame positions) with ``use_flash``
+   through ``launch.serve`` at hub, low and embedded as in 6 (fake_quant
+   31 per quantized tier; flash 8 per call, prefill's 4 encoder and 4
+   cross-attentions, all on the wgmma kernel), a profiled window of 8
+   decode steps on the low tier; then in f32 at the full config a fresh
+   cache holding prefill's cross-KV replays the 64-token prompt to
+   prefill's last-token logits, and the launcher's own replay (zero
+   cross-KV, as the reference's launcher leaves it) differs from them.
+11. Phase "audio train": the smoke config's f32 step against the CPU path
+   as in 5; then whisper-tiny whole, bf16, flash, 4 tiers, AdamW, 8 x
+   1024 tokens over 1500 frames a sample, 5 steps: losses finite, the
+   mean loss falling over the last two steps, flash 48 per step (12
+   attention calls x 4 tiers) all on the wgmma kernel, fake_quant 93 per
+   step; one step profiled; the same run without flash gives the same
+   losses to rtol 1e-3.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -232,6 +255,7 @@ LM_ARCH = "llama3.2-3b"
 MOE_ARCH = "granite-moe-1b-a400m"
 XLSTM = "xlstm-1.3b"
 ZAMBA = "zamba2-2.7b"
+WHISPER = "whisper-tiny"
 TRAIN_LAYERS = 4                    # the train phase's depth cut (of 28)
 TRAIN_STEPS = 5
 HUGE = 1 << 30                      # fake_quant leaves checked by slices
@@ -626,13 +650,13 @@ def _route_errors(kernel: str, err: dict, rows: dict, names: dict) -> None:
 
 def _fq_shapes() -> dict:
     """shape -> label: every compressible leaf shape of llama3.2-3b,
-    granite-moe-1b-a400m, xlstm-1.3b and zamba2-2.7b at their full
-    configs, and of qwen3-moe-30b-a3b and llava-next-34b at full width and
+    granite-moe-1b-a400m, xlstm-1.3b, zamba2-2.7b and whisper-tiny at
+    their full configs, and of qwen3-moe-30b-a3b and llava-next-34b at full width and
     the depth the MoE serve phase runs them (``WIDE_LAYERS``): the 4-D
     expert leaves, llava's projector, xLSTM's (6, 7, 4096, 12288) qkv
     (2.11e9 elements) and 5-D r_gates, Zamba's stacked (54, 80) vectors
-    included (the serve phases check the tables against the real
-    params); and the paper MLP's leaf shapes and upload shapes (a
+    included, and whisper-tiny's stacked norms and MLP biases (the
+    serve phases check the tables against the real params); and the paper MLP's leaf shapes and upload shapes (a
     256-client axis in front of every leaf)."""
     import torch
     from repro_torch.configs import get_config
@@ -644,7 +668,8 @@ def _fq_shapes() -> dict:
                               (QWEN_MOE, "qwen3-moe", WIDE_LAYERS),
                               (LLAVA, "llava", WIDE_LAYERS),
                               (XLSTM, "xlstm", None),
-                              (ZAMBA, "zamba", None)):
+                              (ZAMBA, "zamba", None),
+                              (WHISPER, "whisper", None)):
         cfg = get_config(arch)
         if layers:
             cfg = cfg.replace(num_layers=layers)
@@ -698,12 +723,37 @@ def _recurrent_leaf_shapes(cfg) -> dict:
     return dict(sorted(shapes.items()))
 
 
+def _whisper_leaf_shapes(cfg) -> dict:
+    """name -> shape of every leaf of the Whisper encoder-decoder at
+    ``cfg``, in the reference's flatten order."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    norm = {"b": (d,), "w": (d,)}
+    attn = {"wk.w": (d, cfg.num_kv_heads, hd), "wo.w": (cfg.num_heads * hd, d),
+            "wq.w": (d, cfg.num_heads, hd), "wv.w": (d, cfg.num_kv_heads, hd)}
+    enc = {"attn": attn, "ln1": norm, "ln2": norm,
+           "mlp": {"wi.b": (f,), "wi.w": (d, f), "wo.b": (d,),
+                   "wo.w": (f, d)}}
+    shapes = {"embed": (cfg.vocab_size, d),
+              **{f"{n}.{k}": s for n in ("enc_norm", "dec_norm")
+                 for k, s in norm.items()}}
+    for stack, n, blocks in (
+            ("enc_layers", cfg.encoder_layers, enc),
+            ("dec_layers", cfg.num_layers, {**enc, "ln_x": norm,
+                                            "xattn": attn})):
+        shapes.update({f"{stack}.{b}.{k}": (n, *s)
+                       for b, leaves in blocks.items()
+                       for k, s in leaves.items()})
+    return dict(sorted(shapes.items()))
+
+
 def _lm_leaf_shapes(cfg) -> dict:
     """name -> shape of every leaf of the LM at ``cfg`` (the decoder's
-    dense, MoE or VLM; xLSTM; the Zamba hybrid), in the reference's
-    flatten order."""
+    dense, MoE or VLM; xLSTM; the Zamba hybrid; Whisper), in the
+    reference's flatten order."""
     if cfg.family in ("ssm", "hybrid"):
         return _recurrent_leaf_shapes(cfg)
+    if cfg.family == "audio":
+        return _whisper_leaf_shapes(cfg)
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
     e, f = cfg.num_experts, cfg.d_ff
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
@@ -748,14 +798,18 @@ def _flash_cases(device):
     heads (a GQA ratio of 7) at hd 128, batch 1 per tier over 2048;
     zamba2-2.7b's shared block in the recurrent train phase, 32 / 32 heads
     at hd 80 (not a wgmma width, so the simt kernel), batch 2 per tier
-    over 1024; and the smoke config's hd 32 in bf16, which the simt
-    kernel serves."""
+    over 1024; whisper-tiny's 6 heads of 64 at the audio train phase's
+    shapes, batch 2 per tier: the encoder's non-causal self-attention over
+    the 1500 frames (a ragged last 64-key tile of 28 keys), the
+    cross-attention of 1024 queries over the 1500 frames (non-causal) and
+    the decoder's causal self-attention over 1024; and the smoke config's
+    hd 32 in bf16, which the simt kernel serves."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     cfg = get_config(LM_ARCH)
     granite = get_config("granite-3-2b")
     granite_moe, llava = get_config(MOE_ARCH), get_config(LLAVA)
-    zamba = get_config(ZAMBA)
+    zamba, whisper = get_config(ZAMBA), get_config(WHISPER)
     smoke = get_smoke_config(LM_ARCH)
     gen = torch.Generator(device=device).manual_seed(5)
 
@@ -783,6 +837,12 @@ def _flash_cases(device):
          "wgmma"),
         ("llava_bf16", *qkv(1, 2048, 2048, bf16, llava), {}, "wgmma"),
         ("zamba_bf16", *qkv(2, 1024, 1024, bf16, zamba), {}, "simt"),
+        ("whisper_enc_bf16", *qkv(2, 1500, 1500, bf16, whisper),
+         dict(causal=False), "wgmma"),
+        ("whisper_xattn_bf16", *qkv(2, 1024, 1500, bf16, whisper),
+         dict(causal=False), "wgmma"),
+        ("whisper_dec_bf16", *qkv(2, 1024, 1024, bf16, whisper), {},
+         "wgmma"),
         ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
@@ -836,9 +896,9 @@ def phase_lm_kernels(device) -> dict:
         check(not bad, f"fake_quant {label} {shape} == quantize_em (bitwise) "
                        f"for {sorted(fmts)}{' slice by slice' * huge}; "
                        f"mismatched: {bad}, max_abs_err {err}")
-        # the recurrent families' leaves are timed only where they are new
-        # in kind: past HUGE elements, or 5-D
-        if label.startswith(("xlstm", "zamba")) and not huge \
+        # the recurrent and audio families' leaves are timed only where
+        # they are new in kind: past HUGE elements, or 5-D
+        if label.startswith(("xlstm", "zamba", "whisper")) and not huge \
                 and x.dim() < 5:
             del x
             continue
@@ -892,20 +952,23 @@ def phase_lm_kernels(device) -> dict:
         key = (want, _dtype_name(q.dtype))
         err[key] = max(err.get(key, 0.0), e)
         if label not in ("train_bf16", "train_f32", "granite_bf16",
-                         "granite_moe_bf16", "llava_bf16", "zamba_bf16"):
+                         "granite_moe_bf16", "llava_bf16", "zamba_bf16",
+                         "whisper_enc_bf16", "whisper_xattn_bf16",
+                         "whisper_dec_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
         bms = bound_ms(n_bytes, flops, rate)
         by = "bytes" if n_bytes / HBM_BYTES_PER_S >= flops / rate \
             else "operations"
-        ms = time_ms(lambda: flash_attention_forward(q, k, v))
-        pms = time_ms(lambda: flash_attention_ref(q, k, v), 7, 5)
+        ms = time_ms(lambda: flash_attention_forward(q, k, v, **kw))
+        pms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), 7, 5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=kw.get("causal", True),
+                enable_gqa=True)
         # the yardstick is SDPA at its fastest: main() turns deterministic
         # algorithms on for the bitwise checks, which may steer SDPA to a
         # slower backend, so it is timed with them off, and on for the record
@@ -915,7 +978,7 @@ def phase_lm_kernels(device) -> dict:
             lms = time_ms(sdpa)
         finally:
             torch.use_deterministic_algorithms(True)
-        dms = kernel_device_ms(lambda: flash_attention_forward(q, k, v),
+        dms = kernel_device_ms(lambda: flash_attention_forward(q, k, v, **kw),
                                "flash_attention_kernel", calls=20)
         print(f"kernel flash_attention {label} route={want} "
               f"{tuple(q.shape)} kv {tuple(k.shape)}: ms={ms:.6f} "
@@ -1594,6 +1657,8 @@ def phase_slice(device, ms_log: dict) -> dict:
 # -------------------------------------------------------------- client
 
 CLIENT_ROUNDS = 60
+# FedAvg's rounds cost ~5x a FedSGD round; 40 of them reach val_acc 0.975
+CLIENT_ROUNDS_OF = {"fedavg_hetero": 40}
 CLIENT_FLEET = ("hub", "high", "high", "mid", "mid", "low", "low", "embedded")
 
 
@@ -1626,22 +1691,23 @@ def phase_client(device) -> int:
     }
     fake_quant.launches = 0
     for name, sc in scenarios.items():
+        rounds = CLIENT_ROUNDS_OF.get(name, CLIENT_ROUNDS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = simulate(sc, CLIENT_ROUNDS, device=device)
+        res = simulate(sc, rounds, device=device)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / CLIENT_ROUNDS * 1e3
+        ms = (time.perf_counter() - t0) / rounds * 1e3
         acc = mlp.accuracy(res.params, val["x"], val["y"]).item()
         losses = res.losses
         print(f"client {name}: ms_per_round={ms:.3f} loss[1]={losses[0]:.6f} "
-              f"loss[{CLIENT_ROUNDS}]={losses[-1]:.6f} val_acc={acc:.4f} "
+              f"loss[{rounds}]={losses[-1]:.6f} val_acc={acc:.4f} "
               f"round_wall_s={res.final.round_wall_time:.6f} "
               f"upload_bytes={res.final.total_upload_bytes:.1f} "
               f"shards={[len(c.data['y']) for c in res.server.clients]}")
         check(all(l == l and abs(l) != float("inf") for l in losses),
               f"client {name}: losses finite")
         check(losses[-1] < losses[0], f"client {name}: loss falls over "
-                                      f"{CLIENT_ROUNDS} rounds")
+                                      f"{rounds} rounds")
         check(acc >= 0.97, f"client {name}: val_acc {acc:.4f} >= 0.97 on "
                            f"1000 held-out samples (the reference's "
                            f"healthy run)")
@@ -2425,19 +2491,30 @@ def phase_serve(device) -> int:
 
 def _attn_calls(cfg) -> int:
     """Attention calls in one forward: every decoder layer, each
-    application of Zamba's shared block, none in xLSTM."""
+    application of Zamba's shared block, none in xLSTM; Whisper's encoder
+    layers and its decoder layers twice (self and cross)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
 
 
-def _train_smoke_vs_cpu(arch: str, device) -> dict:
+def _train_smoke_vs_cpu(arch: str, device, held: int = 2) -> dict:
     """Two f32 SGD tier-loop steps of ``arch``'s smoke config with flash,
     on the CPU and on the card from one init: losses to rtol 1e-4, params
-    to atol 1e-5, every flash_attention launch on the simt kernel (hd
-    32). Returns the launches per route (counters zeroed just before)."""
+    after ``held`` steps to atol 1e-5, every flash_attention launch on the
+    simt kernel (hd 32). whisper-tiny holds its params after the first
+    step: its low tier prunes the stacked LayerNorm scales, which one step
+    leaves clustered just below 1.0, and the card's and the CPU's
+    bisection thresholds (their f32 ``exp`` and ``log`` an ulp apart) then
+    fall on either side of one of them, which moves the second step's
+    params by ~1e-3, as one ulp of difference in the state does on the
+    CPU alone (tests/test_torch_whisper.py::
+    test_second_sgd_step_flips_a_pruned_norm_scale_under_an_ulp). Returns
+    the launches per route (counters zeroed just before)."""
     import torch
     from repro_torch import optim
     from repro_torch.configs import ShapeConfig, get_smoke_config
@@ -2459,20 +2536,23 @@ def _train_smoke_vs_cpu(arch: str, device) -> dict:
         params = {k: v.to(dev) for k, v in init.items()}
         st = dict(params=params, opt=opt.init(params),
                   step=torch.zeros((), dtype=torch.int32, device=dev))
-        losses = []
+        losses, states = [], []
         for i in range(2):
             b = make_train_batch(cfg, ShapeConfig("t", 64, 8, "train"),
                                  n_tiers=4, seed=1, index=i)
             st, m = step(st, {k: v.to(dev) for k, v in b.items()})
             losses.append(m["loss"].item())
-        runs[str(dev)] = (losses, st["params"])
+            states.append(st["params"])
+        runs[str(dev)] = (losses, states)
     smoke_routes = dict(routes)
     (lc, pc), (lg, pg) = runs["cpu"], runs[str(device)]
-    e = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
+    errs = [max((g[k].cpu() - c[k]).abs().max().item() for k in c)
+            for c, g in zip(pc, pg)]
+    e = errs[held - 1]
     tag = "" if arch == LM_ARCH else f" {arch}"
     print(f"train smoke f32{tag}: cpu losses={lc} cuda losses={lg} "
-          f"params max_abs_err={e} flash launches per route="
-          f"{json.dumps(smoke_routes)}")
+          f"params max_abs_err after each step={errs} flash launches per "
+          f"route={json.dumps(smoke_routes)}")
     smoke_n = _attn_calls(cfg) * 4 * 2
     check(smoke_routes == {"wgmma": 0, "simt": smoke_n},
           f"train smoke f32{tag}: flash_attention launched {smoke_n} times, "
@@ -2481,7 +2561,8 @@ def _train_smoke_vs_cpu(arch: str, device) -> dict:
     check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
           f"train smoke f32{tag}: card losses == CPU losses to rtol 1e-4")
     check(e <= 1e-5, f"train smoke f32{tag}: card params == CPU params to "
-                     f"atol 1e-5 after 2 SGD steps, max_abs_err {e}")
+                     f"atol 1e-5 after {held} SGD step{'s' * (held > 1)}, "
+                     f"max_abs_err {e}")
     return smoke_routes
 
 
@@ -2597,30 +2678,38 @@ WIDE_LAYERS = 4     # qwen3-moe (of 48) and llava (of 60) serve at full width
 DECODE_STEPS = 8    # the profiled MoE decode window
 
 
-def _serve_tiers(cfg, params, tiers, label: str, device) -> int:
+def _serve_tiers(cfg, params, tiers, label: str, device,
+                 flash: int = 0) -> tuple[int, int]:
     """``launch.serve`` of ``params`` for each tier at batch 4, prompt 64,
-    32 tokens; returns fake_quant launches (counter zeroed before each
-    call): one per compressible leaf for a quantized tier, 0 for the
-    hub."""
+    32 tokens, counters zeroed before each call: fake_quant once per
+    compressible leaf for a quantized tier, 0 for the hub; flash_attention
+    ``flash`` times a call (prefill's, Whisper's), all on the wgmma
+    kernel. Returns the launches of fake_quant and of flash."""
     import torch
     from repro_torch.core.compression import DEVICE_TIERS
     from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
     batch, prompt, gen = 4, 64, 32
     n_leaves = _n_compressible(cfg)
-    total = 0
+    routes = flash_attention.route_launches
+    total = total_flash = 0
     for tier in tiers:
         quantized = DEVICE_TIERS[tier].quant_em()[0] > 0
         torch.cuda.reset_peak_memory_stats()
         fake_quant.launches = 0
+        for r in routes:
+            routes[r] = 0
         res = serve(cfg, tier, batch=batch, prompt_len=prompt, gen=gen,
                     params=params, device=device)
-        n = fake_quant.launches
+        n, took = fake_quant.launches, dict(routes)
         total += n
+        total_flash += took["wgmma"]
         print(f"serve {label} {tier}: compress_s={res['compress_s']:.6f} "
               f"prefill_s={res['prefill_s']:.6f} "
               f"decode_s={res['decode_s']:.6f} decode_tokens_per_s="
               f"{gen * batch / res['decode_s']:.3f} fake_quant_launches={n} "
+              f"flash_launches={json.dumps(took)} "
               f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
               f"sample={res['tokens'][0, :8].tolist()}")
         check(bool(torch.isfinite(res["prefill_logits"]).all()
@@ -2629,7 +2718,10 @@ def _serve_tiers(cfg, params, tiers, label: str, device) -> int:
         check(n == (n_leaves if quantized else 0),
               f"serve {label} {tier}: fake_quant launched {n} times "
               f"({n_leaves} compressible leaves if quantized, 0 for the hub)")
-    return total
+        check(took == {"wgmma": flash, "simt": 0},
+              f"serve {label} {tier}: flash_attention launched {flash} times, "
+              f"all on the wgmma kernel: {took}")
+    return total, total_flash
 
 
 def _full_params(cfg, label: str, device) -> dict:
@@ -2668,7 +2760,7 @@ def _profile_decode(cfg, params, tier: str, device) -> None:
     profile_window(f"decode {cfg.name} {tier}", window, DECODE_STEPS, "step")
 
 
-def _replay_check(label: str, replay, prefill, layers: int = 2) -> None:
+def _replay_check(label: str, replay, prefill, layers=2) -> None:
     """Decode's replay of the prompt against prefill's last-token logits,
     in f32 at a few layers: the same math summed in other orders moves
     logits of O(1) by ~1e-6; a wrong position, mask, slot, route or
@@ -2698,7 +2790,7 @@ def phase_moe_serve(device) -> int:
     params = _full_params(cfg, MOE_ARCH, device)
     serve(cfg, "mid", batch=4, prompt_len=8, gen=2, params=params,
           device=device)                      # warm-up
-    total = _serve_tiers(cfg, params, SERVE_TIERS, MOE_ARCH, device)
+    total = _serve_tiers(cfg, params, SERVE_TIERS, MOE_ARCH, device)[0]
     _profile_decode(cfg, params, "low", device)
     del params
     torch.cuda.empty_cache()
@@ -2715,7 +2807,7 @@ def phase_moe_serve(device) -> int:
                   f"{n // _num_groups(n, 1)} tokens, capacity "
                   f"{capacity(n // _num_groups(n, 1), cfg)} per expert; "
                   f"decode capacity {capacity(4, cfg)}")
-        total += _serve_tiers(cfg, params, ("hub", "low"), arch, device)
+        total += _serve_tiers(cfg, params, ("hub", "low"), arch, device)[0]
         del params
         torch.cuda.empty_cache()
 
@@ -2848,7 +2940,9 @@ def phase_moe_train(device) -> dict:
 
 # ------------------------------------------------ recurrent families
 
-RECURRENT_SERVE = {XLSTM: ("hub", "low", "embedded"), ZAMBA: ("hub", "low")}
+# xLSTM at its quantized tiers only (the warm-up call serves the hub), the
+# embedded tier's k-means over the 2.11e9-element qkv among them
+RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
 RECURRENT_TRAIN = {XLSTM: 16, ZAMBA: 12}    # two superblocks; two applications
 RECURRENT_STEPS = 3
@@ -2871,7 +2965,7 @@ def phase_recurrent_serve(device) -> int:
         params = _full_params(cfg, arch, device)
         serve(cfg, "hub", batch=4, prompt_len=8, gen=2, params=params,
               device=device)                      # warm-up
-        total += _serve_tiers(cfg, params, tiers, arch, device)
+        total += _serve_tiers(cfg, params, tiers, arch, device)[0]
         _profile_decode(cfg, params, "low", device)
         del params
         torch.cuda.empty_cache()
@@ -2914,6 +3008,107 @@ def phase_recurrent_train(device) -> dict:
         _profile_train_step(cfg, res["state"], steps, arch, device, lr)
         del res
     return got
+
+
+# ------------------------------------------------------------- audio
+
+# AdamW's peak lr for whisper-tiny's train run
+AUDIO_LR = 3e-4
+
+
+def phase_audio_serve(device) -> dict:
+    """whisper-tiny served whole with flash, and its f32 decode replay;
+    returns the launches of fake_quant and flash."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import DEVICE_TIERS
+    from repro_torch.core.steps import (compress_for_serving,
+                                        make_prefill_step, make_serve_step)
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    cfg = get_config(WHISPER).replace(use_flash=True)
+    params = _full_params(cfg, WHISPER, device)
+    print(f"serve {WHISPER}: encoder_layers={cfg.encoder_layers} "
+          f"frames={cfg.encoder_seq} use_flash=True")
+    serve(cfg, "hub", batch=4, prompt_len=8, gen=2, params=params,
+          device=device)                      # warm-up
+    # prefill's flash calls: each encoder layer's self-attention and each
+    # decoder layer's cross-attention (its self-attention is chunked)
+    fq, flash = _serve_tiers(cfg, params, SERVE_TIERS, WHISPER, device,
+                             flash=cfg.encoder_layers + cfg.num_layers)
+    _profile_decode(cfg, params, "low", device)
+    del params
+    torch.cuda.empty_cache()
+
+    # f32 at the full config: a fresh cache holding prefill's cross-KV
+    # (as the reference's tests/test_decode_consistency.py seeds it),
+    # replayed token by token, gives prefill's last-token logits
+    cfg = get_config(WHISPER).replace(dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=device)
+    cparams = compress_for_serving(params, DEVICE_TIERS["mid"])
+    batch, prompt_len = 4, 64
+    prompt = TokenStream(cfg.vocab_size, batch, prompt_len, seed=0).batch_at(
+        0)["tokens"][:, :prompt_len].to(device)
+    frames = torch.randn(
+        (batch, cfg.encoder_seq, cfg.d_model), dtype=torch.float32,
+        device=device, generator=torch.Generator(device=device).manual_seed(0))
+    logits, pcache = make_prefill_step(model)(
+        cparams, {"tokens": prompt, "frames": frames})
+    cache = model.init_cache(batch, prompt_len, device=device)
+    for k in ("enc_k", "enc_v"):
+        cache["layers"][k].copy_(pcache["layers"][k])
+    step = make_serve_step(model)
+    for i in range(prompt_len):
+        replay, cache = step(cparams, cache, prompt[:, i:i + 1], i)
+    _replay_check(f"{WHISPER} (prefill's cross-KV)", replay, logits,
+                  f"{cfg.encoder_layers}+{cfg.num_layers}")
+    # the launcher's own replay starts from init_cache's zero cross-KV, as
+    # the reference's does, so its decode does not see the audio
+    res = serve(cfg, "mid", batch=batch, prompt_len=prompt_len, gen=1,
+                params=params, device=device)
+    same = (res["prefill_logits"] - logits).abs().max().item()
+    check(same <= 1e-5, f"serve {WHISPER} f32: the launcher's prefill (its "
+                        f"frames drawn from the seed) == the prefill above, "
+                        f"max_abs_err {same}")
+    moved = (res["replay_logits"] - res["prefill_logits"]).abs().max().item()
+    check(moved > 1e-2, f"serve {WHISPER} f32: the launcher's replay with zero "
+                        f"cross-KV differs from prefill (max {moved}), as the "
+                        f"reference's launcher's does")
+    return {"fake_quant": fq, "flash_attention_wgmma": flash}
+
+
+def phase_audio_train(device) -> dict:
+    """The tier-loop train step on whisper-tiny; returns the launches of
+    its runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    smoke = _train_smoke_vs_cpu(WHISPER, device, held=1)
+    cfg = get_config(WHISPER).replace(use_flash=True)
+    print(f"train {WHISPER}: encoder_layers={cfg.encoder_layers} "
+          f"layers={cfg.num_layers} d_model={cfg.d_model} frames="
+          f"{cfg.encoder_seq} dtype={cfg.dtype} use_flash=True tiers=4 "
+          f"batch=8 seq=1024 steps={TRAIN_STEPS} lr={AUDIO_LR}")
+    res, launches = _train_run(cfg, WHISPER, TRAIN_STEPS, 8, 1024, "wgmma",
+                               device, lr=AUDIO_LR)
+    c = res["losses"]
+    check(c[-1] < c[-2], f"train {WHISPER}: the mean loss falls over the "
+                         f"last two steps: {c[-2]:.4f} -> {c[-1]:.4f}")
+    _profile_train_step(cfg, res["state"], TRAIN_STEPS, WHISPER, device,
+                        AUDIO_LR)
+    del res
+    # the same run with the plain attention in place of the kernel
+    plain = train(cfg.replace(use_flash=False), steps=TRAIN_STEPS, batch=8,
+                  seq=1024, n_tiers=4, lr=AUDIO_LR, warmup=2, seed=0,
+                  device=device, log_every=TRAIN_STEPS)
+    e = max(abs(a - b) / abs(b) for a, b in zip(c, plain["losses"]))
+    print(f"train {WHISPER} without flash: losses={plain['losses']}")
+    check(e <= 1e-3, f"train {WHISPER}: the flash run's losses == the run "
+                     f"without flash to rtol 1e-3, max rel err {e}")
+    return {"fake_quant": launches["fake_quant"],
+            "flash_attention_wgmma": launches["wgmma"],
+            "flash_attention_simt": smoke["simt"]}
 
 
 # ---------------------------------------------------------------- main
@@ -2975,7 +3170,9 @@ def main() -> int:
               ("moe serve", lambda: phase_moe_serve(device)),
               ("moe train", lambda: phase_moe_train(device)),
               ("recurrent serve", lambda: phase_recurrent_serve(device)),
-              ("recurrent train", lambda: phase_recurrent_train(device))]
+              ("recurrent train", lambda: phase_recurrent_train(device)),
+              ("audio serve", lambda: phase_audio_serve(device)),
+              ("audio train", lambda: phase_audio_train(device))]
     try:
         for name, run in phases:
             t_phase = time.perf_counter()
@@ -2998,7 +3195,9 @@ def main() -> int:
                                + out["moe serve"]
                                + out["moe train"]["fake_quant"]
                                + out["recurrent serve"]
-                               + out["recurrent train"]["fake_quant"])
+                               + out["recurrent train"]["fake_quant"]
+                               + out["audio serve"]["fake_quant"]
+                               + out["audio train"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
@@ -3007,16 +3206,20 @@ def main() -> int:
     launches["flash_attention"] = (
         out["train"]["flash_attention_simt"]
         + out["moe train"]["flash_attention_simt"]
-        + out["recurrent train"]["flash_attention_simt"])
+        + out["recurrent train"]["flash_attention_simt"]
+        + out["audio train"]["flash_attention_simt"])
     launches["flash_attention_wgmma"] = (
         out["train"]["flash_attention_wgmma"] + ckpt["flash_attention_wgmma"]
-        + out["moe train"]["flash_attention_wgmma"])
+        + out["moe train"]["flash_attention_wgmma"]
+        + out["audio serve"]["flash_attention_wgmma"]
+        + out["audio train"]["flash_attention_wgmma"])
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + faults + "
           f"checkpoint + topology + serve + train + moe serve + moe train + "
-          f"recurrent serve + recurrent train, matmul entry points): "
+          f"recurrent serve + recurrent train + audio serve + audio train, "
+          f"matmul entry points): "
           f"{json.dumps(launches)}")
     kernels = []
     for name, replaces in (

@@ -1,9 +1,5 @@
 """Architecture config registry: ``get_config("llama3.2-3b")`` etc.
-
-The decoder's three families (dense, MoE, VLM) and the two recurrent
-ones (xLSTM, the Zamba hybrid) are ported; ``whisper-tiny`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
-"""
+Every architecture of the reference is ported, in its order."""
 from __future__ import annotations
 
 import importlib
@@ -21,23 +17,15 @@ _ARCH_MODULES = {
     "llava-next-34b": "llava_next_34b",
     "qwen2.5-32b": "qwen2_5_32b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
-}
-
-# arch id -> the ROADMAP (queue 1) item that ports its family
-_NOT_PORTED = {
-    "whisper-tiny": "item 15 (Whisper encoder-decoder)",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ARCHS = list(_ARCH_MODULES)
 
 
 def _mod(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP queue 1 {_NOT_PORTED[arch]}")
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(_ARCH_MODULES) + sorted(_NOT_PORTED)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 
 

@@ -32,24 +32,31 @@ class TokenStream:
         return {"tokens": torch.from_numpy(toks.astype(np.int32))}
 
 
+def stub_input(cfg):
+    """(batch key, positions) of the stub embeddings a family takes beside
+    its tokens: audio frames, VLM patches; None for the others."""
+    return {"audio": ("frames", cfg.encoder_seq),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+
+
 def make_train_batch(cfg, shape, *, n_tiers: int = 0, seed: int = 0,
                      index: int = 0) -> dict:
     """A train batch {"tokens": (B, T+1)}, or (n_tiers, B/n_tiers, T+1)
-    when n_tiers > 0. For VLM also "patches" (..., P, D) in
-    ``cfg.dtype``, drawn first, and T - P + 1 text tokens, so that
-    patches and text fill T positions. Audio batches are not ported."""
-    if cfg.family == "audio":
-        raise NotImplementedError("audio batches are not ported yet: "
-                                  "ROADMAP queue 1 item 15")
+    when n_tiers > 0. For audio also "frames" (..., encoder_seq, D) and
+    for VLM "patches" (..., P, D), in ``cfg.dtype`` and drawn before the
+    tokens; VLM takes T - P + 1 text tokens, so that patches and text
+    fill T positions."""
     rng = np.random.default_rng((seed, index))
     b, t = shape.global_batch, shape.seq_len
     lead = (n_tiers, b // n_tiers) if n_tiers else (b,)
     batch = {}
+    stub = stub_input(cfg)
+    if stub is not None:
+        name, n = stub
+        batch[name] = torch.from_numpy(rng.standard_normal(
+            (*lead, n, cfg.d_model))).to(getattr(torch, cfg.dtype))
     if cfg.family == "vlm":
         t -= cfg.num_patches
-        batch["patches"] = torch.from_numpy(rng.standard_normal(
-            (*lead, cfg.num_patches, cfg.d_model))).to(
-                getattr(torch, cfg.dtype))
     toks = _zipf_tokens(rng, (int(np.prod(lead)), t + 1), cfg.vocab_size)
     batch["tokens"] = torch.from_numpy(
         toks.astype(np.int32).reshape(*lead, t + 1))

@@ -1,7 +1,8 @@
 """Serving entry point: run a model AS DEPLOYED on an IoT device tier —
 compress once with the tier's plan, prefill a batch of prompts (for VLM
-behind stub patch embeddings), replay the prompt's text into a fresh
-ring cache, decode greedily.
+behind stub patch embeddings; for audio after encoding stub frame
+embeddings), replay the prompt's text into a fresh ring cache, decode
+greedily.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --smoke --tier low --batch 4 --prompt-len 64 --gen 32 --device cpu
@@ -21,7 +22,7 @@ from repro_torch.core.compression import DEVICE_TIERS
 from repro_torch.core.scenario import resolve_device
 from repro_torch.core.steps import (compress_for_serving, make_prefill_step,
                                     make_serve_step)
-from repro_torch.data.synthetic import TokenStream
+from repro_torch.data.synthetic import TokenStream, stub_input
 from repro_torch.models import get_model
 
 
@@ -35,9 +36,14 @@ def serve(cfg, tier: str = "mid", *, batch: int = 4, prompt_len: int = 64,
           params: dict | None = None) -> dict:
     """Compress ``params`` (random from ``seed`` if None) for ``tier``,
     prefill ``batch`` prompts of ``prompt_len`` tokens (VLM: behind
-    ``num_patches`` f32 patch embeddings drawn from ``seed`` on the
-    device), replay the text into a cache of prompt_len + gen slots and
-    decode ``gen`` tokens greedily, as the reference does.
+    ``num_patches`` f32 patch embeddings; audio: with ``encoder_seq`` f32
+    frame embeddings; both drawn from ``seed`` on the device), replay the
+    text into a cache of prompt_len + gen slots and decode ``gen`` tokens
+    greedily, as the reference does. For audio that fresh cache's
+    cross-KV is zeros, as the reference's launcher leaves it: every
+    decode step's cross-attention then gives exactly 0 (uniform weights
+    over zero values, and ``wo`` has no bias), so the decode does not see
+    the audio.
     Returns the tokens (B, gen + 1), prefill's last-token logits, the
     logits of the replay's last step (prefill's last position; for VLM
     the last text position without the patches before it), and the wall
@@ -54,10 +60,11 @@ def serve(cfg, tier: str = "mid", *, batch: int = 4, prompt_len: int = 64,
     prompt = TokenStream(cfg.vocab_size, batch, prompt_len, seed=seed) \
         .batch_at(0)["tokens"][:, :prompt_len].to(device)
     inputs = {"tokens": prompt}
-    if cfg.family == "vlm":
-        inputs["patches"] = torch.randn(
-            (batch, cfg.num_patches, cfg.d_model), dtype=torch.float32,
-            device=device,
+    stub = stub_input(cfg)
+    if stub is not None:
+        name, n = stub
+        inputs[name] = torch.randn(
+            (batch, n, cfg.d_model), dtype=torch.float32, device=device,
             generator=torch.Generator(device=device).manual_seed(seed))
     prefill = make_prefill_step(model, window=window)
     step = make_serve_step(model, window=window)

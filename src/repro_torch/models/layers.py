@@ -1,5 +1,5 @@
-"""Layer building blocks: the MLP's dense layer, and the LM blocks of
-the dense decoder below. The dense weight layout is the reference's
+"""Layer building blocks: the MLP's dense layer, and the LM blocks
+below. The dense weight layout is the reference's
 ``w: (d_in, d_out)`` (not ``nn.Linear``'s transpose): width slicing cuts
 rows = ``d_in`` and cols = ``d_out``, and the aggregation kernels' 2-D
 prefix views rely on that layout.
@@ -48,13 +48,12 @@ def dense(w: torch.Tensor, b: torch.Tensor | None,
 
 
 # ------------------------------------------------------------- LM building
-# blocks of the dense decoder (models/decoder.py). Parameters of one block
-# are a flat name -> tensor dict ("wq.w", "wq.b", ...); a projection keeps
-# the reference's ``w: (d_in, *out_dims)`` layout and attention the
+# blocks of the decoder (models/decoder.py) and of the Whisper
+# encoder-decoder (models/whisper.py). Parameters of one block are a flat
+# name -> tensor dict ("wq.w", "wq.b", ...); a projection keeps the
+# reference's ``w: (d_in, *out_dims)`` layout and attention the
 # ``(B, T, H, hd)`` layout. Parameters are stored f32 and cast to the
-# compute dtype at use, as in the reference. The reference's options that
-# only other families use (cross-attention, no RoPE, non-causal) wait for
-# those families.
+# compute dtype at use, as in the reference.
 
 def proj(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     """The reference's ``dense`` for an LM leaf: x (..., d_in) @
@@ -214,19 +213,29 @@ def init_attn(generator: torch.Generator, cfg) -> dict:
     }
 
 
-def attn_forward(p: dict, x: torch.Tensor, cfg, *,
-                 window: int = 0) -> torch.Tensor:
-    """Full-sequence causal self-attention (train). ``cfg.use_flash``
-    routes the attention itself through the flash_attention kernel."""
+def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
+                 positions: torch.Tensor | None = None, use_rope: bool = True,
+                 kv_src: torch.Tensor | None = None,
+                 causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (train / prefill); ``kv_src`` given makes it
+    cross-attention (k, v from ``kv_src``, never causal). RoPE, when on,
+    takes q at ``positions`` (default arange(T)) and k at arange(S).
+    ``cfg.use_flash`` routes the attention itself through the
+    flash_attention kernel."""
     b, t, _ = x.shape
-    pos = torch.arange(t, device=x.device)
-    q = rope(proj(p, "wq", x), pos, cfg.rope_theta)      # (B, T, H, hd)
-    k = rope(proj(p, "wk", x), pos, cfg.rope_theta)
-    v = proj(p, "wv", x)
-    if getattr(cfg, "use_flash", False):
-        o = flash_attention(q, k, v, causal=True, window=window)
-    else:
-        o = chunked_attention(q, k, v, causal=True, window=window)
+    src = x if kv_src is None else kv_src
+    q = proj(p, "wq", x)                                # (B, T, H, hd)
+    k = proj(p, "wk", src)
+    v = proj(p, "wv", src)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(t, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, torch.arange(src.shape[1], device=x.device),
+                 cfg.rope_theta)
+    attend = (flash_attention if getattr(cfg, "use_flash", False)
+              else chunked_attention)
+    o = attend(q, k, v, causal=causal and kv_src is None, window=window)
     return proj(p, "wo", o.reshape(b, t, -1))
 
 
@@ -245,6 +254,22 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,
     return proj(p, "wo", o.reshape(b, 1, -1)), cache
 
 
+def cross_attn_decode(p: dict, x: torch.Tensor,
+                      enc_kv: tuple[torch.Tensor, torch.Tensor],
+                      cfg) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V
+    (B, S, Hkv, hd): softmax in f32, probabilities cast to v's dtype."""
+    b = x.shape[0]
+    q = proj(p, "wq", x)
+    k, v = enc_kv
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[2] // k.shape[2]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, repeat_kv(k, n_rep)) * scale
+    pr = torch.softmax(scores.to(torch.float32), dim=-1).to(v.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", pr, repeat_kv(v, n_rep))
+    return proj(p, "wo", o.reshape(b, x.shape[1], -1))
+
+
 def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
                 num_layers: int = 1) -> dict:
     return {
@@ -258,6 +283,19 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return proj(p, "wo", torch.nn.functional.silu(proj(p, "wg", x))
                 * proj(p, "wi", x))
+
+
+def init_gelu_mlp(generator: torch.Generator, d_model: int,
+                  d_ff: int) -> dict:
+    return {**_named("wi.", init_dense(generator, d_model, d_ff, bias=True)),
+            **_named("wo.", init_dense(generator, d_ff, d_model, bias=True))}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Biased ``wi``, GELU, biased ``wo``. ``jax.nn.gelu`` is the tanh
+    approximation by default, and so is this one."""
+    return proj(p, "wo", torch.nn.functional.gelu(proj(p, "wi", x),
+                                                  approximate="tanh"))
 
 
 def init_embed(generator: torch.Generator, vocab: int,

@@ -8,35 +8,31 @@
                                                   -> (logits, cache)  (decode)
   init_cache(batch, cache_len, device=None)       -> cache dict
 
-The decoder's families (dense, MoE, VLM), xLSTM (``ssm``) and the Zamba
-hybrid (``hybrid``) are ported; ``audio`` raises ``NotImplementedError``
-naming its ROADMAP item.
+The decoder's families (dense, MoE, VLM), xLSTM (``ssm``), the Zamba
+hybrid (``hybrid``) and the Whisper encoder-decoder (``audio``, whose
+prefill takes the whole batch: ``frames`` and ``tokens``).
 """
 from __future__ import annotations
 
 import functools
 from types import SimpleNamespace
 
-from repro_torch.models import decoder, xlstm, zamba
-
-_NOT_PORTED = {
-    "audio": "item 15 (Whisper encoder-decoder)",
-}
+from repro_torch.models import decoder, whisper, xlstm, zamba
 
 _MODULES = {"dense": decoder, "moe": decoder, "vlm": decoder,
-            "ssm": xlstm, "hybrid": zamba}
+            "ssm": xlstm, "hybrid": zamba, "audio": whisper}
 
 
 def get_model(cfg) -> SimpleNamespace:
     fam = cfg.family
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(f"the {fam} family is not ported yet: "
-                                  f"ROADMAP queue 1 {_NOT_PORTED[fam]}")
     if fam not in _MODULES:
         raise ValueError(f"unknown family {fam!r}")
     mod = _MODULES[fam]
 
     def prefill(params, batch, *, window=0, num_groups=1):
+        if mod is whisper:
+            return whisper.prefill(params, batch, cfg, window=window,
+                                   num_groups=num_groups)
         if mod is decoder:
             return decoder.prefill(params, batch["tokens"], cfg,
                                    patches=batch.get("patches"),

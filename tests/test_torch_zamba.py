@@ -110,8 +110,7 @@ def _mamba(tp, jp, i: int = 0):
 
 def test_config_and_registry():
     """The smoke config (``ssm_headdim`` 32) and the full config are the
-    reference's; ``get_model`` serves the family; whisper alone is still
-    refused."""
+    reference's; ``get_model`` serves the family."""
     assert vars(get_smoke_config(ARCH)) == vars(j_smoke(ARCH))
     assert vars(get_config(ARCH)) == vars(j_config(ARCH))
     assert get_smoke_config(ARCH).ssm_headdim == 32
