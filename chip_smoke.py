@@ -1,6 +1,13 @@
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase "recurrent train"   # that phase alone
+
+With ``--phase`` (repeatable) the build runs and then only the phases
+named, each printing its seconds; the kernels and result lines below are
+left out, so only the run with no arguments is the whole check. A phase
+that reads an earlier one's output (async and faults read slice's,
+checkpoint reads faults') needs that one named too.
 
 1. Builds the port's five CUDA sources from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the compiler's
@@ -135,7 +142,7 @@
    topology scenarios (sync_wait at participation 0.5, sync_drop at
    0.004 s, FedAvg with 3 local steps at lr 0.5, fp8_e4m3 uploads with
    EF at participation 0.6, width) on the bench fleet over 8 contiguous
-   edges, 10 rounds each eager, scan (chunks of 5), scan with mesh=True
+   edges, 4 rounds each eager, scan (chunks of 2), scan with mesh=True
    (the one-card mesh) and, for sync_wait, quant_ef and width, scan on a
    4-block mesh of the one card: params, optimizer state and every
    record bitwise across them all;
@@ -221,6 +228,20 @@
    attention calls x 4 tiers) all on the wgmma kernel, fake_quant 93 per
    step; one step profiled; the same run without flash gives the same
    losses to rtol 1e-3.
+12. Phase "mesh": (a) whisper-tiny whole through ``launch.train`` at
+   --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on
+   one card, the state placed by ``param_spec_tree``) and at 1, bf16,
+   flash, 4 tiers, AdamW, 8 x 1024 over 1500 frames, 3 steps each: flash
+   48 and fake_quant 93 per step, losses and final params bitwise
+   between the two; (b) the LM dry run (``launch.dryrun.dry_run_step``,
+   fake tensors on the host) of the same config and shape on that mesh,
+   flash off, against a fresh real state, batch and step on the card:
+   argument bytes exactly the real state's and batch's, flops exactly
+   ``FlopCounterMode``'s over one real step (the card's fake_quant is no
+   ATen op and does no flops), argument + temp bytes within 25% of the
+   step's ``max_memory_allocated`` (reset before it); (c) the dry-run
+   record of llama3.2-3b at decode_32k on the 16 x 16 production mesh:
+   status ok, its flops, traffic and per-device argument bytes printed.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -235,6 +256,7 @@ ms) and, last, the ``{"ok": true, ...}`` line. Any failed check exits non-zero. 
 CUDA GPU and the repository's ``src/`` beside this file; exits non-zero
 without either.
 """
+import argparse
 import json
 import math
 import os
@@ -2155,8 +2177,8 @@ def phase_checkpoint(device, faults: dict) -> dict:
 # ------------------------------------------------------------ topology
 
 TOPO_EDGES = 8
-TOPO_ROUNDS = 10                    # (a) and (b); (c) cuts 20 at 10
-TOPO_CHUNK = 5
+TOPO_ROUNDS = 4                     # (a) and (b); (c) cuts 20 at 10
+TOPO_CHUNK = 2                      # two chunks of (a) and (b)
 ACCEPT_CLIENTS = 100_000            # benchmarks/fl_bench.py:354-396
 ACCEPT_CHUNK = 10
 # the 4-block runs: one per edge-step branch (fedsgd weighted sum, fp8
@@ -2839,12 +2861,13 @@ def phase_moe_serve(device) -> int:
 
 
 def _train_run(cfg, label: str, steps: int, batch: int, seq: int,
-               route: str, device, n_tiers: int = 4, lr: float = 3e-4):
+               route: str, device, n_tiers: int = 4, lr: float = 3e-4,
+               model_parallel: int = 1):
     """``launch.train`` of ``cfg`` (AdamW(warmup_cosine(lr, 2, steps)),
-    ``n_tiers`` tiers), its counters zeroed just before: losses finite,
-    flash_attention once per attention call per tier and step, all on
-    ``route``, fake_quant once per compressible leaf per quantized tier
-    and step. Returns (the run, its launches)."""
+    ``n_tiers`` tiers, ``--model-parallel``), its counters zeroed just
+    before: losses finite, flash_attention once per attention call per
+    tier and step, all on ``route``, fake_quant once per compressible
+    leaf per quantized tier and step. Returns (the run, its launches)."""
     import torch
     from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2856,7 +2879,8 @@ def _train_run(cfg, label: str, steps: int, batch: int, seq: int,
         routes[r] = 0
     fake_quant.launches = 0
     res = train(cfg, steps=steps, batch=batch, seq=seq, n_tiers=n_tiers,
-                lr=lr, warmup=2, seed=0, device=device, log_every=1)
+                lr=lr, warmup=2, seed=0, device=device, log_every=1,
+                model_parallel=model_parallel)
     launches = {"fake_quant": fake_quant.launches, **routes}
     losses, secs = res["losses"], res["sec_per_step"]
     steady = secs[1:] if len(secs) > 1 else secs
@@ -3111,9 +3135,123 @@ def phase_audio_train(device) -> dict:
             "flash_attention_simt": smoke["simt"]}
 
 
+# ------------------------------------------------------ meshes, dry run
+
+MESH_STEPS = 3
+MESH_MEMORY_RTOL = 0.25             # dry-run bytes vs the card's peak
+
+
+def phase_mesh(device) -> dict:
+    """(a) whisper-tiny trained whole through ``launch.train`` at
+    --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on a
+    one-card host) and at 1: losses and final params bitwise; (b) the LM
+    dry run of the same config and shape on that host mesh against the
+    real state, batch and step on the card; (c) one production record.
+    Returns the launches of (a)."""
+    import shutil
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import TrainState, make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch.analysis import nbytes
+    from repro_torch.launch.dryrun import dry_run_step, run_one
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+
+    # (a) the launcher at --model-parallel 2 and 1
+    cfg = get_config(WHISPER).replace(use_flash=True)
+    runs, got = {}, {"fake_quant": 0, "flash_attention_wgmma": 0}
+    for mp in (2, 1):
+        print(f"mesh: train {WHISPER} --model-parallel {mp}: bf16 "
+              f"use_flash=True tiers=4 batch=8 seq=1024 steps={MESH_STEPS}")
+        runs[mp], launches = _train_run(cfg, f"{WHISPER} mp{mp}", MESH_STEPS,
+                                        8, 1024, "wgmma", device, lr=AUDIO_LR,
+                                        model_parallel=mp)
+        got["fake_quant"] += launches["fake_quant"]
+        got["flash_attention_wgmma"] += launches["wgmma"]
+    a, b = runs[2], runs[1]
+    same = a["losses"] == b["losses"] and a["tier_losses"] == b[
+        "tier_losses"] and all(torch.equal(v, b["state"]["params"][k])
+                               for k, v in a["state"]["params"].items())
+    check(same, f"mesh: --model-parallel 2 (a (1, 1) host mesh on one card) "
+                f"== --model-parallel 1: losses, tier losses and final "
+                f"params bitwise")
+    del runs, a, b
+    torch.cuda.empty_cache()
+
+    # (b) the dry run on the host mesh against the card, flash off in both
+    plain = cfg.replace(use_flash=False)
+    shape = ShapeConfig("cli", 1024, 8, "train")
+    mesh = make_host_mesh(2)
+    t0 = time.perf_counter()
+    rec = dry_run_step(plain, shape, mesh)
+    print(f"mesh: dry run {WHISPER} cli 8 x 1024 on host mesh "
+          f"{dict(mesh.shape)}: {time.perf_counter() - t0:.1f} s "
+          f"trace_s={rec['trace_s']} flops={rec['flops']} traffic_bytes="
+          f"{rec['traffic_bytes']} memory={json.dumps(rec['memory'])}")
+    model = get_model(plain)
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 100, 10_000))
+    state = TrainState.create(model, opt, 0, device=device)
+    batch = {k: v.to(device) for k, v in make_train_batch(
+        plain, shape, n_tiers=4, seed=0, index=0).items()}
+    step = make_hetero_train_step(model, opt, default_tier_plans(4))
+    step(state, batch)                          # warm-up
+    torch.cuda.synchronize()
+    arg_bytes = nbytes((state, batch))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        out = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    mem = rec["memory"]
+    dry = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"mesh: real step on the card: argument bytes {arg_bytes} "
+          f"(allocated before the step {before}), output bytes "
+          f"{nbytes(out)}, FlopCounterMode flops {fc.get_total_flops()}, "
+          f"max_memory_allocated {peak}; dry run argument + temp {dry} "
+          f"({dry / peak:.4f} of the peak)")
+    check(mem["argument_size_in_bytes"] == arg_bytes,
+          f"mesh: dry-run argument bytes {mem['argument_size_in_bytes']} == "
+          f"the real train state and batch on the card {arg_bytes}")
+    check(rec["flops"] == fc.get_total_flops(),
+          f"mesh: dry-run flops {rec['flops']} == FlopCounterMode over one "
+          f"real step on the card {fc.get_total_flops()} (flash off)")
+    check(abs(dry - peak) <= MESH_MEMORY_RTOL * peak,
+          f"mesh: dry-run argument + temp bytes {dry} within "
+          f"{MESH_MEMORY_RTOL:.0%} of the step's max_memory_allocated {peak}")
+    del state, batch, out
+    torch.cuda.empty_cache()
+
+    # (c) one production record
+    d = _ckpt_dir()
+    try:
+        r = run_one(LM_ARCH, "decode_32k", False, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"mesh: dry run {LM_ARCH} decode_32k 16x16: status={r['status']} "
+          f"wall_s={r['wall_s']} trace_s={r.get('trace_s')} flops="
+          f"{r.get('flops')} traffic_bytes={r.get('traffic_bytes')} "
+          f"argument_bytes_per_device="
+          f"{r.get('memory', {}).get('argument_size_in_bytes')} "
+          f"{r.get('error', '')}")
+    check(r["status"] == "ok", f"mesh: the {LM_ARCH} decode_32k record on "
+                               f"16x16 is ok")
+    return got
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", action="append", default=[],
+                    help="run only this phase (repeatable)")
+    only = ap.parse_args().phase
     # before CUDA starts: deterministic cuBLAS, so the bitwise checks test
     # the aggregation and not GEMM reduction order
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3172,7 +3310,14 @@ def main() -> int:
               ("recurrent serve", lambda: phase_recurrent_serve(device)),
               ("recurrent train", lambda: phase_recurrent_train(device)),
               ("audio serve", lambda: phase_audio_serve(device)),
-              ("audio train", lambda: phase_audio_train(device))]
+              ("audio train", lambda: phase_audio_train(device)),
+              ("mesh", lambda: phase_mesh(device))]
+    if only:
+        unknown = sorted(set(only) - {name for name, _ in phases})
+        if unknown:
+            print(f"chip_smoke.py: no phase {unknown}", file=sys.stderr)
+            return 2
+        phases = [(name, run) for name, run in phases if name in only]
     try:
         for name, run in phases:
             t_phase = time.perf_counter()
@@ -3181,6 +3326,8 @@ def main() -> int:
     except CheckFailed as e:
         print(f"CHECK FAILED: {e}", file=sys.stderr)
         return 1
+    if only:
+        return 0
     rows = {**out["kernels"], **out["lm kernels"], **out["matmul kernels"][0]}
     # each main path's launches, its counters zeroed just before it
     launches = dict(out["slice"])
@@ -3197,7 +3344,8 @@ def main() -> int:
                                + out["recurrent serve"]
                                + out["recurrent train"]["fake_quant"]
                                + out["audio serve"]["fake_quant"]
-                               + out["audio train"]["fake_quant"])
+                               + out["audio train"]["fake_quant"]
+                               + out["mesh"]["fake_quant"])
     launches.update(out["matmul kernels"][1])
     # the kernels line has one entry per route of flash_attention,
     # masked_matmul and codebook_matmul: the f32 train row on the CUDA
@@ -3212,13 +3360,15 @@ def main() -> int:
         out["train"]["flash_attention_wgmma"] + ckpt["flash_attention_wgmma"]
         + out["moe train"]["flash_attention_wgmma"]
         + out["audio serve"]["flash_attention_wgmma"]
-        + out["audio train"]["flash_attention_wgmma"])
+        + out["audio train"]["flash_attention_wgmma"]
+        + out["mesh"]["flash_attention_wgmma"])
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
     print(f"main-path launches (FL slice + client + async + faults + "
           f"checkpoint + topology + serve + train + moe serve + moe train + "
-          f"recurrent serve + recurrent train + audio serve + audio train, "
+          f"recurrent serve + recurrent train + audio serve + audio train + "
+          f"mesh, "
           f"matmul entry points): "
           f"{json.dumps(launches)}")
     kernels = []

@@ -22,27 +22,36 @@ import numpy as np
 import torch
 
 
-def _named_leaves(tree, prefix: tuple = ()) -> list[tuple[str, object]]:
+def map_named(fn, tree, prefix: tuple = (), is_leaf=None):
+    """``tree`` with each leaf replaced by ``fn(name, leaf)``, where a
+    leaf's name is the checkpoint's (its path joined with ``/``, every
+    dict key split at ``.``). Dicts, lists and tuples are containers,
+    unless ``is_leaf`` says otherwise."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn("/".join(prefix), tree)
+    if isinstance(tree, dict):
+        return {k: map_named(fn, v, prefix + tuple(str(k).split(".")),
+                             is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_named(fn, v, prefix + (str(i),), is_leaf)
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn("/".join(prefix), tree)
+
+
+def named_leaves(tree) -> list[tuple[str, object]]:
     """``(name, tensor)`` pairs in container order; empty containers have
     none."""
-    if isinstance(tree, dict):
-        out = []
-        for k, v in tree.items():
-            out += _named_leaves(v, prefix + tuple(str(k).split(".")))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _named_leaves(v, prefix + (str(i),))
-        return out
-    return [("/".join(prefix), tree)]
+    out = []
+    map_named(lambda name, leaf: out.append((name, leaf)), tree)
+    return out
 
 
 def save_pytree(tree, path: str) -> None:
     d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     arrays, meta = {}, {}
-    for i, (name, leaf) in enumerate(_named_leaves(tree)):
+    for i, (name, leaf) in enumerate(named_leaves(tree)):
         key = f"a{i}"
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -62,15 +71,7 @@ def save_pytree(tree, path: str) -> None:
         raise
 
 
-def _restore(tmpl, by_name: dict, prefix: tuple):
-    if isinstance(tmpl, dict):
-        return {k: _restore(v, by_name, prefix + tuple(str(k).split(".")))
-                for k, v in tmpl.items()}
-    if isinstance(tmpl, (list, tuple)):
-        out = [_restore(v, by_name, prefix + (str(i),))
-               for i, v in enumerate(tmpl)]
-        return out if isinstance(tmpl, list) else tuple(out)
-    name = "/".join(prefix)
+def _restore(name: str, tmpl, by_name: dict):
     if name not in by_name:
         raise KeyError(f"checkpoint missing leaf {name!r}")
     a, dtype = by_name[name]
@@ -88,7 +89,7 @@ def load_pytree(template, path: str):
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         by_name = {m["name"]: (z[key], m["dtype"]) for key, m in meta.items()}
-    return _restore(template, by_name, ())
+    return map_named(lambda name, t: _restore(name, t, by_name), template)
 
 
 class Checkpointer:

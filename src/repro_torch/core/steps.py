@@ -37,6 +37,7 @@ from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
                                           zeros_like_acc)
 from repro_torch.core.compression import (CompressionPlan, compress_params,
                                           compress_with_masks, plan_arrays)
+from repro_torch.models.sharding import place
 
 
 class TrainState:
@@ -58,16 +59,30 @@ def _grads(loss: torch.Tensor, leaves: dict) -> dict:
 
 
 def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
-                           *, num_groups: int = 1):
+                           *, num_groups: int = 1, acc_shardings=None):
+    """acc_shardings: optional NamedSharding dict (params-shaped). The
+    gradients and the mask-aware accumulators are placed by it, as the
+    reference constrains them (``models.sharding.place``: on a mesh of one
+    device, the same tensors)."""
     arrs = plan_arrays(plans)
     wsum = float(sum(p.weight for p in plans))
     # compressed weights live in the model's compute dtype
     cdt = getattr(torch, model.cfg.dtype)
 
+    def constrain(tree: dict) -> dict:
+        if acc_shardings is None:
+            return tree
+        # rank-mismatched leaves (the scalar denominators of 1-D leaves)
+        # stay as they are
+        return place(tree, {k: acc_shardings[k]
+                            if x.dim() == len(acc_shardings[k].spec) else None
+                            for k, x in tree.items()})
+
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        acc = zeros_like_acc(params)
+        num, den = zeros_like_acc(params)
+        acc = (constrain(num), constrain(den))
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=state["step"].device)
         tier_loss = []
@@ -77,13 +92,15 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
                 arrs["m_bits"][t], out_dtype=cdt)
             loss = model.loss_fn(cp, {k: v[t] for k, v in batch.items()},
                                  num_groups=num_groups)
-            grads = _grads(loss, leaves)
-            acc = accumulate_cohort(acc, grads, masks, arrs["weight"][t], 1.0)
+            grads = constrain(_grads(loss, leaves))
+            num, den = accumulate_cohort(acc, grads, masks,
+                                         arrs["weight"][t], 1.0)
+            acc = (constrain(num), den)
             loss_sum = loss_sum + f32(arrs["weight"][t]) * loss.detach()
             tier_loss.append(loss.detach())
             del cp, masks, loss, grads      # one tier's buffers at a time
         grads = finalize(acc)
-        del acc
+        del acc, num, den
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
                                                step=state["step"])
         new_state = dict(params=new_params, opt=new_opt,

@@ -35,6 +35,10 @@ format::
         dropout_rate=0.1, corrupt_rate=0.01))
     simulate(sc, 1000, checkpoint_every=100, checkpoint_dir="ckpt/")
     simulate(sc, 1000, resume_from="ckpt/")   # continues after a kill
+
+The LM launchers' meshes and shardings are here too, as in the
+reference: ``make_host_mesh``, ``batch_axes``, ``num_batch_shards``,
+``param_spec_tree`` and ``named``.
 """
 from repro_torch.checkpoint import (Checkpointer, load_pytree,
                                     save_pytree)  # noqa: F401
@@ -75,3 +79,6 @@ from repro_torch.core.schedule import (RetrySpec, Upload,
                                        schedule_census)  # noqa: F401
 from repro_torch.interop import (params_from_numpy, params_to_numpy,
                                  shards_from_numpy)  # noqa: F401
+from repro_torch.launch.mesh import (batch_axes, make_host_mesh,
+                                     num_batch_shards)  # noqa: F401
+from repro_torch.models.sharding import (named, param_spec_tree)  # noqa: F401

@@ -9,8 +9,11 @@ Runs on ``cuda`` unless ``--device`` says otherwise, and raises without
 a GPU rather than drop to the CPU. ``--ckpt-dir`` saves the train state
 every ``--ckpt-every`` steps and at the end (:class:`Checkpointer`, the
 reference's file format) and resumes from the newest checkpoint there.
-One card: ``--model-parallel > 1`` (ROADMAP queue 1 item 17,
-mesh/sharding) is not ported yet and raises.
+``--model-parallel`` builds the reference's host mesh (``launch/mesh.py``:
+every CUDA device, or the one ``--device`` names, in rows of that many
+model shards; on one card that is a (1, 1) mesh, as the reference's
+launcher makes on one device), takes the batch shards from it and places
+the state by ``param_spec_tree`` (``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -26,33 +29,42 @@ from repro_torch.core.compression import default_tier_plans
 from repro_torch.core.scenario import resolve_device
 from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
+from repro_torch.launch.mesh import make_host_mesh, num_batch_shards
 from repro_torch.models import get_model
+from repro_torch.models.sharding import (named, param_spec_tree, place,
+                                         set_rules)
 
 
 def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
           n_tiers: int = 4, lr: float = 3e-4, warmup: int = 20,
           seed: int = 0, device=None, log_every: int = 10,
-          ckpt_dir: str = "", ckpt_every: int = 50) -> dict:
+          ckpt_dir: str = "", ckpt_every: int = 50,
+          model_parallel: int = 1) -> dict:
     """``steps`` hetero train steps from a random init, or from the
     newest checkpoint in ``ckpt_dir`` (which then gets one every
     ``ckpt_every`` steps and one at the end). Batch ``i`` is a pure
     function of ``(seed, i)``, so a resumed run continues the
-    uninterrupted one. Returns the losses of the steps run here (the
-    mean over the tiers, and each tier's in plan order), wall seconds
-    (each step ends in a device sync), the first step run and the final
-    state."""
+    uninterrupted one. The mesh is the host's (``model_parallel`` model
+    shards a row) over ``device`` alone: placing a state over several
+    cards waits for ROADMAP item 20 (``models.sharding.place``), so a
+    host with more cards trains on the one it is given. Returns the
+    losses of the steps run here (the mean over the tiers, and each
+    tier's in plan order), wall seconds (each step ends in a device
+    sync), the first step run and the final state."""
     device = resolve_device(device)
     shape = ShapeConfig("cli", seq, batch, "train")
+    mesh = make_host_mesh(model_parallel, devices=[device])
+    set_rules({})
     model = get_model(cfg)
     opt = optim.adamw(optim.warmup_cosine(lr, warmup, steps))
-    # one card is one data shard: num_groups 1 (the reference's is
-    # num_batch_shards(mesh), ROADMAP queue 1 item 17)
     step_fn = make_hetero_train_step(model, opt, default_tier_plans(n_tiers),
-                                     num_groups=1)
+                                     num_groups=num_batch_shards(mesh))
     state = TrainState.create(model, opt, seed, device=device)
     n_params = sum(x.numel() for x in state["params"].values())
-    print(f"arch={cfg.name} params={n_params:,} device={device} "
-          f"tiers={n_tiers} use_flash={cfg.use_flash}")
+    print(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
+          f"device={device} tiers={n_tiers} use_flash={cfg.use_flash}")
+    state = place(state, named(mesh, param_spec_tree(state,
+                                                     mesh.shape["model"])))
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt is not None and ckpt.latest_step() is not None:
@@ -103,9 +115,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--use-flash", action="store_true",
                     help="attention through the flash_attention kernel")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 is not ported yet: "
-                                  "ROADMAP queue 1 item 17 (mesh/sharding)")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.use_flash:
@@ -113,7 +122,8 @@ def main(argv=None) -> dict:
     res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 n_tiers=args.n_tiers, lr=args.lr, warmup=args.warmup,
                 seed=args.seed, device=args.device, log_every=args.log_every,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                model_parallel=args.model_parallel)
     print("done")
     return res
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -451,3 +452,91 @@ def stack_layers(n: int, init_fn) -> dict:
     per_layer = [init_fn() for _ in range(n)]
     return {k: torch.stack([lp[k] for lp in per_layer])
             for k in per_layer[0]}
+
+
+# ------------------------------------------------------------ scans
+
+def _scan_counter():
+    """The innermost dispatch mode that counts a scan by its length
+    (``launch.analysis.StepCounter``, whose ``repeats_scans`` is set),
+    or None. Under it a scan traces two of its steps and scales the
+    second's counts by its length - 1: the reference's rule for a
+    ``lax.scan``'s length, without dispatching the loop step by step."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "repeats_scans", False):
+            return mode
+    return None
+
+
+def _call(cell, split, tensors):
+    """``cell(consts, carry, x)`` of a flat tensor list split as
+    (consts, x, carry)."""
+    nc, nx = split
+    return cell(tuple(tensors[:nc]), tuple(tensors[nc + nx:]),
+                tuple(tensors[nc:nc + nx]))
+
+
+class _RepeatedStep(torch.autograd.Function):
+    """One step of a scan counted for its ``n`` steps 1..N-1, forward and
+    backward. The backward recomputes the step uncounted, then counts
+    its gradient ``n - 1`` times as a middle step (whose carry the next
+    step uses, so it gets a gradient) and once as the last (with the
+    gradients the scan's outputs really get). The outputs have the
+    step's shapes (not its values past one step: the counter runs on
+    fake tensors)."""
+
+    @staticmethod
+    def forward(ctx, counter, n, cell, split, *tensors):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*tensors)
+        ctx.meta = (counter, n, cell, split)
+        with counter.scaled(n):
+            carry, y = _call(cell, split, tensors)
+        return (*carry, y)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter, n, cell, split = ctx.meta
+        needs = ctx.needs_input_grad[4:]
+        ins = [t.detach().requires_grad_(r)
+               for t, r in zip(ctx.saved_tensors, needs)]
+        wrt = [t for t, r in zip(ins, needs) if r]
+        with torch.enable_grad(), counter.scaled(0):
+            carry, y = _call(cell, split, ins)
+            middle = [g if g is not None or not o.requires_grad
+                      else torch.zeros_like(o) for o, g in zip(carry, grads)]
+        got = [None] * len(wrt)
+        for times, gs in ((n - 1, (*middle, grads[-1])), (1, grads)):
+            used = [(o, g) for o, g in zip((*carry, y), gs) if g is not None]
+            if used and wrt:
+                with counter.scaled(times):
+                    got = torch.autograd.grad(
+                        [o for o, _ in used], wrt, [g for _, g in used],
+                        allow_unused=True, retain_graph=True)
+        got = iter(got)
+        return (None, None, None, None,
+                *(next(got) if r else None for r in needs))
+
+
+def scan(cell, carry: tuple, xs: tuple, consts: tuple = ()):
+    """The reference's ``lax.scan`` as a loop from Python:
+    ``carry, y_s = cell(consts, carry, x_s)`` for each step s, where
+    ``x_s`` holds ``x[:, s]`` of each tensor of ``xs`` (the step axis is
+    dim 1). Returns (the final carry, the y_s stacked on dim 1). Tensors
+    whose gradient the step needs are passed in ``consts``, ``carry`` or
+    ``xs``, not closed over. Under a step counter that repeats scans
+    (:func:`_scan_counter`) step 0 runs as itself (its carry may need no
+    gradient) and step 1 stands for steps 1..N-1, its counts scaled by
+    N - 1: the whole loop's flops, forward and backward."""
+    n = xs[0].shape[1]
+    counter = _scan_counter()
+    if counter is None or n <= 2:
+        ys = []
+        for s in range(n):
+            carry, y = cell(consts, carry, tuple(x[:, s] for x in xs))
+            ys.append(y)
+        return carry, torch.stack(ys, dim=1)
+    carry, first = cell(consts, carry, tuple(x[:, 0] for x in xs))
+    out = _RepeatedStep.apply(counter, n - 1, cell, (len(consts), len(xs)),
+                              *consts, *(x[:, 1] for x in xs), *carry)
+    return tuple(out[:-1]), torch.stack([first] + [out[-1]] * (n - 1), dim=1)

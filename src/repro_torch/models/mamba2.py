@@ -69,10 +69,11 @@ def _ssd_scan(x, bmat, cmat, dt, a, cfg, init_state=None):
              if init_state is None else init_state.to(acc))
     above = ~torch.ones((q, q), dtype=torch.bool,
                         device=x.device).tril()[None, :, :, None]
-    ys = []
-    for s in range(0, t, q):
-        xq, bq, cq = (y[:, s:s + q].to(acc) for y in (x, bmat, cmat))
-        dtq, daq = dt[:, s:s + q], da[:, s:s + q]
+
+    def chunk(_, carry, xs):
+        state, = carry
+        xq, bq, cq = (y.to(acc) for y in xs[:3])
+        dtq, daq = xs[3:]
         cum = torch.cumsum(daq, dim=1)                 # (B, Q, H)
         # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) dt_j x_j
         seg = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Q, Q, H) i, j
@@ -87,8 +88,12 @@ def _ssd_scan(x, bmat, cmat, dt, a, cfg, init_state=None):
         wj = torch.exp(cum[:, -1:, :] - cum) * dtq     # (B, Q, H)
         state = torch.exp(cum[:, -1])[:, :, None, None] * state \
             + torch.einsum("bqhp,bqn->bhpn", xq * wj[..., None], bq)
-        ys.append((y_intra + y_inter).to(x.dtype))
-    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), state
+        return (state,), (y_intra + y_inter).to(x.dtype)
+
+    # the chunks are the scan's steps (the reference's lax.scan over them)
+    (state,), ys = L.scan(chunk, (state,), tuple(
+        y.reshape(b, t // q, q, *y.shape[2:]) for y in (x, bmat, cmat, dt, da)))
+    return ys.reshape(b, t, h, p), state
 
 
 def _dt(dt_raw: torch.Tensor, p: dict) -> torch.Tensor:

@@ -96,10 +96,11 @@ def _mlstm_cell_chunked(q, k, v, igate, log_f, state=None):
         cmat, nvec = state
     above = ~torch.ones((qc, qc), dtype=torch.bool,
                         device=q.device).tril()[None, :, :, None]
-    outs = []
-    for s in range(0, t, qc):
-        qq, kk, vv = (x[:, s:s + qc].to(acc) for x in (q, k, v))
-        ii, lf = igate[:, s:s + qc], log_f[:, s:s + qc]
+
+    def chunk(_, state, xs):
+        cmat, nvec = state
+        qq, kk, vv = (x.to(acc) for x in xs[:3])
+        ii, lf = xs[3:]
         cum = torch.cumsum(lf, dim=1)                          # (B, qc, H)
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B, i, j, H)
         w = torch.exp(seg.masked_fill(above, -math.inf))       # decay i >= j
@@ -119,9 +120,13 @@ def _mlstm_cell_chunked(q, k, v, igate, log_f, state=None):
             "bjhv,bjhk->bhvk", vv * wj[..., None], kk)
         nvec = dec[:, -1][:, :, None] * nvec + torch.einsum(
             "bjhk,bjh->bhk", kk, wj)
-        outs.append(hvec.to(q.dtype))
-    hout = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return hout, (cmat, nvec)
+        return (cmat, nvec), hvec.to(q.dtype)
+
+    # the chunks are the scan's steps (the reference's lax.scan over them)
+    (cmat, nvec), hs = L.scan(chunk, (cmat, nvec), tuple(
+        x.reshape(b, t // qc, qc, *x.shape[2:])
+        for x in (q, k, v, igate, log_f)))
+    return hs.reshape(b, t, h, hd), (cmat, nvec)
 
 
 def _conv_tail(x_raw: torch.Tensor, width: int) -> torch.Tensor:
@@ -254,7 +259,8 @@ def _slstm_step(p: dict, gx_t: torch.Tensor, state, cfg):
 
 def slstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
     """x: (B, T, D) -> (x + out, {sc, sn, sh}); T steps of
-    :func:`_slstm_cell` from Python, the state in f32. The recurrent
+    :func:`_slstm_cell` from Python (:func:`layers.scan`, which the dry
+    run counts by its length), the state in f32. The recurrent
     weight and the input gates are cast and laid out once for the T steps
     (a copy per step would keep T copies alive for the backward)."""
     b, t, d = x.shape
@@ -268,11 +274,12 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
         state = (z, z, z)
     rm = _r_matrix(p["r_gates"], torch.promote_types(state[2].dtype,
                                                      p["r_gates"].dtype))
-    hs = []
-    for s in range(t):
-        state = _slstm_cell(rm, gx[:, s], state)
-        hs.append(state[2])
-    hout = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
+    def step(c, st, g):
+        st = _slstm_cell(c[0], g[0], st)
+        return st, st[2]
+
+    state, hs = L.scan(step, state, (gx,), (rm,))
+    hout = hs.reshape(b, t, d).to(x.dtype)
     hout = L.rms_norm(hout, p["gnorm"], cfg.norm_eps)
     return x + L.proj(p, "down", hout), {"sc": state[0], "sn": state[1],
                                          "sh": state[2]}

@@ -1,5 +1,8 @@
-"""Port parity for the FL census CLI (``repro_torch.launch.dryrun``,
-``--fl-census`` and ``--fl-async``): for the default 256-client fleet,
+"""Port parity for the dry-run CLI (``repro_torch.launch.dryrun``). The
+LM dry run: its record's keys, and the reference's parameter and token
+counts for every arch; on a one-device host mesh its bytes and flops are
+a real step's. The FL census (``--fl-census`` and ``--fl-async``): for
+the default 256-client fleet,
 a Dirichlet fleet, an 8-edge topology, a sync-drop fleet under faults,
 an async fleet and the async schedule census, the port's CLI writes the
 reference's JSON files, the same names and exactly equal contents (the
@@ -17,7 +20,10 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
+from repro_torch.configs import ARCHS, SHAPES, ShapeConfig, get_config, \
+    get_smoke_config
 from repro_torch.core.faults import FaultPolicy
 from repro_torch.core.scenario import (AsyncBuffered, FleetSpec, FLScenario,
                                        LocalTraining, ParticipationPolicy,
@@ -127,12 +133,120 @@ def test_census_records_the_scenario_features(reference):
     assert not recs["dirichlet"]["shard_sizes_exact"]
 
 
-def test_lm_dry_run_is_not_ported(tmp_path):
-    """Without an --fl-* flag the CLI raises, naming ROADMAP item 16b; the
-    reference's LM arguments are accepted, so that this is the message a
-    caller sees, and nothing is written."""
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        dryrun.main(["--arch", "llama3.2-3b", "--shape", "train_4k",
-                     "--mesh", "single", "--skip-existing", "--out",
-                     str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+def test_lm_dry_run_is_not_ported(tmp_path, monkeypatch, capsys):
+    """Without an --fl-* flag the CLI runs the LM dry run (ROADMAP item
+    16b, once refused here): at llama3.2-3b's smoke config it writes the
+    reference's file name with the record's keys, and --skip-existing
+    skips an ok record."""
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    argv = ["--arch", "llama3.2-3b", "--shape", "decode_32k", "--mesh",
+            "single", "--skip-existing", "--out", str(tmp_path / "out")]
+    recs = dryrun.main(argv)
+    fn = tmp_path / "out" / "llama3.2-3b__decode_32k__16x16.json"
+    rec = json.loads(fn.read_text())
+    assert [r["status"] for r in recs] == ["ok"] and rec == recs[0]
+    assert set(rec) == {"arch", "shape", "mesh", "mode", "status", "trace_s",
+                        "memory", "flops", "traffic_bytes",
+                        "matmul_traffic_bytes", "collectives",
+                        "params", "tokens_per_step", "wall_s"}
+    assert set(rec["memory"]) == {"argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes", "temp_scope",
+                                  "temp_exact"}
+    assert rec["memory"]["temp_scope"] == "global"
+    assert rec["memory"]["temp_exact"]
+    assert rec["collectives"] == {"measured": False}
+    assert rec["flops"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
+    out = capsys.readouterr().out
+    assert "OK  llama3.2-3b" in out and "coll=n/a" in out
+    assert dryrun.main(argv) == []
+    assert "SKIP llama3.2-3b decode_32k 16x16" in capsys.readouterr().out
+
+
+_REFERENCE_COUNTS = """
+import json
+from repro.configs import ARCHS, SHAPES, get_config
+from repro.launch import dryrun
+print(json.dumps({a: {"params": dryrun.active_and_total(get_config(a)),
+                      "tokens": {s: dryrun.tokens_per_step(get_config(a), sh)
+                                 for s, sh in SHAPES.items()}}
+                  for a in ARCHS}))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_counts() -> dict:
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join(
+               [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_COUNTS], env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_and_tokens_match_reference(arch, reference_counts):
+    """``active_and_total`` (MoE experts scaled by top-k / E) at the full
+    config, counted on fake tensors, and ``tokens_per_step`` per shape."""
+    cfg = get_config(arch)
+    assert dryrun.active_and_total(cfg) == reference_counts[arch]["params"]
+    assert {s: dryrun.tokens_per_step(cfg, sh) for s, sh in SHAPES.items()} \
+        == reference_counts[arch]["tokens"]
+
+
+def test_dry_run_on_a_host_mesh_matches_a_real_step():
+    """whisper-tiny's smoke train step on a one-card host mesh (as the
+    card's, traced here with no GPU): the argument and output bytes are
+    those of the real state, batch and outputs on the CPU, and the flops
+    are FlopCounterMode's over the real step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import optim
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import TrainState, make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch.analysis import nbytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    cfg = get_smoke_config("whisper-tiny")
+    shape = ShapeConfig("cli", 16, 8, "train")
+    # the card's host mesh: the dry run places nothing on its device
+    mesh = make_host_mesh(2, devices=[torch.device("cuda")])
+    rec = dryrun.dry_run_step(cfg, shape, mesh)
+    model = get_model(cfg)
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 100, 10_000))
+    state = TrainState.create(model, opt, 0, device="cpu")
+    batch = make_train_batch(cfg, shape, n_tiers=4)
+    step = make_hetero_train_step(model, opt, default_tier_plans(4))
+    with FlopCounterMode(display=False) as fc:
+        out = step(state, batch)
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == nbytes((state, batch))
+    assert mem["output_size_in_bytes"] == nbytes(out)
+    assert rec["flops"] == fc.get_total_flops() > 0
+
+
+def test_a_step_is_traced_once_for_both_meshes(monkeypatch):
+    """A prefill's setup (its cache's shardings) and its record share one
+    trace, and the two production meshes share it too: one trace for the
+    two records."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_production_mesh
+    calls = []
+    trace = specs.trace_step
+
+    def counted(*a, **k):
+        calls.append(1)
+        return trace(*a, **k)
+    monkeypatch.setattr(specs, "trace_step", counted)
+    monkeypatch.setattr(specs, "_TRACES", {})
+    cfg = get_smoke_config("llama3.2-3b")
+    shape = ShapeConfig("p", 64, 32, "prefill")
+    recs = [dryrun.dry_run_step(cfg, shape, make_production_mesh(
+        multi_pod=mp)) for mp in (False, True)]
+    assert len(calls) == 1
+    assert recs[0]["flops"] == recs[1]["flops"] > 0
+    # the batch shards 16 and 32 ways
+    assert recs[0]["memory"]["argument_size_in_bytes"] > \
+        recs[1]["memory"]["argument_size_in_bytes"]

@@ -219,6 +219,33 @@ def test_entry_points_never_drop_to_cpu(monkeypatch):
         train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model(get_smoke_config("llama3.2-3b")).init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_mod.main(["--arch", "llama3.2-3b", "--smoke",
-                        "--device", "cpu", "--model-parallel", "2"])
+    # --model-parallel 2 on the CPU: a (1, 1) host mesh of the CPU alone,
+    # which needs no GPU (it raised NotImplementedError before the meshes
+    # were ported)
+    res = train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
+                          "--batch", "4", "--seq", "8", "--device", "cpu",
+                          "--model-parallel", "2"])
+    assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2])
+def test_launcher_mesh_is_its_device_alone_on_a_multi_card_host(
+        monkeypatch, model_parallel):
+    """On a host that reports four cards the launcher's mesh is still
+    (1, 1) over the device it trains on: a mesh over every card would
+    make ``place`` refuse the state (several distinct devices)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    meshes = []
+    make = train_mod.make_host_mesh
+
+    def spy(*a, **k):
+        meshes.append(make(*a, **k))
+        return meshes[-1]
+    monkeypatch.setattr(train_mod, "make_host_mesh", spy)
+    res = train_mod.train(get_smoke_config("llama3.2-3b"), steps=1, batch=4,
+                          seq=8, device="cpu", model_parallel=model_parallel)
+    assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+    (mesh,) = meshes
+    assert dict(mesh.shape) == {"data": 1, "model": 1}
+    assert mesh.distinct_devices() == [torch.device("cpu")]
