@@ -102,13 +102,27 @@ checkpoint reads faults') needs that one named too.
    agree with the port's CPU path. Then one real round's aggregation
    step of each fleet: the grouped call bitwise the sequential chain and
    the per-leaf route, each timed.
-   Phase "client": the per-client runtime on the paper's 8-device
-   Dirichlet fleet (4000 samples, alpha 0.5), 60 rounds each of all-hub
-   FedSGD, hetero FedSGD and fp8 uploads with EF and 40 of FedAvg (five
-   local steps a round): losses fall,
-   val_acc >= 0.97 on 1000 held-out samples; then 2 rounds of the
-   256-client bench fleet per client against the cohort runtime, params
-   within 1e-5.
+   Phase "examples": the five scripts of ``repro_torch.examples`` through
+   their ``main`` (or the functions behind it), each one's launches
+   counted (counters zeroed just before it): quickstart (30 rounds of the
+   six-tier FedAvg fleet, engine scan: losses finite and falling);
+   hetero_fl_sim at its 60 rounds (the paper's 8-device fleet per client:
+   all-hub FedSGD, hetero FedSGD, FedAvg with five local steps, fp8
+   uploads with EF; the cohort runs, masked against width-sliced, async;
+   every line's losses finite and falling and val_acc >= 0.97 on 1000
+   held-out samples, but ``async buffer=2 + jitter`` >= 0.955, the
+   reference's own value on the port's draw less 0.01; the census lines
+   equal the CPU's; eager == scan to 1e-5; a profiled per-client window;
+   then 2 rounds of the 256-client bench fleet per client against the
+   cohort runtime, params within 1e-5); paper_mlp_repro (max val_acc >=
+   0.95 at n >= 1000, float64 and float32 within 0.01); serve_quantized
+   (then the run from the CPU's params and prompt on the card and the
+   CPU: compressed params bitwise, payload bits exactly, tokens equal up
+   to the CPU's first top-2 logit gap below 1e-4); train_100m at full
+   width (80,753,152 params, 8 x 512 over 4 tiers, 200 of the
+   reference's 300 steps; losses finite, the last below the first,
+   s/step, tokens/s and peak memory; a checkpoint at steps 100 and 200,
+   the last restoring bitwise to the live state).
    Phase "async": the 256-client bench fleet and its width twin under
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
    (bitwise equal), then the full-buffer, no-discount limit against the
@@ -142,8 +156,9 @@ checkpoint reads faults') needs that one named too.
    topology scenarios (sync_wait at participation 0.5, sync_drop at
    0.004 s, FedAvg with 3 local steps at lr 0.5, fp8_e4m3 uploads with
    EF at participation 0.6, width) on the bench fleet over 8 contiguous
-   edges, 4 rounds each eager, scan (chunks of 2), scan with mesh=True
-   (the one-card mesh) and, for sync_wait, quant_ef and width, scan on a
+   edges, 3 rounds each eager, scan (a chunk of 2, then one of 1), scan
+   with mesh=True (the one-card mesh) and, for sync_wait, quant_ef and
+   width, scan on a
    4-block mesh of the one card: params, optimizer state and every
    record bitwise across them all;
    losses finite; fake_quant launched on every run and the aggregation
@@ -180,10 +195,12 @@ checkpoint reads faults') needs that one named too.
    steps, its flash_attention launches all on the simt kernel.
 6. Phase "moe serve": granite-moe-1b-a400m whole (24 layers, 32 experts
    top-8, 1,334,628,352 params) through ``launch.serve`` for the tiers
-   of 4, fake_quant once per compressible leaf (10, the router
+   of 4 (the hub over 2 tokens, the others 32), fake_quant once per
+   compressible leaf (10, the router
    excluded) per quantized tier, and a profiled window of 8 decode
    steps on the low tier; then qwen3-moe-30b-a3b and llava-next-34b at
-   full width cut to 4 layers (of 48 and 60), tiers hub and low (llava's
+   full width cut to 4 layers (of 48 and 60), tiers hub (2 tokens) and
+   low (llava's
    prefill covers 1152 patches + 64 tokens). In f32 at 2 layers of full
    width the decode replay must agree with prefill: granite-moe at
    capacity factor E / k = 4.0, which drops nothing (at 1.25 decode's
@@ -207,7 +224,7 @@ checkpoint reads faults') needs that one named too.
    unwritten slots, as the reference's).
 9. Phase "recurrent train": both smoke configs' f32 step against the CPU
    path as in 5; then bf16, flash, 4 tiers, AdamW, 8 x 1024, 3 steps, at
-   full width: xLSTM at 16 of 48 layers (two superblocks), Zamba at 12 of
+   full width: xLSTM at 8 of 48 layers (one superblock), Zamba at 12 of
    54 (two applications) at peak lr 3e-5: losses finite and the mean
    loss falling over the last two steps, fake_quant 54 per step, Zamba's
    flash 8 per step on the simt kernel (hd 80); one step of each
@@ -1612,12 +1629,53 @@ def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
     profile_window(label, lambda: eng.run(rounds), rounds, "round")
 
 
+def _shared_bisection_check(device) -> None:
+    """``magnitude_masks`` (small CUDA leaves share one bisection) bitwise
+    ``magnitude_mask`` leaf by leaf: the paper MLP's compressible leaves
+    alone and as cohorts of 8, 64 and 256 clients (each client its own
+    scaling), and LM-sized small leaves (whisper-tiny's stacked norms and
+    MLP biases, an (8, 8192) block), at the tiers' densities and 0.1;
+    then the host time of the MLP's masks both ways."""
+    import torch
+    from repro_torch.configs.paper_mlp import config
+    from repro_torch.core.compression import magnitude_mask, magnitude_masks
+    from repro_torch.models import mlp
+    gen = torch.Generator(device=device).manual_seed(3)
+    leaves = {k: v for k, v in mlp.init(torch.Generator().manual_seed(0),
+                                        config(), device).items()
+              if v.dim() == 2}
+    cases = [(leaves, 0)]
+    for c in (8, 64, 256):
+        scale = torch.rand((c, 1, 1), generator=gen, device=device) + 0.5
+        cases.append(({k: v * scale for k, v in leaves.items()}, 1))
+    cases.append(({s: torch.randn(s, generator=gen, device=device)
+                   for s in ((4, 384), (4, 1536), (8, 8192), (12, 512))}, 0))
+    n, differ = 0, []
+    for ws, batch in cases:
+        for density in (0.5, 0.25, 0.1):
+            got = magnitude_masks(ws, density, batch)
+            for k, w in ws.items():
+                n += 1
+                if not torch.equal(got[k], magnitude_mask(w, density, batch)):
+                    differ.append((k, tuple(w.shape), density))
+    check(not differ, f"shared bisection: {n - len(differ)} of {n} leaf "
+                      f"masks == their own bisection's (bitwise); differ: "
+                      f"{differ}")
+    per_leaf = time_ms(lambda: [magnitude_mask(w, 0.25) for w in
+                                leaves.values()], reps=5, inner=10)
+    shared = time_ms(lambda: magnitude_masks(leaves, 0.25), reps=5, inner=10)
+    print(f"shared bisection: the MLP's "
+          f"{len(leaves)} leaves per_leaf_ms={per_leaf:.3f} "
+          f"shared_ms={shared:.3f}")
+
+
 def phase_slice(device, ms_log: dict) -> dict:
     """The 256-client FL slice; fills ``ms_log`` with each clean run's
     ms per round, keyed ``(label, engine)``. Returns launches."""
     import torch
     from repro_torch.fl import (FleetSpec, FLScenario, LocalTraining,
                                 ParticipationPolicy, UploadPolicy, simulate)
+    _shared_bisection_check(device)
     fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
     masked = FLScenario(fleet=fleet)
     width = FLScenario(fleet=fleet, local=LocalTraining(submodel="width"))
@@ -1676,84 +1734,261 @@ def phase_slice(device, ms_log: dict) -> dict:
     return launches
 
 
-# -------------------------------------------------------------- client
+# ------------------------------------------------------------ examples
 
-CLIENT_ROUNDS = 60
-# FedAvg's rounds cost ~5x a FedSGD round; 40 of them reach val_acc 0.975
-CLIENT_ROUNDS_OF = {"fedavg_hetero": 40}
-CLIENT_FLEET = ("hub", "high", "high", "mid", "mid", "low", "low", "embedded")
+# each line of the hetero_fl_sim example is held to the reference's
+# healthy run, val_acc >= 0.97, but one: on the port's own draw (data,
+# init and validation set from its generators) the reference's run of
+# ``async buffer=2 + jitter`` also ends at 0.965, so its bar is that
+# value less 0.01 (tests/test_torch_examples.py::
+# test_async_jitter_line_on_the_ports_draw_is_the_references)
+EXAMPLE_VAL_ACC = 0.97
+EXAMPLE_VAL_ACC_OF = {"async buffer=2 + jitter": 0.965 - 0.01}
+# the reference's default is 300. 200, the largest multiple of the
+# checkpoint cadence that keeps the whole script clear of its 1200 s on
+# the slower hosts seen: at 300 one took 1134 s of command, 1086 s of
+# phases (PERF.md §7)
+TRAIN_100M_STEPS = 200
+SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
-def phase_client(device) -> int:
-    """The per-client runtime (``runtime="client"``): the paper's
-    experiment as ``examples/hetero_fl_sim.py`` runs it, then the
-    256-client bench fleet per client against the cohort runtime.
-    Returns fake_quant launches (counter zeroed at the start)."""
-    import torch
-    from repro_torch.data import make_gaussian_dataset
-    from repro_torch.fl import (FleetSpec, FLScenario, LocalTraining,
-                                UploadPolicy, simulate)
+def _counters() -> dict:
     from repro_torch.kernels.fake_quant import fake_quant
-    from repro_torch.models import mlp
-    noniid = FleetSpec(tiers=CLIENT_FLEET, n_samples=4000,
-                       partition="dirichlet", alpha=0.5)
-    val = {k: v.to(device) for k, v in make_gaussian_dataset(
-        torch.Generator().manual_seed(9), 1000).items()}
-    scenarios = {
-        "fedsgd_all_hub": FLScenario(fleet=FleetSpec(
-            tiers=("hub",) * len(CLIENT_FLEET), n_samples=4000,
-            partition="dirichlet"), runtime="client"),
-        "fedsgd_hetero": FLScenario(fleet=noniid, runtime="client"),
-        "fedavg_hetero": FLScenario(
-            fleet=noniid, runtime="client",
-            local=LocalTraining(mode="fedavg", local_steps=5, local_lr=1.0)),
-        "fedsgd_fp8_ef": FLScenario(
-            fleet=noniid, runtime="client",
-            upload=UploadPolicy(quant="fp8_e4m3", error_feedback=True)),
-    }
-    fake_quant.launches = 0
-    for name, sc in scenarios.items():
-        rounds = CLIENT_ROUNDS_OF.get(name, CLIENT_ROUNDS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = simulate(sc, rounds, device=device)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / rounds * 1e3
-        acc = mlp.accuracy(res.params, val["x"], val["y"]).item()
-        losses = res.losses
-        print(f"client {name}: ms_per_round={ms:.3f} loss[1]={losses[0]:.6f} "
-              f"loss[{rounds}]={losses[-1]:.6f} val_acc={acc:.4f} "
-              f"round_wall_s={res.final.round_wall_time:.6f} "
-              f"upload_bytes={res.final.total_upload_bytes:.1f} "
-              f"shards={[len(c.data['y']) for c in res.server.clients]}")
-        check(all(l == l and abs(l) != float("inf") for l in losses),
-              f"client {name}: losses finite")
-        check(losses[-1] < losses[0], f"client {name}: loss falls over "
-                                      f"{rounds} rounds")
-        check(acc >= 0.97, f"client {name}: val_acc {acc:.4f} >= 0.97 on "
-                           f"1000 held-out samples (the reference's "
-                           f"healthy run)")
-    srv = simulate(scenarios["fedsgd_hetero"], 1, device=device).server
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fleet_aggregate import fleet_aggregate
+    from repro_torch.kernels.grad_aggregate import grad_aggregate
+    from repro_torch.kernels.structured_scatter import structured_scatter
+    return {"fake_quant": fake_quant, "fleet_aggregate": fleet_aggregate,
+            "grad_aggregate": grad_aggregate,
+            "structured_scatter": structured_scatter,
+            "flash_attention": flash_attention}
+
+
+def _example(name: str, fn, launches: dict):
+    """``fn()`` with every launch counter zeroed just before and read
+    just after (added into ``launches``), timed between device syncs."""
+    import torch
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"examples {name}: wall_s={s:.3f} launches={json.dumps(got)}")
+    return out
+
+
+def _finite_falling(label: str, losses) -> None:
+    check(all(l == l and abs(l) != float("inf") for l in losses),
+          f"{label}: losses finite")
+    check(losses[-1] < losses[0], f"{label}: loss falls over "
+                                  f"{len(losses)} rounds")
+
+
+def _hetero_fl_sim(device, launches: dict) -> None:
+    """hetero_fl_sim's ``main`` at its 60 rounds (timed and counted
+    alone): every line's losses finite and falling, val_acc at its bar;
+    the census lines as the CPU computes them; the scan block's eager ==
+    scan to 1e-5 (bitwise printed only when it holds). Then, apart: a
+    profiled window of the per-client runtime, and the 256-client bench
+    fleet per client against the cohort runtime (counted as
+    ``bench256``)."""
+    import torch
+    from repro_torch.examples import hetero_fl_sim as H
+    from repro_torch.fl import FleetSpec, FLScenario, scenario_census, simulate
+    out = _example("hetero_fl_sim", lambda: H.main(["--device", str(device)]),
+                   launches)
+    for label, v in out.items():
+        if label in ("census", "scan"):
+            continue
+        res = v["result"]
+        bar = EXAMPLE_VAL_ACC_OF.get(label, EXAMPLE_VAL_ACC)
+        print(f"examples hetero_fl_sim {label!r}: ms_per_round="
+              f"{v['seconds'] / H.ROUNDS * 1e3:.3f} loss[1]="
+              f"{res.losses[0]:.6f} loss[{H.ROUNDS}]={res.losses[-1]:.6f} "
+              f"val_acc={v['val_acc']:.4f} (bar {bar:.3f})"
+              + (f" shards={[len(c.data['y']) for c in res.server.clients]}"
+                 if res.scenario.runtime == "client" else ""))
+        _finite_falling(f"hetero_fl_sim {label!r}", res.losses)
+        check(v["val_acc"] >= bar, f"hetero_fl_sim {label!r}: val_acc "
+                                   f"{v['val_acc']:.4f} >= {bar:.3f} on 1000 "
+                                   f"held-out samples")
+    card = {k: v.to(device) for k, v in out[H.CLIENT[0][0]]["result"]
+            .params.items()}
+    for (name, sc), line in zip((("masked", H.MASKED),
+                                 ("width-sliced", H.WIDTH)), out["census"]):
+        cpu = H.census_line(name, scenario_census(sc))
+        check(line == cpu == H.census_line(name, scenario_census(sc, card)),
+              f"hetero_fl_sim census {name}: the printed line == the CPU's "
+              f"== over the card's params")
+    s = out["scan"]
+    check(s["max_abs_diff"] <= 1e-5,
+          f"hetero_fl_sim: scan params == eager to 1e-5, max_abs_err "
+          f"{s['max_abs_diff']}")
+    srv = out["fedsgd hetero-compressed"]["result"].server
     profile_window("client fedsgd_hetero", lambda: [srv.round()
                                                     for _ in range(5)],
                    5, "round")
 
     fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
     runs = {}
-    for runtime in ("client", "cohort"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        runs[runtime] = simulate(FLScenario(fleet=fleet, runtime=runtime), 2,
-                                 device=device)
-        torch.cuda.synchronize()
-        print(f"client bench256 runtime={runtime}: ms_per_round="
-              f"{(time.perf_counter() - t0) / 2 * 1e3:.3f} "
-              f"losses={runs[runtime].losses}")
+
+    def bench256():
+        for runtime in ("client", "cohort"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[runtime] = simulate(FLScenario(fleet=fleet, runtime=runtime),
+                                     2, device=device)
+            torch.cuda.synchronize()
+            print(f"client bench256 runtime={runtime}: ms_per_round="
+                  f"{(time.perf_counter() - t0) / 2 * 1e3:.3f} "
+                  f"losses={runs[runtime].losses}")
+    _example("bench256", bench256, launches)
     a, b = runs["client"].params, runs["cohort"].params
     d = max((a[k] - b[k]).abs().max().item() for k in a)
     check(d <= 1e-5, f"bench256: per-client params == cohort params to 1e-5 "
                      f"after 2 rounds, max_abs_err {d}")
-    return fake_quant.launches
+
+
+def _serve_quantized(device, launches: dict) -> None:
+    """serve_quantized's ``main`` on the card (counted); then the same
+    run from the CPU's params and prompt on the card and on the CPU:
+    the compressed params bitwise, payload bits exactly, tokens equal up
+    to the first step where the CPU's top-2 logit gap is below
+    SERVE_TIE."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import serve_quantized as S
+    from repro_torch.models import get_model
+    _example("serve_quantized", lambda: S.main(["--device", str(device)]),
+             launches)
+    model = get_model(get_smoke_config(S.ARCH))
+    params = model.init(0, device="cpu")
+    prompt = S.make_prompt(model.cfg.vocab_size, "cpu")
+    cpu = S.serve_tiers(model, params, prompt, "cpu")
+    card = S.serve_tiers(model, {k: v.to(device) for k, v in params.items()},
+                         prompt.to(device), device)
+    rows = []
+    for tier in ("hub", *S.TIERS):
+        a, b = cpu[tier], card[tier]
+        diff = _same_params(a["params"], {k: v.cpu() for k, v in
+                                          b["params"].items()})
+        gaps = a["gaps"].numpy()
+        close = [i for i, g in enumerate(gaps) if g < SERVE_TIE]
+        n = close[0] + 1 if close else len(gaps)
+        got, want = b["tokens"].cpu().tolist(), a["tokens"].tolist()
+        print(f"examples serve_quantized {tier}: bits={b['bits']} "
+              f"params max_abs_err={diff} tokens_equal_first={n} "
+              f"(min top-2 gap {gaps.min():.3g}) card={got[:12]} "
+              f"cpu={want[:12]}")
+        rows.append((tier, diff, a["bits"] == b["bits"], got[:n] == want[:n],
+                     n, len(want)))
+    for tier, diff, bits, toks, n, gen in rows:
+        check(diff == 0.0, f"serve_quantized {tier}: compressed params on "
+                           f"the card == the CPU's (bitwise)")
+        check(bits, f"serve_quantized {tier}: payload bits == the CPU's")
+        check(toks, f"serve_quantized {tier}: tokens == the CPU's up to its "
+                    f"first top-2 gap below {SERVE_TIE} ({n} of {gen})")
+
+
+def _train_100m(device, launches: dict) -> None:
+    """train_100m at full width, TRAIN_100M_STEPS steps of 8 x 512 over 4
+    tiers, a checkpoint every CKPT_EVERY into a scratch directory: losses
+    finite, the last below the first; s/step, tokens/s and peak memory;
+    a checkpoint at every CKPT_EVERY steps, and the last one restores
+    bitwise to the live state at that step (the final one)."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.examples import train_100m as T
+    d = _ckpt_dir()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res = _example("train_100m", lambda: T.train(
+            T.config_100m(), steps=TRAIN_100M_STEPS, batch=8, seq=512,
+            n_tiers=4, ckpt_dir=d, device=device), launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        written = sorted(os.listdir(d))
+        back, step = Checkpointer(d).restore(res["state"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            _tensors(back), _tensors(res["state"])))
+        del back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    secs = res["sec_per_step"][1:]
+    s = statistics.median(secs)
+    losses = res["losses"]
+    print(f"examples train_100m: params={res['params']:,} "
+          f"steps={TRAIN_100M_STEPS} sec_per_step(median of 2..)={s:.6f} "
+          f"mean={statistics.mean(secs):.6f} first={res['sec_per_step'][0]:.3f} "
+          f"tokens_per_s={8 * 512 / s:.1f} peak_GB={peak:.3f} "
+          f"loss[1]={losses[0]:.6f} loss[{len(losses)}]={losses[-1]:.6f} "
+          f"checkpoints={written}")
+    check(all(l == l and abs(l) != float("inf") for l in losses),
+          "train_100m: losses finite")
+    check(losses[-1] < losses[0], "train_100m: the last step's loss < the "
+                                  "first's")
+    every = range(T.CKPT_EVERY, TRAIN_100M_STEPS + 1, T.CKPT_EVERY)
+    check(written == [f"ckpt_{i:08d}.npz" for i in every],
+          f"train_100m: a checkpoint every {T.CKPT_EVERY} steps")
+    check(step == TRAIN_100M_STEPS and same,
+          f"train_100m: the step-{step} checkpoint restores bitwise to the "
+          f"live state at that step")
+    # one more step, profiled: where a step's time goes
+    from repro_torch import optim
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import get_model
+    cfg = T.config_100m()
+    step = make_hetero_train_step(
+        get_model(cfg), optim.adamw(optim.warmup_cosine(3e-4, 30,
+                                                        TRAIN_100M_STEPS)),
+        default_tier_plans(4))
+    b = {"tokens": TokenStream(cfg.vocab_size, 8, 512).batch_at(
+        TRAIN_100M_STEPS)["tokens"].reshape(4, 2, -1).to(device)}
+    profile_window("train_100m step", lambda: step(res["state"], b), 1,
+                   "step")
+
+
+def phase_examples(device) -> dict:
+    """The five example scripts of ``repro_torch.examples`` on the card
+    through their ``main`` or the functions behind it, at the reference's
+    settings (train_100m at its full width). Each one's launches are
+    counted (counters zeroed just before it); returns their sums."""
+    from repro_torch.examples import paper_mlp_repro, quickstart
+    launches: dict = {}
+    res = _example("quickstart",
+                   lambda: quickstart.main(["--device", str(device)]),
+                   launches)
+    _finite_falling("quickstart", res.losses)
+
+    _hetero_fl_sim(device, launches)
+
+    out = _example("paper_mlp_repro",
+                   lambda: paper_mlp_repro.main(["--device", str(device)]),
+                   launches)
+    for n, (accs, _, _) in out["sizes"].items():
+        if n >= 1000:
+            check(max(accs) >= 0.95, f"paper_mlp_repro n={n}: max_val_acc "
+                                     f"{max(accs):.4f} >= 0.95")
+    m64, m32 = (max(out["dtypes"][k][0]) for k in ("float64", "float32"))
+    check(abs(m64 - m32) <= 0.01, f"paper_mlp_repro: float64 and float32 "
+                                  f"max_val_acc within 0.01 ({m64:.4f}, "
+                                  f"{m32:.4f})")
+
+    _serve_quantized(device, launches)
+    _train_100m(device, launches)
+    print(f"examples: launches={json.dumps(launches)}")
+    check(launches["fake_quant"] > 0, "examples: fake_quant launched")
+    return launches
 
 
 # --------------------------------------------------------------- async
@@ -2177,8 +2412,8 @@ def phase_checkpoint(device, faults: dict) -> dict:
 # ------------------------------------------------------------ topology
 
 TOPO_EDGES = 8
-TOPO_ROUNDS = 4                     # (a) and (b); (c) cuts 20 at 10
-TOPO_CHUNK = 2                      # two chunks of (a) and (b)
+TOPO_ROUNDS = 3                     # (a) and (b); (c) cuts 20 at 10
+TOPO_CHUNK = 2                      # a chunk of 2, then one resumed from it
 ACCEPT_CLIENTS = 100_000            # benchmarks/fl_bench.py:354-396
 ACCEPT_CHUNK = 10
 # the 4-block runs: one per edge-step branch (fedsgd weighted sum, fp8
@@ -2698,12 +2933,13 @@ QWEN_MOE = "qwen3-moe-30b-a3b"
 LLAVA = "llava-next-34b"
 WIDE_LAYERS = 4     # qwen3-moe (of 48) and llava (of 60) serve at full width
 DECODE_STEPS = 8    # the profiled MoE decode window
+HUB_GEN = 2         # tokens of the MoE and VLM hub tiers' checked serve
 
 
-def _serve_tiers(cfg, params, tiers, label: str, device,
-                 flash: int = 0) -> tuple[int, int]:
+def _serve_tiers(cfg, params, tiers, label: str, device, flash: int = 0,
+                 gen: int = 32) -> tuple[int, int]:
     """``launch.serve`` of ``params`` for each tier at batch 4, prompt 64,
-    32 tokens, counters zeroed before each call: fake_quant once per
+    ``gen`` tokens, counters zeroed before each call: fake_quant once per
     compressible leaf for a quantized tier, 0 for the hub; flash_attention
     ``flash`` times a call (prefill's, Whisper's), all on the wgmma
     kernel. Returns the launches of fake_quant and of flash."""
@@ -2712,7 +2948,7 @@ def _serve_tiers(cfg, params, tiers, label: str, device,
     from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
-    batch, prompt, gen = 4, 64, 32
+    batch, prompt = 4, 64
     n_leaves = _n_compressible(cfg)
     routes = flash_attention.route_launches
     total = total_flash = 0
@@ -2807,12 +3043,13 @@ def phase_moe_serve(device) -> int:
     from repro_torch.models import get_model
     from repro_torch.models.moe import _num_groups, capacity
 
-    # granite-moe-1b-a400m whole, every tier
+    # granite-moe-1b-a400m whole, every tier (the hub, which the dense
+    # serve phase times, checked over HUB_GEN tokens; it warms up too)
     cfg = get_config(MOE_ARCH)
     params = _full_params(cfg, MOE_ARCH, device)
-    serve(cfg, "mid", batch=4, prompt_len=8, gen=2, params=params,
-          device=device)                      # warm-up
-    total = _serve_tiers(cfg, params, SERVE_TIERS, MOE_ARCH, device)[0]
+    _serve_tiers(cfg, params, ("hub",), MOE_ARCH, device, gen=HUB_GEN)
+    total = _serve_tiers(cfg, params, ("low", "embedded"), MOE_ARCH,
+                         device)[0]
     _profile_decode(cfg, params, "low", device)
     del params
     torch.cuda.empty_cache()
@@ -2829,7 +3066,8 @@ def phase_moe_serve(device) -> int:
                   f"{n // _num_groups(n, 1)} tokens, capacity "
                   f"{capacity(n // _num_groups(n, 1), cfg)} per expert; "
                   f"decode capacity {capacity(4, cfg)}")
-        total += _serve_tiers(cfg, params, ("hub", "low"), arch, device)[0]
+        _serve_tiers(cfg, params, ("hub",), arch, device, gen=HUB_GEN)
+        total += _serve_tiers(cfg, params, ("low",), arch, device)[0]
         del params
         torch.cuda.empty_cache()
 
@@ -2968,7 +3206,7 @@ def phase_moe_train(device) -> dict:
 # embedded tier's k-means over the 2.11e9-element qkv among them
 RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
-RECURRENT_TRAIN = {XLSTM: 16, ZAMBA: 12}    # two superblocks; two applications
+RECURRENT_TRAIN = {XLSTM: 8, ZAMBA: 12}     # one superblock; two applications
 RECURRENT_STEPS = 3
 # AdamW's peak lr: at 3e-4, the other train phases' lr, Zamba's mean loss
 # on an H100 jumps at step 3 under AdamW's first updates and then swings
@@ -3298,7 +3536,7 @@ def main() -> int:
               ("lm kernels", lambda: phase_lm_kernels(device)),
               ("matmul kernels", lambda: phase_matmul_kernels(device)),
               ("slice", lambda: phase_slice(device, clean_ms)),
-              ("client", lambda: phase_client(device)),
+              ("examples", lambda: phase_examples(device)),
               ("async", lambda: phase_async(device, clean_ms)),
               ("faults", lambda: phase_faults(device, clean_ms)),
               ("checkpoint", lambda: phase_checkpoint(device, out["faults"])),
@@ -3332,10 +3570,14 @@ def main() -> int:
     # each main path's launches, its counters zeroed just before it
     launches = dict(out["slice"])
     flt, ckpt = out["faults"]["launches"], out["checkpoint"]
+    # the examples aggregate sequentially (engines eager and scan), so
+    # their fleet_aggregate count is whatever launched, 0 as they stand
     launches["grad_aggregate"] += (flt["grad_aggregate"]
-                                   + ckpt["grad_aggregate"])
+                                   + ckpt["grad_aggregate"]
+                                   + out["examples"]["fleet_aggregate"])
     launches["structured_scatter"] += flt["structured_scatter"]
-    launches["fake_quant"] += (out["client"] + out["async"] + out["serve"]
+    launches["fake_quant"] += (out["examples"]["fake_quant"] + out["async"]
+                               + out["serve"]
                                + out["train"]["fake_quant"]
                                + flt["fake_quant"] + ckpt["fake_quant"]
                                + out["topology"]["fake_quant"]
@@ -3365,7 +3607,7 @@ def main() -> int:
     launches["masked_matmul"] = launches.pop("masked_matmul_simt")
     launches["codebook_matmul"] = launches.pop("codebook_matmul_simt")
     del launches["codebook_matmul_calls"]
-    print(f"main-path launches (FL slice + client + async + faults + "
+    print(f"main-path launches (FL slice + examples + async + faults + "
           f"checkpoint + topology + serve + train + moe serve + moe train + "
           f"recurrent serve + recurrent train + audio serve + audio train + "
           f"mesh, "

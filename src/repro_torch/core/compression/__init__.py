@@ -1,7 +1,8 @@
 from repro_torch.core.compression.plan import (CompressionPlan, DEVICE_TIERS,
                                                default_tier_plans,
                                                plan_arrays)  # noqa: F401
-from repro_torch.core.compression.pruning import magnitude_mask  # noqa: F401
+from repro_torch.core.compression.pruning import (magnitude_mask,
+                                                  magnitude_masks)  # noqa: F401
 from repro_torch.core.compression.quantization import fake_quant_ste  # noqa: F401
 from repro_torch.core.compression.clustering import (cluster_ste,
                                                      kmeans_codebook)  # noqa: F401

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.compression.clustering import cluster_ste
 from repro_torch.core.compression.plan import CompressionPlan
-from repro_torch.core.compression.pruning import magnitude_mask
+from repro_torch.core.compression.pruning import magnitude_masks
 from repro_torch.core.compression.quantization import fake_quant_ste
 from repro_torch.core.compression.structured import (compressible,
                                                      expand_masks, slice_tree,
@@ -41,12 +41,14 @@ def compress_with_masks(params: dict, density: float, e_bits: int,
     anyway; the cast's backward returns f32 gradients. The plan is
     static, so (0, 0) bits launch nothing."""
     cparams, masks = {}, {}
+    pruned = magnitude_masks({name: w.detach() for name, w in params.items()
+                              if compressible(name, w)}, density)
     for name, w in params.items():
         if not compressible(name, w):
             cparams[name] = w
             masks[name] = torch.ones((), dtype=torch.float32, device=w.device)
             continue
-        m = magnitude_mask(w.detach(), density)
+        m = pruned[name]
         cw = fake_quant_ste(w * m, e_bits, m_bits) * m
         if out_dtype is not None:
             cw = cw.to(out_dtype)
@@ -68,12 +70,15 @@ def compress_params(params: dict, plan: CompressionPlan, batch: int = 0):
 
     e, m = plan.quant_em()
     cparams, masks = {}, {}
+    pruned = magnitude_masks({name: w.detach() for name, w in params.items()
+                              if compressible(name, w, batch)},
+                             plan.density, batch)
     for name, w in params.items():
         if not compressible(name, w, batch):
             cparams[name] = w
             masks[name] = torch.ones((), dtype=torch.float32, device=w.device)
             continue
-        mask = magnitude_mask(w.detach(), plan.density, batch)
+        mask = pruned[name]
         cw = w * mask
         if plan.cluster_k:
             cw = cluster_ste(cw, plan.cluster_k, 8, batch) * mask

@@ -6,6 +6,14 @@ used.
 
 Leading ``batch`` axes hold independent tensors (one per client of a
 cohort): each gets its own threshold over its trailing axes.
+
+:func:`magnitude_masks` prunes a whole model's leaves at one density.
+Its small f32 leaves share one bisection over their rows padded side by
+side, so each of its operations is one launch for all of them where the
+per-leaf loop makes one a leaf: the FL runtimes' rounds on the card are
+bound by the host's launches, most of them this loop's. Every element
+sees the operations of :func:`magnitude_mask`, so the masks are its
+bits, on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 ITERS = 16
 EPS = 1e-12            # dynamic range of the log search (12 decades)
 TINY = 2.0 ** -126     # the least normal f32
+SMALL = 1 << 16        # elements a row of a leaf that shares the bisection
 
 
 def _flush(x: torch.Tensor) -> torch.Tensor:
@@ -54,3 +63,54 @@ def magnitude_mask(w: torch.Tensor, density: float,
         return torch.ones_like(w)
     aw = w.abs()
     return (aw >= _threshold(aw, density, batch)).to(w.dtype)
+
+
+def _shared_thresholds(aws: list, density: float, batch: int) -> list:
+    """``_threshold`` of each of ``aws`` (same dtype, same leading
+    ``batch`` axes) from one bisection over their rows, padded with -1
+    (below every threshold) into (*batch, leaves, widest row). Maxima and
+    counts of 0/1 are exact in any order, ``exp`` and ``log`` act
+    elementwise, and each count is divided by its leaf's size as the
+    per-leaf loop divides it, so each threshold has the per-leaf bits."""
+    lead = aws[0].shape[:batch]
+    rows = [aw.reshape(*lead, -1) for aw in aws]
+    width = max(r.shape[-1] for r in rows)
+    flat = torch.stack([torch.nn.functional.pad(r, (0, width - r.shape[-1]),
+                                                value=-1.0)
+                        for r in rows], dim=batch)
+    sizes = [float(r.shape[-1]) for r in rows]
+    amax = torch.amax(flat, dim=-1, keepdim=True) + 1e-30
+    lo = torch.log(_flush(amax * EPS))
+    hi = torch.log(amax)
+    for _ in range(ITERS):
+        mid = 0.5 * (lo + hi)
+        count = torch.sum((flat >= _flush(torch.exp(mid))).to(torch.float32),
+                          dim=-1, keepdim=True)
+        kept = torch.cat([c / n for c, n in zip(
+            count.split(1, dim=batch), sizes)], dim=batch)
+        up = kept > density
+        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
+    thr = _flush(torch.exp(lo))
+    return [t.reshape(*lead, *([1] * (aw.dim() - batch)))
+            for t, aw in zip(thr.split(1, dim=batch), aws)]
+
+
+@torch.no_grad()
+def magnitude_masks(ws: dict, density: float, batch: int = 0) -> dict:
+    """``magnitude_mask`` of each leaf of ``ws`` (name -> tensor, the same
+    leading ``batch`` axes) at one density, bitwise. f32 leaves of at
+    most SMALL elements a row share one bisection; the others take their
+    own."""
+    if density >= 1.0:
+        return {k: torch.ones_like(w) for k, w in ws.items()}
+    shared = [k for k, w in ws.items()
+              if w.dtype == torch.float32
+              and w[(0,) * batch].numel() <= SMALL]
+    out = {}
+    if len(shared) > 1:
+        aws = [ws[k].abs() for k in shared]
+        for k, aw, t in zip(shared, aws,
+                            _shared_thresholds(aws, density, batch)):
+            out[k] = (aw >= t).to(ws[k].dtype)
+    return {k: out[k] if k in out else magnitude_mask(w, density, batch)
+            for k, w in ws.items()}

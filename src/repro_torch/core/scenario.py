@@ -137,6 +137,13 @@ class FleetSpec:
         n, c = self.n_samples, self.n_clients
         return [n // c + (1 if i < n % c else 0) for i in range(c)]
 
+    def counts(self) -> dict[tuple[str, str], int]:
+        """(tier, profile) -> client count, in first-appearance order."""
+        out: dict[tuple[str, str], int] = {}
+        for t, p in zip(self.tiers, self.client_profiles):
+            out[(t, p)] = out.get((t, p), 0) + 1
+        return out
+
     def build_clients(self, shards: list[dict] | None = None) -> list:
         """Materialize the fleet: partition the dataset (or take the
         given ``shards``, host tensors or numpy arrays) and attach plan +
@@ -450,6 +457,12 @@ class RunResult:
         if isinstance(self.scenario.timing, AsyncBuffered):
             return float(self.final.t)
         return sum(r.round_wall_time for r in self.records)
+
+    def summary(self) -> dict:
+        return {"rounds": len(self.records), "loss": self.final.loss,
+                "sim_time_s": self.sim_time,
+                "total_upload_bytes": sum(r.total_upload_bytes
+                                          for r in self.records)}
 
 
 # ------------------------------------------------------------- factory

@@ -31,6 +31,12 @@ class TokenStream:
                             self.alpha)
         return {"tokens": torch.from_numpy(toks.astype(np.int32))}
 
+    def __iter__(self):
+        i = 0
+        while True:
+            yield self.batch_at(i)
+            i += 1
+
 
 def stub_input(cfg):
     """(batch key, positions) of the stub embeddings a family takes beside

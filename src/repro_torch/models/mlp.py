@@ -64,9 +64,11 @@ def apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def loss_fn(params: dict, batch: dict) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, *,
+            num_groups: int = 1) -> torch.Tensor:
     """Mean cross-entropy over the sample axis; one value per leading
-    (client) index of the batch."""
+    (client) index of the batch. ``num_groups`` is taken and ignored, as
+    in the reference (the LM losses' data-shard count)."""
     logits = apply(params, batch["x"])
     labels = nn.functional.one_hot(batch["y"], logits.shape[-1]).to(
         logits.dtype)

@@ -74,6 +74,31 @@ def test_batched_mask_equals_per_tensor_mask():
         assert torch.equal(batched[i], T.magnitude_mask(w[i], 0.25))
 
 
+@pytest.mark.parametrize("batch", [0, 1])
+@pytest.mark.parametrize("density", [0.5, 0.25, 0.1])
+def test_shared_bisection_equals_per_leaf_thresholds(batch, density):
+    """The bisection that a model's small leaves share
+    (``pruning._shared_thresholds``: rows padded side by side): each
+    leaf's threshold bitwise its own bisection's, for the paper MLP's
+    ragged leaves (50, 100 and 20 weights) alone and as two clients, a
+    leaf of ties and an all-zero leaf among them, and
+    ``magnitude_masks`` bitwise ``magnitude_mask`` leaf by leaf."""
+    from repro_torch.core.compression.pruning import (_shared_thresholds,
+                                                      _threshold)
+    _, tp = _params(1)
+    ws = [v for k, v in tp.items() if v.dim() == 2]
+    ws += [torch.full((3, 4), 0.5), torch.zeros(2, 5)]
+    if batch:
+        ws = [torch.stack([w, -2.0 * w]) for w in ws]
+    aws = [w.abs() for w in ws]
+    for aw, t in zip(aws, _shared_thresholds(aws, density, batch)):
+        want = _threshold(aw, density, batch)
+        assert t.shape == want.shape and torch.equal(t, want)
+    got = T.magnitude_masks(dict(enumerate(ws)), density, batch)
+    for i, w in enumerate(ws):
+        assert torch.equal(got[i], T.magnitude_mask(w, density, batch))
+
+
 @pytest.mark.parametrize("tier", PLANS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_compress_params_matches_reference(tier, seed):

@@ -20,13 +20,12 @@ import repro_torch.core as TC
 import repro_torch.fl as T
 from repro_torch.configs import paper_mlp as t_cfg
 from repro_torch.data import paper_splits
+from repro_torch.examples.paper_mlp_repro import EPOCHS
+from repro_torch.examples.paper_mlp_repro import train as paper_train
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.launch import train as train_mod
-from repro_torch.models import mlp as tmlp
 
 torch.set_num_threads(1)
-
-EPOCHS = 80
 
 
 def test_paper_splits_shapes_dtypes_and_balance():
@@ -72,28 +71,13 @@ def test_public_names_match_reference():
         assert callable(getattr(TC, name)), name
 
 
-def _gd_curve(params: dict, train: dict, val: dict, lr: float = 1.0):
-    """``examples/paper_mlp_repro.py``'s loop in the port: one step, then
-    EPOCHS steps each followed by the validation accuracy."""
-    def step(p):
-        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
-        g = torch.autograd.grad(tmlp.loss_fn(leaves, train),
-                                list(leaves.values()))
-        return {k: v.detach() - lr * gk for (k, v), gk in zip(p.items(), g)}
-    params = step(params)
-    accs = []
-    for _ in range(EPOCHS):
-        params = step(params)
-        accs.append(tmlp.accuracy(params, val["x"], val["y"]).item())
-    return accs
-
-
 def test_paper_gd_curve_matches_reference():
     """§6, n_train 1000, f32, lr 1.0: the reference's splits and init
-    carried across, the port's val-accuracy curve within 1e-3 of the
+    carried across, the val-accuracy curve of the port's
+    ``examples.paper_mlp_repro.train`` within 1e-3 of the
     reference's at every epoch; the same run in float64 in the port
     alone reaches the paper's level."""
-    j_train, j_val, _ = j_paper_splits(jax.random.PRNGKey(0), 1000)
+    j_train, j_val, j_test = j_paper_splits(jax.random.PRNGKey(0), 1000)
     j_p0 = jmlp.init(jax.random.PRNGKey(1), j_cfg.config())
 
     @jax.jit
@@ -110,12 +94,11 @@ def test_paper_gd_curve_matches_reference():
         return {"x": torch.tensor(np.asarray(d["x"]), dtype=dtype),
                 "y": torch.tensor(np.asarray(d["y"]), dtype=torch.int64)}
     p0 = params_from_numpy(jax.tree.map(np.asarray, j_p0))
-    got = _gd_curve(p0, tensors(j_train, torch.float32),
-                    tensors(j_val, torch.float32))
+    data = tuple(tensors(d, torch.float32) for d in (j_train, j_val, j_test))
+    got = paper_train(1000, data=data, params=p0, device="cpu")[0]
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
-    f64 = _gd_curve({k: v.double() for k, v in p0.items()},
-                    tensors(j_train, torch.float64),
-                    tensors(j_val, torch.float64))
+    f64 = paper_train(1000, dtype=torch.float64, data=data, params=p0,
+                      device="cpu")[0]
     assert max(f64) >= 0.95 and max(ref) >= 0.95
 
 

@@ -4,8 +4,11 @@ reference: ``window`` through ``make_serve_step``, ``decode_step``,
 ``ScanEngine.run(participation=)``; ``CohortFLServer.round`` taking
 ``cohort_batches`` first and ``participation`` second, as the
 reference does, by position; ``quantize_int(scale=)``; and
-``cross_entropy(mask=)``. The reference's params, shards and inputs
-cross over through ``repro_torch.interop`` and numpy seeds."""
+``cross_entropy(mask=)``. Then the public names the reference's example
+scripts call: ``FleetSpec.counts()``, ``RunResult.summary()``,
+``TokenStream`` as an iterable and ``mlp.loss_fn(num_groups=)``. The
+reference's params, shards and inputs cross over through
+``repro_torch.interop`` and numpy seeds."""
 import functools
 import types
 
@@ -22,8 +25,10 @@ from repro.core.compression import DEVICE_TIERS as J_TIERS
 from repro.core.engine import ScanEngine as JEngine
 from repro.core.federated import Client as JClient
 from repro.core.federated import CohortFLServer as JServer
+from repro.core import scenario as JS
 from repro.core.steps import make_serve_step as j_serve_step
 from repro.data import make_gaussian_dataset, partition_iid
+from repro.data.synthetic import TokenStream as JStream
 from repro.models import decoder as JD
 from repro.models import get_model as j_get_model
 from repro.models import layers as JL
@@ -34,8 +39,10 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.compression import DEVICE_TIERS as T_TIERS
 from repro_torch.core.engine import ScanEngine as TEngine
 from repro_torch.core.federated import Client as TClient
+from repro_torch.core import scenario as TS
 from repro_torch.core.federated import CohortFLServer as TServer
 from repro_torch.core.steps import make_serve_step
+from repro_torch.data.synthetic import TokenStream
 from repro_torch.interop import (params_from_numpy, params_to_numpy,
                                  shards_from_numpy)
 from repro_torch.launch import serve as serve_mod
@@ -235,3 +242,73 @@ def test_params_to_numpy_round_trip_is_lossless():
     tp = tmlp.init(torch.Generator().manual_seed(0), config())
     back = params_from_numpy(params_to_numpy(tp))
     assert all(torch.equal(back[k], tp[k]) for k in tp)
+
+
+# ------------------------------------------- what the examples call
+
+QUICKSTART_TIERS = ("hub", "high", "mid", "mid", "low", "embedded")
+
+
+@pytest.mark.parametrize("profiles", [None, ("low", "mid", "low", "mid",
+                                             "high", "low")])
+def test_fleet_counts_match_reference(profiles):
+    """``FleetSpec.counts()``: (tier, profile) -> clients, in
+    first-appearance order, for the quickstart fleet and the same fleet
+    with its own profiles."""
+    kw = dict(tiers=QUICKSTART_TIERS, profiles=profiles, n_samples=1800)
+    got = TS.FleetSpec(**kw).counts()
+    want = JS.FleetSpec(**kw).counts()
+    assert list(got.items()) == list(want.items())
+    assert sum(got.values()) == len(QUICKSTART_TIERS)
+
+
+def test_run_result_summary_matches_reference():
+    """``RunResult.summary()`` after 3 rounds of the six-client fleet,
+    the reference's params and shards carried across: the same keys in
+    the same order; rounds, simulated seconds and upload bytes exactly
+    (host float64), the final loss at rtol 1e-5 (the FL losses' bar)."""
+    sc = JS.FLScenario(fleet=JS.FleetSpec(tiers=TIERS, n_samples=192))
+    params = jmlp.init(KEY, config())
+    shards = [jax.tree.map(np.asarray, c.data)
+              for c in sc.fleet.build_clients()]
+    want = JS.simulate(sc, 3, params=params, shards=shards).summary()
+    got = TS.simulate(TS.FLScenario.from_dict(sc.to_dict()), 3,
+                      device="cpu", shards=shards_from_numpy(shards),
+                      params=params_from_numpy(jax.tree.map(np.asarray,
+                                                            params))
+                      ).summary()
+    assert list(got) == list(want)
+    assert {k: got[k] for k in ("rounds", "sim_time_s",
+                                "total_upload_bytes")} == \
+        {k: want[k] for k in ("rounds", "sim_time_s", "total_upload_bytes")}
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+
+
+def test_token_stream_iterates_batch_at():
+    """Iterating a ``TokenStream`` yields ``batch_at(0), batch_at(1),
+    ...``, bitwise the reference's stream."""
+    stream = TokenStream(32768, 4, 16, seed=3)
+    got = [b["tokens"] for _, b in zip(range(3), stream)]
+    want = [np.asarray(b["tokens"])
+            for _, b in zip(range(3), JStream(32768, 4, 16, seed=3))]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, stream.batch_at(i)["tokens"])
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), w)
+
+
+def test_mlp_loss_takes_num_groups_like_reference():
+    """``mlp.loss_fn(..., num_groups=)`` is taken and ignored, as in the
+    reference: the same loss at 1 and 4 groups, equal to the
+    reference's to rtol 1e-6."""
+    jp = jmlp.init(KEY, config())
+    data = make_gaussian_dataset(jax.random.PRNGKey(2), 64)
+    batch = {"x": torch.tensor(np.asarray(data["x"])),
+             "y": torch.tensor(np.asarray(data["y"]).astype(np.int64))}
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    one = tmlp.loss_fn(tp, batch, num_groups=1)
+    assert torch.equal(one, tmlp.loss_fn(tp, batch, num_groups=4))
+    assert torch.equal(one, tmlp.loss_fn(tp, batch))
+    for g in (1, 4):
+        np.testing.assert_allclose(
+            one.item(), float(jmlp.loss_fn(jp, data, num_groups=g)),
+            rtol=1e-6)
