@@ -48,7 +48,9 @@ checkpoint reads faults') needs that one named too.
      (granite-moe-1b-a400m's 16 / 8 heads at hd 64, B 2, T = S 1024;
      llava-next-34b's 56 / 8 heads at hd 128, B 1, T = S 2048), the
      recurrent train phase's zamba2-2.7b shared block (32 / 32 heads at
-     hd 80, B 2, T = S 1024), the audio train phase's whisper-tiny shapes
+     hd 80, B 2, T = S 1024), the local heads of llama3.2-3b on each of
+     phase mesh's two model ranks (12 / 4 at hd 128, B 2, T = S 1024),
+     the audio train phase's whisper-tiny shapes
      (6 heads of 64, B 2: the encoder's non-causal T = S = 1500, whose
      last 64-key tile holds 28 keys; the cross-attention's 1024 queries
      over the 1500 frames, non-causal; the decoder's causal T = S = 1024)
@@ -119,9 +121,9 @@ checkpoint reads faults') needs that one named too.
    (then the run from the CPU's params and prompt on the card and the
    CPU: compressed params bitwise, payload bits exactly, tokens equal up
    to the CPU's first top-2 logit gap below 1e-4); train_100m at full
-   width (80,753,152 params, 8 x 512 over 4 tiers, 200 of the
+   width (80,753,152 params, 8 x 512 over 4 tiers, 100 of the
    reference's 300 steps; losses finite, the last below the first,
-   s/step, tokens/s and peak memory; a checkpoint at steps 100 and 200,
+   s/step, tokens/s and peak memory; a checkpoint at steps 50 and 100,
    the last restoring bitwise to the live state).
    Phase "async": the 256-client bench fleet and its width twin under
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
@@ -258,7 +260,26 @@ checkpoint reads faults') needs that one named too.
    ATen op and does no flops), argument + temp bytes within 25% of the
    step's ``max_memory_allocated`` (reset before it); (c) the dry-run
    record of llama3.2-3b at decode_32k on the 16 x 16 production mesh:
-   status ok, its flops, traffic and per-device argument bytes printed.
+   status ok, its flops, traffic and per-device argument bytes printed;
+   (d) the dense decoder over two ranks that share the card (gloo: NCCL
+   refuses two ranks on one device), each a process of its own
+   (``chip_smoke.py --mesh-rank R``, started and waited for by the phase
+   with a time limit; a rank's nonzero exit fails the phase), through
+   ``launch.train`` with ``WORLD_SIZE`` 2: (d1) llama3.2-3b at full
+   width, 2 layers, f32, flash (simt), 4 tiers, 8 x 256, 2 steps under
+   the launcher's warmup, on meshes (1, 2) and (2, 1) against the
+   one-rank launcher from the same seed: losses and tier losses rtol
+   1e-4, gathered params atol 1e-5, each rank's masks at densities 0.5
+   and 0.25 bitwise the one-rank masks' blocks (the one-rank f32 counts
+   of the embedding, past 2^24, are printed against exact counts),
+   fake_quant launches per rank the one-rank count, flash 16 simt
+   launches per rank (its attention calls), each rank's placed state
+   exactly ``shard_bytes``; (d2) 4 layers, bf16, flash (wgmma at the
+   local 12 / 4 heads), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s,
+   peak memory and a profiled step's busy share per rank, losses within
+   3 x the one-rank run's own bf16-vs-f32 distance of its bf16 losses;
+   and llama3.2-3b's dry-run argument bytes per device on a (1, 4)
+   mesh, whole and at 4 layers (computed).
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -837,7 +858,8 @@ def _flash_cases(device):
     heads (a GQA ratio of 7) at hd 128, batch 1 per tier over 2048;
     zamba2-2.7b's shared block in the recurrent train phase, 32 / 32 heads
     at hd 80 (not a wgmma width, so the simt kernel), batch 2 per tier
-    over 1024; whisper-tiny's 6 heads of 64 at the audio train phase's
+    over 1024; llama3.2-3b's local heads on each of phase mesh's two
+    model ranks, 12 / 4 at hd 128, batch 2 over 1024; whisper-tiny's 6 heads of 64 at the audio train phase's
     shapes, batch 2 per tier: the encoder's non-causal self-attention over
     the 1500 frames (a ragged last 64-key tile of 28 keys), the
     cross-attention of 1024 queries over the 1500 frames (non-causal) and
@@ -882,6 +904,9 @@ def _flash_cases(device):
          dict(causal=False), "wgmma"),
         ("whisper_dec_bf16", *qkv(2, 1024, 1024, bf16, whisper), {},
          "wgmma"),
+        ("local_heads_bf16", *qkv(2, 1024, 1024, bf16, cfg.replace(
+            num_heads=cfg.num_heads // MESH_RANKS,
+            num_kv_heads=cfg.num_kv_heads // MESH_RANKS)), {}, "wgmma"),
         ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
@@ -993,7 +1018,7 @@ def phase_lm_kernels(device) -> dict:
         if label not in ("train_bf16", "train_f32", "granite_bf16",
                          "granite_moe_bf16", "llava_bf16", "zamba_bf16",
                          "whisper_enc_bf16", "whisper_xattn_bf16",
-                         "whisper_dec_bf16"):
+                         "whisper_dec_bf16", "local_heads_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -1744,11 +1769,13 @@ def phase_slice(device, ms_log: dict) -> dict:
 # test_async_jitter_line_on_the_ports_draw_is_the_references)
 EXAMPLE_VAL_ACC = 0.97
 EXAMPLE_VAL_ACC_OF = {"async buffer=2 + jitter": 0.965 - 0.01}
-# the reference's default is 300. 200, the largest multiple of the
-# checkpoint cadence that keeps the whole script clear of its 1200 s on
-# the slower hosts seen: at 300 one took 1134 s of command, 1086 s of
-# phases (PERF.md §7)
-TRAIN_100M_STEPS = 200
+# the reference's default is 300: at 300 one host took 1134 s of command,
+# 1086 s of phases (PERF.md §7). 100 since phase mesh's ranks (d) came
+# (150 took 820 s of phases on an H100 80GB HBM3 host), a checkpoint every
+# TRAIN_100M_CKPT_EVERY in place of the script's 100, so that two are
+# written and the last is the final step's
+TRAIN_100M_STEPS = 100
+TRAIN_100M_CKPT_EVERY = 50
 SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
@@ -1898,9 +1925,10 @@ def _serve_quantized(device, launches: dict) -> None:
 
 def _train_100m(device, launches: dict) -> None:
     """train_100m at full width, TRAIN_100M_STEPS steps of 8 x 512 over 4
-    tiers, a checkpoint every CKPT_EVERY into a scratch directory: losses
-    finite, the last below the first; s/step, tokens/s and peak memory;
-    a checkpoint at every CKPT_EVERY steps, and the last one restores
+    tiers, a checkpoint every TRAIN_100M_CKPT_EVERY (its module's
+    CKPT_EVERY, set for the run) into a scratch directory: losses finite,
+    the last below the first; s/step, tokens/s and peak memory; a
+    checkpoint at every CKPT_EVERY steps, and the last one restores
     bitwise to the live state at that step (the final one)."""
     import os
     import shutil
@@ -1909,6 +1937,7 @@ def _train_100m(device, launches: dict) -> None:
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.examples import train_100m as T
     d = _ckpt_dir()
+    every_before, T.CKPT_EVERY = T.CKPT_EVERY, TRAIN_100M_CKPT_EVERY
     try:
         torch.cuda.reset_peak_memory_stats()
         res = _example("train_100m", lambda: T.train(
@@ -1922,6 +1951,9 @@ def _train_100m(device, launches: dict) -> None:
         del back
     finally:
         shutil.rmtree(d, ignore_errors=True)
+        T.CKPT_EVERY = every_before
+    every = range(TRAIN_100M_CKPT_EVERY, TRAIN_100M_STEPS + 1,
+                  TRAIN_100M_CKPT_EVERY)
     secs = res["sec_per_step"][1:]
     s = statistics.median(secs)
     losses = res["losses"]
@@ -1935,9 +1967,8 @@ def _train_100m(device, launches: dict) -> None:
           "train_100m: losses finite")
     check(losses[-1] < losses[0], "train_100m: the last step's loss < the "
                                   "first's")
-    every = range(T.CKPT_EVERY, TRAIN_100M_STEPS + 1, T.CKPT_EVERY)
     check(written == [f"ckpt_{i:08d}.npz" for i in every],
-          f"train_100m: a checkpoint every {T.CKPT_EVERY} steps")
+          f"train_100m: a checkpoint every {TRAIN_100M_CKPT_EVERY} steps")
     check(step == TRAIN_100M_STEPS and same,
           f"train_100m: the step-{step} checkpoint restores bitwise to the "
           f"live state at that step")
@@ -3377,6 +3408,14 @@ def phase_audio_train(device) -> dict:
 
 MESH_STEPS = 3
 MESH_MEMORY_RTOL = 0.25             # dry-run bytes vs the card's peak
+MESH_RANKS = 2                      # (d): two ranks share the card over gloo
+MESH_F32 = dict(layers=2, batch=8, seq=256, steps=2)    # (d1), warmup 20
+MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=3)  # (d2), warmup 2
+# (d2): its losses within this x the one rank's bf16-vs-f32 distance D: 2 D
+# by the triangle inequality through the f32 losses, and one D more for the
+# bf16 rounding of each rank's partial sum of a row-split projection
+MESH_BF16_SLACK = 3.0
+MESH_RANK_TIMEOUT = 420             # seconds the ranks of (d) may take
 
 
 def phase_mesh(device) -> dict:
@@ -3480,7 +3519,332 @@ def phase_mesh(device) -> dict:
           f"{r.get('error', '')}")
     check(r["status"] == "ok", f"mesh: the {LM_ARCH} decode_32k record on "
                                f"16x16 is ok")
+
+    # (d) the dense decoder trained over two ranks that share the card
+    _state_bytes_per_card()
+    for k, v in _mesh_ranks(device).items():
+        got[k] = got.get(k, 0) + v
     return got
+
+
+def _state_bytes_per_card() -> None:
+    """The dry run's argument bytes per device (``specs.setup_for`` on
+    fake tensors, no trace) of llama3.2-3b's train step at 8 x 1024 over
+    4 tiers, whole (28 layers) and at phase train's 4, on an abstract
+    (1, 4) mesh: computed, not measured."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import setup_for
+    from repro_torch.models.sharding import shard_bytes
+    slots = np.empty((1, 4), dtype=object)
+    slots.fill(torch.device("meta"))
+    mesh = Mesh(slots, ("data", "model"))
+    for layers in (get_config(LM_ARCH).num_layers, TRAIN_LAYERS):
+        cfg = get_config(LM_ARCH).replace(num_layers=layers)
+        _, args, in_sh, _ = setup_for(cfg, ShapeConfig("cli", 1024, 8,
+                                                       "train"), mesh)
+        print(f"mesh: dry-run argument bytes per device of {LM_ARCH} at "
+              f"{layers} layers, 8 x 1024, on a (1, 4) mesh (computed): "
+              f"{shard_bytes(args, in_sh)}, of which the train state "
+              f"{shard_bytes(args[0], in_sh[0])}")
+
+
+def _mesh_cfg(layers: int, dtype: str):
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH).replace(num_layers=layers, dtype=dtype,
+                                       use_flash=True)
+
+
+def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1):
+    """``launch.train`` of a (d) run, its counters zeroed just before;
+    (the run, its launches)."""
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import train
+    routes = flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
+    fake_quant.launches = 0
+    res = train(cfg, steps=run["steps"], batch=run["batch"], seq=run["seq"],
+                n_tiers=4, lr=3e-4, warmup=warmup, seed=0, device=device,
+                log_every=1, model_parallel=model_parallel)
+    return res, {"fake_quant": fake_quant.launches, **routes}
+
+
+def _count_exactness(params: dict, densities) -> dict:
+    """Whether the one-rank pruning's f32 counts are exact: for each leaf
+    past 2^24 elements and each density, the halvings of its bisection
+    (``pruning._threshold``'s arithmetic) whose f32 count differs from
+    the int64 count of the same compare."""
+    import torch
+    from repro_torch.core.compression import pruning as pr
+    out = {}
+    for name, w in params.items():
+        if w.dim() < 2 or w.numel() <= 1 << 24:
+            continue
+        aw = w.abs()
+        for density in densities:
+            amax = torch.amax(aw) + 1e-30
+            lo, hi = torch.log(pr._flush(amax * pr.EPS)), torch.log(amax)
+            off = []
+            for i in range(pr.ITERS):
+                mid = 0.5 * (lo + hi)
+                keep = aw >= pr._flush(torch.exp(mid))
+                count = torch.sum(keep.to(torch.float32))
+                exact = int(torch.sum(keep, dtype=torch.int64).item())
+                if count.item() != exact:
+                    off.append((i, count.item(), exact))
+                up = count / float(aw.numel()) > density
+                lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
+            out[f"{name}@{density}"] = off
+    return out
+
+
+def _mesh_ranks(device) -> dict:
+    """(d) the dense decoder over ``MESH_RANKS`` ranks on the one card
+    (gloo: NCCL refuses two ranks on one device), each rank a process of
+    its own (``--mesh-rank``). (d1) llama3.2-3b at full width, 2 layers,
+    f32, flash (simt), 4 tiers, 8 x 256, 2 steps under the launcher's
+    warmup: meshes (1, 2) and (2, 1) against the one-rank launcher from
+    the same seed (losses rtol 1e-4, gathered params atol 1e-5), each
+    rank's masks bitwise the one-rank masks' blocks, its fake_quant
+    launches the one-rank count, its flash launches its attention calls,
+    its placed state exactly ``shard_bytes``. (d2) 4 layers, bf16, flash
+    (wgmma), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s, peak memory
+    and busy share per rank; losses within ``MESH_BF16_SLACK`` x the
+    one-rank run's own bf16-vs-f32 distance. Returns the ranks'
+    launches."""
+    import shutil
+    import socket
+
+    import torch
+    d = Path(_ckpt_dir())
+    try:
+        # the one-rank runs, here
+        cfg1 = _mesh_cfg(MESH_F32["layers"], "float32")
+        print(f"mesh (d1): one rank: {LM_ARCH} {MESH_F32} f32 use_flash=True "
+              f"tiers=4 (launcher warmup 20)")
+        one, l1 = _mesh_train(cfg1, MESH_F32, 20, device)
+        torch.save({k: v.cpu() for k, v in one["state"]["params"].items()},
+                   d / "one_rank_f32.pt")
+        del one["state"]
+        torch.cuda.empty_cache()
+        from repro_torch.models import get_model
+        whole = get_model(cfg1).init(0, device=device)
+        exact = _count_exactness(whole, (0.5, 0.25))
+        del whole
+        print(f"mesh (d1): one-rank f32 counts that differ from the exact "
+              f"count, (halving, f32, exact), per leaf past 2^24 elements: "
+              f"{json.dumps(exact)}")
+        cfg2 = _mesh_cfg(MESH_BF16["layers"], "bfloat16")
+        bf, _ = _mesh_train(cfg2, MESH_BF16, 2, device)
+        f32, _ = _mesh_train(cfg2.replace(dtype="float32"), MESH_BF16, 2,
+                             device)
+        dist_bf = max(abs(a - b) for a, b in zip(bf["losses"],
+                                                 f32["losses"]))
+        print(f"mesh (d2): one rank {MESH_BF16}: bf16 losses {bf['losses']} "
+              f"f32 losses {f32['losses']} (max distance {dist_bf:.6g}); "
+              f"bf16 sec_per_step {bf['sec_per_step']}")
+        del bf["state"], f32["state"]
+        torch.cuda.empty_cache()
+
+        # the ranks
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), "--mesh-dir", str(d), "--mesh-port", str(port)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(MESH_RANKS)]
+        logs = [""] * MESH_RANKS
+        try:
+            for r, p in enumerate(procs):
+                left = MESH_RANK_TIMEOUT - (time.perf_counter() - t0)
+                logs[r] = p.communicate(timeout=max(left, 1))[0]
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"mesh rank {r}: {line}")
+        check(all(p.returncode == 0 for p in procs),
+              f"mesh (d): every rank exits 0 within {MESH_RANK_TIMEOUT} s "
+              f"(exit codes {[p.returncode for p in procs]}, "
+              f"{time.perf_counter() - t0:.1f} s)")
+        ranks = [json.loads((d / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    launches = {"fake_quant": 0, "flash_attention_simt": 0,
+                "flash_attention_wgmma": 0}
+    calls1 = _attn_calls(cfg1) * 4 * MESH_F32["steps"]
+    for r, rk in enumerate(ranks):
+        for mesh, run in rk["d1"].items():
+            tag = f"mesh (d1) rank {r} mesh {mesh}"
+            a = run["losses"] + [x for t in run["tier_losses"] for x in t]
+            b = one["losses"] + [x for t in one["tier_losses"] for x in t]
+            check(all(math.isclose(x, y, rel_tol=1e-4) for x, y in zip(a, b)),
+                  f"{tag}: losses and tier losses {run['losses']} within "
+                  f"rtol 1e-4 of one rank's {one['losses']}")
+            if r == 0:
+                check(run["max_param_diff"] <= 1e-5,
+                      f"{tag}: gathered params within atol 1e-5 of one "
+                      f"rank's (max {run['max_param_diff']:.3g})")
+            check(run["masks_bitwise"],
+                  f"{tag}: its {run['masks']} masks (2 densities x "
+                  f"{run['masks'] // 2} leaves) bitwise the one-rank masks' "
+                  f"blocks")
+            check(run["launches"]["fake_quant"] == l1["fake_quant"],
+                  f"{tag}: fake_quant launched {run['launches']['fake_quant']}"
+                  f" times, the one-rank count {l1['fake_quant']}")
+            check(run["launches"]["simt"] == calls1
+                  and l1["simt"] == calls1,
+                  f"{tag}: flash_attention launched {calls1} times on the "
+                  f"simt kernel (its attention calls), as one rank")
+            check(run["bytes"][0] == run["bytes"][1],
+                  f"{tag}: the placed state's bytes {run['bytes'][0]} == "
+                  f"shard_bytes {run['bytes'][1]}")
+            launches["fake_quant"] += run["launches"]["fake_quant"]
+            launches["flash_attention_simt"] += run["launches"]["simt"]
+        run = rk["d2"]
+        tag = f"mesh (d2) rank {r} mesh (1, {MESH_RANKS})"
+        sps = statistics.mean(run["sec_per_step"][1:])
+        print(f"{tag}: bf16 losses {run['losses']} sec_per_step "
+              f"{run['sec_per_step']} mean_sec_per_step(steps 2..) {sps:.6f} "
+              f"tokens_per_s {MESH_BF16['batch'] * MESH_BF16['seq'] / sps:.3f}"
+              f" peak_mem_gb {run['peak_bytes'] / 1e9:.3f} launches "
+              f"{json.dumps(run['launches'])} profiled step: wall_ms "
+              f"{run['wall_ms']:.3f} device_busy_ms {run['busy_ms']:.3f} "
+              f"device_busy_share {run['busy_ms'] / run['wall_ms']:.4f} "
+              f"device_ops {run['ops']}")
+        gap = max(abs(x - y) for x, y in zip(run["losses"], bf["losses"]))
+        check(gap <= MESH_BF16_SLACK * dist_bf,
+              f"{tag}: losses within {MESH_BF16_SLACK} x the one-rank bf16-f32"
+              f" distance {dist_bf:.6g} of one rank's bf16 (max {gap:.6g})")
+        calls2 = _attn_calls(cfg2) * 4 * MESH_BF16["steps"]
+        check(run["launches"]["wgmma"] == calls2
+              and run["launches"]["fake_quant"]
+              == 3 * _n_compressible(cfg2) * MESH_BF16["steps"],
+              f"{tag}: flash_attention {calls2} launches on the wgmma kernel "
+              f"at the local heads, fake_quant {3 * _n_compressible(cfg2)} a "
+              f"step")
+        launches["fake_quant"] += run["launches"]["fake_quant"]
+        launches["flash_attention_wgmma"] += run["launches"]["wgmma"]
+    return launches
+
+
+def mesh_rank(rank: int, directory: str, port: int) -> int:
+    """One rank of phase mesh's (d), in a process of its own: joins the
+    gloo group of ``MESH_RANKS`` on ``port``, runs (d1) on meshes (1, 2)
+    and (2, 1) and (d2) on (1, 2) through ``launch.train``, and writes
+    its results to ``directory/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(MESH_RANKS),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(MESH_RANKS))
+    device = init_distributed("cuda")           # one card for all: gloo
+    print(f"rank {rank}: backend {dist.get_backend()} device {device}")
+    out = {"d1": {}}
+    for mp in (MESH_RANKS, 1):
+        run = _mesh_f32_rank(rank, mp, device, Path(directory))
+        out["d1"][f"({MESH_RANKS // mp}, {mp})"] = run
+        torch.cuda.empty_cache()
+    out["d2"] = _mesh_bf16_rank(device)
+    (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_f32_rank(rank: int, mp: int, device, directory: Path) -> dict:
+    import torch
+    from repro_torch import optim
+    from repro_torch.core.compression import compressible, magnitude_masks
+    from repro_torch.core.steps import TrainState
+    from repro_torch.models import get_model
+    from repro_torch.models.sharding import gather, place, shard_bytes
+    cfg = _mesh_cfg(MESH_F32["layers"], "float32")
+    res, launches = _mesh_train(cfg, MESH_F32, 20, device, model_parallel=mp)
+    sh = res["shardings"]
+    params = gather(res["state"]["params"], sh["params"])
+    del res["state"]
+    diff = None
+    if rank == 0:
+        one = torch.load(directory / "one_rank_f32.pt", map_location=device)
+        diff = max((params[k] - one[k]).abs().max().item() for k in one)
+        del one
+    del params
+    # at init: the masks of the two pruned tiers' densities, and the bytes
+    model = get_model(cfg)
+    state = TrainState.create(model, optim.adamw(3e-4), 0, device=device)
+    placed = place(state, sh)
+    local = sum(t.numel() * t.element_size() for t in _tensors(placed))
+    ok, n = True, 0
+    names = [k for k, w in state["params"].items() if compressible(k, w)]
+    for density in (0.5, 0.25):
+        whole = magnitude_masks({k: state["params"][k] for k in names},
+                                density)
+        split = magnitude_masks({k: placed["params"][k] for k in names},
+                                density, shardings=sh["params"])
+        for k in names:
+            ok &= torch.equal(split[k], sh["params"][k].block(whole[k]))
+            n += 1
+        del whole, split
+    return {"losses": res["losses"], "tier_losses": res["tier_losses"],
+            "sec_per_step": res["sec_per_step"], "launches": launches,
+            "max_param_diff": diff, "masks_bitwise": bool(ok), "masks": n,
+            "bytes": [local, shard_bytes(state, sh)]}
+
+
+def _mesh_bf16_rank(device) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.compression import default_tier_plans
+    from repro_torch.core.steps import make_hetero_train_step
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch.mesh import num_batch_shards
+    from repro_torch.models import get_model, parallel
+    cfg = _mesh_cfg(MESH_BF16["layers"], "bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = _mesh_train(cfg, MESH_BF16, 2, device,
+                                model_parallel=MESH_RANKS)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step, profiled (not counted on the main path)
+    sh = res["shardings"]["params"]
+    mesh = next(iter(sh.values())).mesh
+    steps = MESH_BF16["steps"]
+    step = make_hetero_train_step(
+        get_model(cfg), optim.adamw(optim.warmup_cosine(3e-4, 2, steps)),
+        default_tier_plans(4), num_groups=num_batch_shards(mesh),
+        shardings=sh)
+    b = make_train_batch(cfg, ShapeConfig("t", MESH_BF16["seq"],
+                                          MESH_BF16["batch"], "train"),
+                         n_tiers=4, seed=0, index=steps)
+    b = {k: v.to(device) for k, v in b.items()}
+    torch.cuda.synchronize()
+    with parallel.using(mesh):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(res["state"], b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    ev = device_events(prof)
+    return {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
+            "launches": launches, "peak_bytes": peak, "wall_ms": wall,
+            "busy_ms": sum(us for _, us in ev) / 1e3, "ops": len(ev)}
 
 
 # ---------------------------------------------------------------- main
@@ -3489,7 +3853,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", action="append", default=[],
                     help="run only this phase (repeatable)")
-    only = ap.parse_args().phase
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase mesh (d) starts these
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    only = args.phase
     # before CUDA starts: deterministic cuBLAS, so the bitwise checks test
     # the aggregation and not GEMM reduction order
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3505,6 +3875,8 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_dir, args.mesh_port)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3597,7 +3969,8 @@ def main() -> int:
         out["train"]["flash_attention_simt"]
         + out["moe train"]["flash_attention_simt"]
         + out["recurrent train"]["flash_attention_simt"]
-        + out["audio train"]["flash_attention_simt"])
+        + out["audio train"]["flash_attention_simt"]
+        + out["mesh"]["flash_attention_simt"])
     launches["flash_attention_wgmma"] = (
         out["train"]["flash_attention_wgmma"] + ckpt["flash_attention_wgmma"]
         + out["moe train"]["flash_attention_wgmma"]

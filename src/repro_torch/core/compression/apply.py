@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.compression.clustering import cluster_ste
 from repro_torch.core.compression.plan import CompressionPlan
-from repro_torch.core.compression.pruning import magnitude_masks
+from repro_torch.core.compression.pruning import (magnitude_masks,
+                                                   split_over_model)
 from repro_torch.core.compression.quantization import fake_quant_ste
 from repro_torch.core.compression.structured import (compressible,
                                                      expand_masks, slice_tree,
@@ -31,25 +32,46 @@ __all__ = ["compressible", "compress_with_masks", "compress_params",
            "payload_bits", "active_param_count"]
 
 
+def _int_scale(x: torch.Tensor, bits: int, sharding):
+    """int-k's step for this rank's block ``x`` of a leaf split over
+    "model": the whole leaf's max / qmax (None for any other leaf: its
+    own max)."""
+    if not split_over_model(sharding):
+        return None
+    from repro_torch.models import parallel    # the models import this
+    amax = parallel.all_reduce(x.detach().to(torch.float32).abs().max(),
+                               "model", torch.distributed.ReduceOp.MAX,
+                               mesh=sharding.mesh)
+    return amax / (2.0 ** (bits - 1) - 1.0)
+
+
 def compress_with_masks(params: dict, density: float, e_bits: int,
-                        m_bits: int, out_dtype=None):
+                        m_bits: int, out_dtype=None, shardings=None):
     """Prune -> fake-quant, both straight-through. Returns (cparams,
     masks): masks has a full-size 0/1 f32 leaf for compressible params
     and a scalar 1.0 for excluded ones (so the mask-aware aggregation
     broadcasts). ``out_dtype`` casts the compressed weights to the
     model's compute dtype here, numerically the cast the matmuls do
     anyway; the cast's backward returns f32 gradients. The plan is
-    static, so (0, 0) bits launch nothing."""
+    static, so (0, 0) bits launch nothing. ``shardings`` (name ->
+    NamedSharding): on a mesh of several ranks the params are this
+    rank's blocks, and a leaf split over "model" is pruned (and int-k
+    scaled) as its whole leaf; (e, m) rounding is elementwise, one
+    fake_quant launch per block."""
     cparams, masks = {}, {}
+    shardings = shardings or {}
     pruned = magnitude_masks({name: w.detach() for name, w in params.items()
-                              if compressible(name, w)}, density)
+                              if compressible(name, w)}, density,
+                             shardings=shardings)
     for name, w in params.items():
         if not compressible(name, w):
             cparams[name] = w
             masks[name] = torch.ones((), dtype=torch.float32, device=w.device)
             continue
         m = pruned[name]
-        cw = fake_quant_ste(w * m, e_bits, m_bits) * m
+        scale = (_int_scale(w * m, m_bits, shardings.get(name))
+                 if e_bits == 0 and m_bits > 0 else None)
+        cw = fake_quant_ste(w * m, e_bits, m_bits, scale) * m
         if out_dtype is not None:
             cw = cw.to(out_dtype)
         cparams[name] = cw

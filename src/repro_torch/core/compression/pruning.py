@@ -14,10 +14,19 @@ per-leaf loop makes one a leaf: the FL runtimes' rounds on the card are
 bound by the host's launches, most of them this loop's. Every element
 sees the operations of :func:`magnitude_mask`, so the masks are its
 bits, on the CPU as on the card.
+
+On a mesh of several ranks (``shardings=``) a leaf split over "model" is
+one block on each rank: its largest magnitude and each halving's count
+are all-reduced over the model ranks (MAX, SUM), so each rank's mask is
+the one-rank mask's block wherever the one-rank count is exact (f32
+sums of 0/1 are exact while every partial sum stays below 2^24).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 
 ITERS = 16
 EPS = 1e-12            # dynamic range of the log search (12 decades)
@@ -95,14 +104,68 @@ def _shared_thresholds(aws: list, density: float, batch: int) -> list:
             for t, aw in zip(thr.split(1, dim=batch), aws)]
 
 
+def _split_thresholds(aws: list, sizes: list, density: float,
+                      mesh) -> list:
+    """``_threshold`` of each whole leaf of which ``aws`` holds this rank's
+    blocks (``sizes``: the whole leaves' element counts), the bisections
+    run in lockstep: one all-reduce over the mesh's "model" ranks for the
+    maxima and one per halving for the counts."""
+    # imported here: the models package imports this one
+    from repro_torch.models import parallel
+
+    def reduce(x, op):
+        return parallel.all_reduce(x, "model", op, mesh=mesh)
+
+    amax = reduce(torch.stack([torch.amax(aw) for aw in aws]),
+                  dist.ReduceOp.MAX) + 1e-30
+    lo = torch.log(_flush(amax * EPS))
+    hi = torch.log(amax)
+    for _ in range(ITERS):
+        mid = 0.5 * (lo + hi)
+        thr = _flush(torch.exp(mid))
+        count = reduce(torch.stack([
+            torch.sum((aw >= t).to(torch.float32))
+            for aw, t in zip(aws, thr.unbind())]), dist.ReduceOp.SUM)
+        kept = torch.stack([c / n for c, n in zip(count.unbind(), sizes)])
+        up = kept > density
+        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
+    return list(_flush(torch.exp(lo)).unbind())
+
+
+def split_over_model(s) -> bool:
+    """Whether the NamedSharding ``s`` splits its leaf over the "model"
+    ranks of a mesh of several ranks."""
+    return (s is not None and s.mesh.is_distributed
+            and s.mesh.shape.get("model", 1) > 1 and "model" in s.spec)
+
+
 @torch.no_grad()
-def magnitude_masks(ws: dict, density: float, batch: int = 0) -> dict:
+def magnitude_masks(ws: dict, density: float, batch: int = 0,
+                    shardings: dict | None = None) -> dict:
     """``magnitude_mask`` of each leaf of ``ws`` (name -> tensor, the same
     leading ``batch`` axes) at one density, bitwise. f32 leaves of at
     most SMALL elements a row share one bisection; the others take their
-    own."""
+    own. ``shardings`` (name -> NamedSharding or None): on a mesh of
+    several ranks, the leaves it splits over "model" are this rank's
+    blocks of whole leaves, and their thresholds are the whole leaves'
+    (:func:`_split_thresholds`); the rest are pruned as above."""
     if density >= 1.0:
         return {k: torch.ones_like(w) for k, w in ws.items()}
+    split = [k for k in ws if shardings is not None
+             and split_over_model(shardings.get(k))]
+    if split:
+        if batch:
+            raise ValueError("a leaf split over ranks takes no batch axes")
+        mesh = shardings[split[0]].mesh
+        rest = magnitude_masks({k: w for k, w in ws.items()
+                                if k not in split}, density)
+        aws = [ws[k].abs() for k in split]
+        sizes = [float(math.prod(aw.shape) * mesh.shape["model"])
+                 for aw in aws]
+        for k, aw, t in zip(split, aws,
+                            _split_thresholds(aws, sizes, density, mesh)):
+            rest[k] = (aw >= t).to(ws[k].dtype)
+        return {k: rest[k] for k in ws}
     shared = [k for k, w in ws.items()
               if w.dtype == torch.float32
               and w[(0,) * batch].numel() <= SMALL]

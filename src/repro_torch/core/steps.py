@@ -26,6 +26,12 @@ one card). The plans are
 static, so a hub tier (no pruning, no quantization) launches no
 fake_quant kernel, and int-k stays plain.
 
+On a mesh of several ranks (the step run inside ``models.parallel.using
+(mesh)``, the state placed by ``models.sharding.place``) each rank's
+params are its blocks of the leaves: the model's own collectives run the
+tensor parallel layers over "model", and each rank of "data" takes its
+rows of each tier's batch; see :func:`make_hetero_train_step`.
+
 ``make_serve_step`` / ``make_prefill_step`` run the model AS DEPLOYED on
 a device tier, with params compressed once by ``compress_for_serving``.
 """
@@ -37,6 +43,7 @@ from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
                                           zeros_like_acc)
 from repro_torch.core.compression import (CompressionPlan, compress_params,
                                           compress_with_masks, plan_arrays)
+from repro_torch.models import parallel
 from repro_torch.models.sharding import place
 
 
@@ -58,19 +65,48 @@ def _grads(loss: torch.Tensor, leaves: dict) -> dict:
     return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
+def _data_rows(batch: dict) -> dict:
+    """This "data" rank's rows of each tier's batch (the tier axis first,
+    the rows second)."""
+    n, d = parallel.size("data"), parallel.rank("data")
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[1]
+        if rows % n:
+            raise ValueError(f"{k}: {rows} rows a tier do not split over "
+                             f"{n} data ranks")
+        out[k] = v[:, d * rows // n:(d + 1) * rows // n]
+    return out
+
+
 def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
-                           *, num_groups: int = 1, acc_shardings=None):
+                           *, num_groups: int = 1, acc_shardings=None,
+                           shardings=None):
     """acc_shardings: optional NamedSharding dict (params-shaped). The
     gradients and the mask-aware accumulators are placed by it, as the
     reference constrains them (``models.sharding.place``: on a mesh of one
-    device, the same tensors)."""
+    device, the same tensors; on a mesh of several ranks they are already
+    each rank's blocks, and stay so).
+
+    shardings: the params' NamedSharding dict (the launcher's
+    ``named(mesh, param_spec_tree(state, ...))["params"]``), needed when
+    the step runs inside ``parallel.using`` a mesh whose "model" axis
+    splits leaves: the pruning of a split leaf searches its threshold
+    over the whole leaf. On a mesh of several ranks each "data" rank
+    takes its rows of each tier's batch (``B / n_tiers`` must divide over
+    "data"); its mask-aware numerator, linear in the gradients and with
+    the same masks on every replica, is averaged over "data" once a step,
+    and so are the loss and the tier losses. The reference replicates
+    the batch over "data" and lets GSPMD split the work: the same
+    arithmetic in another order (each rank's mean over its rows, then
+    the mean over the ranks)."""
     arrs = plan_arrays(plans)
     wsum = float(sum(p.weight for p in plans))
     # compressed weights live in the model's compute dtype
     cdt = getattr(torch, model.cfg.dtype)
 
     def constrain(tree: dict) -> dict:
-        if acc_shardings is None:
+        if acc_shardings is None or parallel.multi_rank():
             return tree
         # rank-mismatched leaves (the scalar denominators of 1-D leaves)
         # stay as they are
@@ -80,6 +116,11 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
+        if parallel.multi_rank():
+            if shardings is None and parallel.size("model") > 1:
+                raise ValueError("a step on a mesh that splits leaves over "
+                                 "\"model\" needs the params' shardings=")
+            batch = _data_rows(batch)
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         num, den = zeros_like_acc(params)
         acc = (constrain(num), constrain(den))
@@ -89,7 +130,7 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
         for t in range(len(plans)):
             cp, masks = compress_with_masks(
                 leaves, arrs["density"][t], arrs["e_bits"][t],
-                arrs["m_bits"][t], out_dtype=cdt)
+                arrs["m_bits"][t], out_dtype=cdt, shardings=shardings)
             loss = model.loss_fn(cp, {k: v[t] for k, v in batch.items()},
                                  num_groups=num_groups)
             grads = constrain(_grads(loss, leaves))
@@ -99,14 +140,19 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
             loss_sum = loss_sum + f32(arrs["weight"][t]) * loss.detach()
             tier_loss.append(loss.detach())
             del cp, masks, loss, grads      # one tier's buffers at a time
+        losses = torch.cat([(loss_sum / wsum)[None], torch.stack(tier_loss)])
+        dp = parallel.size("data")
+        if dp > 1:
+            acc = ({k: parallel.all_reduce(v, "data") / dp
+                    for k, v in acc[0].items()}, acc[1])
+            losses = parallel.all_reduce(losses, "data") / dp
         grads = finalize(acc)
         del acc, num, den
         new_params, new_opt = optimizer.update(grads, state["opt"], params,
                                                step=state["step"])
         new_state = dict(params=new_params, opt=new_opt,
                          step=state["step"] + 1)
-        return new_state, {"loss": loss_sum / wsum,
-                           "tier_loss": torch.stack(tier_loss)}
+        return new_state, {"loss": losses[0], "tier_loss": losses[1:]}
 
     return train_step
 

@@ -9,17 +9,36 @@ Runs on ``cuda`` unless ``--device`` says otherwise, and raises without
 a GPU rather than drop to the CPU. ``--ckpt-dir`` saves the train state
 every ``--ckpt-every`` steps and at the end (:class:`Checkpointer`, the
 reference's file format) and resumes from the newest checkpoint there.
-``--model-parallel`` builds the reference's host mesh (``launch/mesh.py``:
-every CUDA device, or the one ``--device`` names, in rows of that many
-model shards; on one card that is a (1, 1) mesh, as the reference's
-launcher makes on one device), takes the batch shards from it and places
-the state by ``param_spec_tree`` (``models/sharding.py``).
+
+One process trains on its one device: ``--model-parallel`` builds the
+host mesh over that device alone ((1, 1), whatever the flag and however
+many cards the host has), takes the batch shards from it and places the
+state by ``param_spec_tree`` (``models/sharding.py``). Over several ranks,
+one process each (``WORLD_SIZE > 1``)::
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch llama3.2-3b --smoke --steps 3 --batch 8 --seq 32 \
+      --model-parallel 2 --device cpu
+
+joins the process group (``launch.mesh.init_distributed``: gloo on the
+CPU and for ranks that share a card, NCCL for a card per rank, each
+rank's card its ``LOCAL_RANK`` unless ``--device`` names one for all),
+builds the (world / M, M) mesh of ranks, and places the state by the
+reference's ``param_spec_tree(state, mesh.shape["model"])``: each rank
+draws the whole state from the seed and keeps its blocks. The step runs
+inside ``parallel.using(mesh)``: tensor parallel over "model", each
+"data" rank its rows of the batch. Rank 0 prints the lines; checkpoints
+hold whole leaves. The dense family only (``models/sharding.place``
+refuses the others' layouts).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
+
+import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
@@ -29,8 +48,9 @@ from repro_torch.core.compression import default_tier_plans
 from repro_torch.core.scenario import resolve_device
 from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
-from repro_torch.launch.mesh import make_host_mesh, num_batch_shards
-from repro_torch.models import get_model
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     num_batch_shards)
+from repro_torch.models import get_model, parallel
 from repro_torch.models.sharding import (named, param_spec_tree, place,
                                          set_rules)
 
@@ -44,54 +64,67 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     newest checkpoint in ``ckpt_dir`` (which then gets one every
     ``ckpt_every`` steps and one at the end). Batch ``i`` is a pure
     function of ``(seed, i)``, so a resumed run continues the
-    uninterrupted one. The mesh is the host's (``model_parallel`` model
-    shards a row) over ``device`` alone: placing a state over several
-    cards waits for ROADMAP item 20 (``models.sharding.place``), so a
-    host with more cards trains on the one it is given. Returns the
-    losses of the steps run here (the mean over the tiers, and each
-    tier's in plan order), wall seconds (each step ends in a device
-    sync), the first step run and the final state."""
-    device = resolve_device(device)
+    uninterrupted one. In one process the mesh is the host's
+    (``model_parallel`` model shards a row) over ``device`` alone; with
+    ``WORLD_SIZE > 1`` in the environment (``torchrun``) it is the mesh
+    of the world's ranks (module docstring). Returns the losses of the
+    steps run here (the mean over the tiers, and each tier's in plan
+    order), wall seconds (each step ends in a device sync), the first
+    step run, the final state (this rank's blocks) and its shardings."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed(device)
+    else:
+        device = resolve_device(device)
     shape = ShapeConfig("cli", seq, batch, "train")
     mesh = make_host_mesh(model_parallel, devices=[device])
+    lead = not mesh.is_distributed or dist.get_rank() == 0
     set_rules({})
     model = get_model(cfg)
     opt = optim.adamw(optim.warmup_cosine(lr, warmup, steps))
-    step_fn = make_hetero_train_step(model, opt, default_tier_plans(n_tiers),
-                                     num_groups=num_batch_shards(mesh))
     state = TrainState.create(model, opt, seed, device=device)
     n_params = sum(x.numel() for x in state["params"].values())
-    print(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
-          f"device={device} tiers={n_tiers} use_flash={cfg.use_flash}")
-    state = place(state, named(mesh, param_spec_tree(state,
-                                                     mesh.shape["model"])))
+    if lead:
+        print(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
+              f"device={device} tiers={n_tiers} use_flash={cfg.use_flash}")
+    state_sh = named(mesh, param_spec_tree(state, mesh.shape["model"]))
+    state = place(state, state_sh)
+    # over ranks the compression and the checkpoints need the layouts
+    ranks_sh = state_sh if mesh.is_distributed else None
+    step_fn = make_hetero_train_step(
+        model, opt, default_tier_plans(n_tiers),
+        num_groups=num_batch_shards(mesh),
+        shardings=None if ranks_sh is None else ranks_sh["params"])
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt is not None and ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state)
-        print(f"restored step {start}")
+        state, start = ckpt.restore(state, shardings=ranks_sh)
+        if lead:
+            print(f"restored step {start}")
     losses, tier_losses, secs = [], [], []
-    for i in range(start, steps):
-        b = make_train_batch(cfg, shape, n_tiers=n_tiers, seed=seed, index=i)
-        b = {k: v.to(device) for k, v in b.items()}
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, b)
-        loss = float(metrics["loss"])            # syncs the device
-        secs.append(time.perf_counter() - t0)
-        losses.append(loss)
-        tier_losses.append(metrics["tier_loss"].tolist())
-        if (i + 1) % log_every == 0 or i == start:
-            dt = sum(secs) / len(secs)
-            print(json.dumps({"step": i + 1, "loss": round(loss, 4),
-                              "sec_per_step": round(dt, 3),
-                              "tokens_per_sec": round(batch * seq / dt)}),
-                  flush=True)
-        if ckpt is not None and (i + 1) % ckpt_every == 0:
-            ckpt.save(state, i + 1)
+    with parallel.using(mesh):
+        for i in range(start, steps):
+            b = make_train_batch(cfg, shape, n_tiers=n_tiers, seed=seed,
+                                 index=i)
+            b = {k: v.to(device) for k, v in b.items()}
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            loss = float(metrics["loss"])            # syncs the device
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+            tier_losses.append(metrics["tier_loss"].tolist())
+            if lead and ((i + 1) % log_every == 0 or i == start):
+                dt = sum(secs) / len(secs)
+                print(json.dumps({"step": i + 1, "loss": round(loss, 4),
+                                  "sec_per_step": round(dt, 3),
+                                  "tokens_per_sec": round(batch * seq / dt)}),
+                      flush=True)
+            if ckpt is not None and (i + 1) % ckpt_every == 0:
+                ckpt.save(state, i + 1, shardings=ranks_sh)
     if ckpt is not None and ckpt.latest_step() != steps:
-        ckpt.save(state, steps)
+        ckpt.save(state, steps, shardings=ranks_sh)
     return {"losses": losses, "tier_losses": tier_losses,
-            "sec_per_step": secs, "start": start, "state": state}
+            "sec_per_step": secs, "start": start, "state": state,
+            "shardings": state_sh}
 
 
 def main(argv=None) -> dict:
@@ -124,7 +157,10 @@ def main(argv=None) -> dict:
                 seed=args.seed, device=args.device, log_every=args.log_every,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                 model_parallel=args.model_parallel)
-    print("done")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("done")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return res
 
 

@@ -13,6 +13,13 @@ leaf, and stacked norm scales count as matrices. The reference's
 memory choice with no numerics) and its sharding hints (one card, no
 mesh) are left out. ``num_groups`` (the data shards a MoE layer groups
 its tokens by) is threaded wherever the reference threads it.
+
+On a mesh of several ranks (``models/parallel.py``) the dense family's
+train loss runs on each rank's blocks of the leaves: heads and d_ff split
+over "model" (``layers.attn_forward``, ``layers.swiglu``), the embedding
+and ``lm_head`` over the vocabulary or d_model (:func:`vocab_layout`).
+Each layer finds its layout from its leaves' shapes against ``cfg``. The
+MoE and VLM families, prefill and decode refuse such a mesh.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import parallel
 from repro_torch.models.moe import init_moe, moe_apply
 
 LAYER = "layers."
@@ -89,7 +97,8 @@ def _ffn(lp, x, cfg, num_groups):
     if cfg.is_moe:
         y, aux = moe_apply(lp["moe"], h, cfg, num_groups)
         return x + y, aux
-    return x + L.swiglu(lp["mlp"], h), None
+    split = lp["mlp"]["wi.w"].shape[-1] != cfg.d_ff
+    return x + L.swiglu(lp["mlp"], h, split=split), None
 
 
 def _block(lp, x, cfg, window, num_groups):
@@ -98,20 +107,42 @@ def _block(lp, x, cfg, window, num_groups):
     return _ffn(lp, x + h, cfg, num_groups)
 
 
+def vocab_layout(leaf: torch.Tensor, cfg, vocab_dim: int):
+    """``layers.VOCAB`` when ``leaf`` (the embedding, vocab_dim 0, or
+    ``lm_head.w``, vocab_dim -1) holds a block of the vocabulary,
+    ``layers.D_MODEL`` when it holds a block of d_model, None whole."""
+    if leaf.shape[vocab_dim] != cfg.vocab_size:
+        return L.VOCAB
+    if leaf.shape[-1 - vocab_dim] != cfg.d_model:
+        return L.D_MODEL
+    return None
+
+
 def _embed_inputs(params, tokens, cfg, patches):
     """Text embeddings, with the projected patches in front for VLM."""
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     if patches is not None:
         pe = L.proj(params, "projector", patches.to(x.dtype))
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def _unembed(params, x, cfg):
+def _unembed(params, x, cfg, layout=None):
+    """Logits in f32 by the vocabulary ``layout`` of the tied embedding or
+    of ``lm_head.w`` (:func:`vocab_layout`): this rank's block of the
+    vocabulary for ``layers.VOCAB``, else whole."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return L.unembed(x, params["embed"])
+        return L.unembed(x, params["embed"], layout)
+    if layout is not None:      # lm_head.w's (D, V) block, as a table's
+        return L.unembed(x, params["lm_head.w"].t(), layout)
     return L.proj(params, "lm_head", x.to(torch.float32))
+
+
+def _head_layout(params, cfg):
+    return (vocab_layout(params["embed"], cfg, 0) if cfg.tie_embeddings
+            else vocab_layout(params["lm_head.w"], cfg, -1))
 
 
 # ---------------------------------------------------------------- forward
@@ -120,13 +151,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
             window: int = 0, num_groups: int = 1):
     """Returns (logits (B, P + T, V) f32, aux_loss): the MoE layers' aux
     losses summed in layer order, 0 for dense and VLM."""
+    if cfg.family != "dense":
+        parallel.refuse(f"the {cfg.family} family's forward")
     x = _embed_inputs(params, tokens, cfg, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params):
         x, a = _block(lp, x, cfg, window, num_groups)
         if a is not None:
             aux = aux + a
-    return _unembed(params, x, cfg), aux
+    return _unembed(params, x, cfg, _head_layout(params, cfg)), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
@@ -134,13 +167,16 @@ def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
     next-token NLL plus the aux loss. For VLM ``tokens`` covers only the
     text, and the patch positions carry no loss. As in the reference,
     the forward here groups a MoE layer's tokens by ``GROUP`` alone:
-    ``num_groups`` is taken and not passed on."""
+    ``num_groups`` is taken and not passed on. On a mesh of several ranks
+    whose "model" axis splits the vocabulary, the logits are this rank's
+    block and the cross-entropy reduces over the ranks."""
     tokens = batch["tokens"]
     patches = batch.get("patches")
     logits, aux = forward(params, tokens[:, :-1], cfg, patches=patches)
     if patches is not None:
         logits = logits[:, patches.shape[1]:, :]
-    return L.cross_entropy(logits, tokens[:, 1:]) + aux
+    split = _head_layout(params, cfg) == L.VOCAB
+    return L.cross_entropy(logits, tokens[:, 1:], vocab_split=split) + aux
 
 
 # ---------------------------------------------------------------- prefill
@@ -151,6 +187,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
     first: the cache covers P + T positions. Returns (last-token logits
     (B, 1, V), cache). Always the chunked attention, whatever
     ``cfg.use_flash`` says, as in the reference."""
+    parallel.refuse("prefill")
     x = _embed_inputs(params, tokens, cfg, patches)
     b, t = x.shape[0], x.shape[1]
     pos = torch.arange(t, device=x.device)
@@ -192,6 +229,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     cache). A sliding window needs no mask here: the ring of
     ``cache_len`` slots keeps only the newest positions, so ``window``
     passes to the attention, which ignores it, as in the reference."""
+    parallel.refuse("decode")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     c = cache["layers"]
     for i, lp in enumerate(_layers(params)):

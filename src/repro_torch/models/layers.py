@@ -16,6 +16,7 @@ import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import parallel
 
 
 def init_dense(generator: torch.Generator, d_in: int, d_out, *,
@@ -222,8 +223,17 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     cross-attention (k, v from ``kv_src``, never causal). RoPE, when on,
     takes q at ``positions`` (default arange(T)) and k at arange(S).
     ``cfg.use_flash`` routes the attention itself through the
-    flash_attention kernel."""
+    flash_attention kernel. Under a mesh whose "model" axis splits the
+    heads (``p`` holds this rank's heads of q/k/v and their rows of
+    ``wo``), the inputs enter through ``copy_to_model``, the attention
+    runs on the local heads at the local GQA ratio, and ``wo``'s partial
+    output is summed by ``reduce_from_model``."""
     b, t, _ = x.shape
+    split = p["wq.w"].shape[-2] != cfg.num_heads
+    if split:
+        x = parallel.copy_to_model(x)
+        if kv_src is not None:
+            kv_src = parallel.copy_to_model(kv_src)
     src = x if kv_src is None else kv_src
     q = proj(p, "wq", x)                                # (B, T, H, hd)
     k = proj(p, "wk", src)
@@ -237,7 +247,8 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     attend = (flash_attention if getattr(cfg, "use_flash", False)
               else chunked_attention)
     o = attend(q, k, v, causal=causal and kv_src is None, window=window)
-    return proj(p, "wo", o.reshape(b, t, -1))
+    y = proj(p, "wo", o.reshape(b, t, -1))
+    return parallel.reduce_from_model(y) if split else y
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,
@@ -281,9 +292,15 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return proj(p, "wo", torch.nn.functional.silu(proj(p, "wg", x))
-                * proj(p, "wi", x))
+def swiglu(p: dict, x: torch.Tensor, *, split: bool = False) -> torch.Tensor:
+    """``split``: ``p`` holds this rank's columns of ``wi`` / ``wg`` and
+    rows of ``wo`` (d_ff split over "model"): the input enters through
+    ``copy_to_model`` and the output is summed by ``reduce_from_model``."""
+    if split:
+        x = parallel.copy_to_model(x)
+    y = proj(p, "wo", torch.nn.functional.silu(proj(p, "wg", x))
+             * proj(p, "wi", x))
+    return parallel.reduce_from_model(y) if split else y
 
 
 def init_gelu_mlp(generator: torch.Generator, d_model: int,
@@ -305,23 +322,73 @@ def init_embed(generator: torch.Generator, vocab: int,
                        dtype=torch.float32, device=generator.device) * 0.02
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens.to(torch.int64),
-                                         table).to(dtype)
+# The vocabulary layouts of an embedding table (V, D) or an lm_head
+# (D, V) split over "model": VOCAB, each rank a block of the vocabulary;
+# D_MODEL, each rank a block of d_model (the fallback for a vocabulary that
+# does not divide); None, whole.
+VOCAB, D_MODEL = "vocab", "d_model"
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits in f32. table: (V, D) (tied) used transposed."""
-    return torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
+def _vocab_block(ids: torch.Tensor, n: int):
+    """(ids - this rank's first vocabulary id, clamped into [0, n); which
+    ids fall in this rank's block of n)."""
+    local = ids.to(torch.int64) - parallel.rank("model") * n
+    inside = (local >= 0) & (local < n)
+    return torch.where(inside, local, torch.zeros_like(local)), inside
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype,
+          layout: str | None = None) -> torch.Tensor:
+    """``layout`` VOCAB: ``table`` is this rank's rows; tokens outside
+    them give zeros, and the ranks' rows are summed. D_MODEL: this rank's
+    columns, gathered whole."""
+    if layout == VOCAB:
+        local, inside = _vocab_block(tokens, table.shape[0])
+        e = torch.nn.functional.embedding(local, table)
+        e = torch.where(inside[..., None], e, torch.zeros_like(e))
+        return parallel.reduce_from_model(e).to(dtype)
+    e = torch.nn.functional.embedding(tokens.to(torch.int64), table)
+    if layout == D_MODEL:
+        e = parallel.gather_from_model(e, -1)
+    return e.to(dtype)
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor,
+            layout: str | None = None) -> torch.Tensor:
+    """Logits in f32. table: (V, D) (tied) used transposed. ``layout``
+    VOCAB: this rank's block of the logits; D_MODEL: partial logits over
+    this rank's columns, summed whole."""
+    x = x.to(torch.float32)
+    if layout == VOCAB:
+        x = parallel.copy_to_model(x)
+    elif layout == D_MODEL:
+        x = parallel.split_to_model(x, -1)
+    y = torch.matmul(x, table.to(torch.float32).t())
+    return parallel.reduce_from_model(y) if layout == D_MODEL else y
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, *,
+                  vocab_split: bool = False) -> torch.Tensor:
     """Mean next-token NLL. logits: (B, T, V) f32; labels: (B, T); with
     ``mask`` (B, T) the masked mean ``sum(nll * mask) / max(sum(mask),
-    1)``."""
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    1)``. ``vocab_split``: ``logits`` is this rank's block of the
+    vocabulary (``unembed(..., VOCAB)``); the max, the sum of exps and
+    the target logit are each all-reduced over "model"."""
+    if vocab_split:
+        m = parallel.all_reduce(logits.detach().amax(dim=-1), "model",
+                                torch.distributed.ReduceOp.MAX)
+        se = parallel.reduce_from_model(
+            torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+        logz = m + torch.log(se)
+        local, inside = _vocab_block(labels, logits.shape[-1])
+        ll = torch.gather(logits, -1, local[..., None])[..., 0]
+        ll = parallel.reduce_from_model(
+            torch.where(inside, ll, torch.zeros_like(ll)))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels.to(torch.int64)[..., None])[..., 0]
     nll = logz - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

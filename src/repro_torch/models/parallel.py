@@ -1,0 +1,192 @@
+"""The collectives that GSPMD inserts into the reference's sharded train
+step, written out for a mesh of ``torch.distributed`` ranks.
+
+The reference places each leaf by its PartitionSpec and lets the
+partitioner insert the communication; here every rank holds its own
+block of each leaf as a plain tensor (``models.sharding.place``) and the
+model calls these functions where a layer's layout changes: Megatron's
+column- then row-parallel pairs on the "model" axis.
+
+- :func:`copy_to_model`: identity forward, all-reduce backward (the
+  replicated input of a column-split projection);
+- :func:`reduce_from_model`: all-reduce forward, identity backward (the
+  partial sums of a row-split projection);
+- :func:`gather_from_model` / :func:`split_to_model`: all-gather along a
+  dim forward and this rank's block backward, and the converse.
+
+:func:`using` is the counterpart of the reference's ``with mesh:``: it
+holds the current mesh, as ``sharding.set_rules`` holds the hints.
+Outside it, or on a mesh of one process, or along an axis of size 1,
+every function returns its input itself, so the one-process path runs
+exactly the operations it ran before. Only ``all_reduce`` and
+``all_gather`` are used: gloo takes both on CUDA tensors (checked on the
+H100 host with torch 2.11), so ranks that share one card need no host
+copy here.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.distributed as dist
+
+_MESH = None
+
+
+@contextlib.contextmanager
+def using(mesh):
+    """Runs the block with ``mesh`` as the current mesh (None: none)."""
+    global _MESH
+    before, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = before
+
+
+def current():
+    return _MESH
+
+
+def multi_rank() -> bool:
+    """True inside :func:`using` a mesh over several ranks."""
+    return _MESH is not None and _MESH.is_distributed
+
+
+def refuse(what: str, item: str = "20b") -> None:
+    """Raises ``NotImplementedError`` for ``what`` on a mesh of several
+    ranks: this slice splits the dense decoder's train step alone."""
+    if multi_rank():
+        raise NotImplementedError(
+            f"{what} on a mesh of several ranks ({dict(_MESH.shape)}) is "
+            f"not ported: ROADMAP queue 1, item {item}")
+
+
+def group(axis: str, mesh=None):
+    """The process group of this rank's line along ``axis`` of ``mesh``
+    (default: the current one), or None where there is nothing to
+    communicate (no mesh, one process, size 1)."""
+    mesh = _MESH if mesh is None else mesh
+    if mesh is None or not mesh.is_distributed \
+            or mesh.shape.get(axis, 1) == 1:
+        return None
+    return mesh.groups[axis]
+
+
+def size(axis: str) -> int:
+    """The current mesh's size along ``axis``: its ranks there, 1 outside
+    a mesh of several ranks."""
+    return _MESH.shape.get(axis, 1) if multi_rank() else 1
+
+
+def rank(axis: str) -> int:
+    return 0 if not multi_rank() else _MESH.coords()[axis]
+
+
+# ------------------------------------------- plain (untracked) collectives
+
+def all_reduce(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM,
+               mesh=None):
+    """The all-reduce of ``x`` over ``axis`` of ``mesh`` (default: the
+    current one), a new tensor; ``x`` itself where there is nothing to
+    reduce."""
+    g = group(axis, mesh)
+    if g is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=op, group=g)
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int,
+               mesh=None) -> torch.Tensor:
+    """The blocks of ``axis``'s ranks concatenated along ``dim``, in rank
+    order; ``x`` itself where there is nothing to gather."""
+    g = group(axis, mesh)
+    if g is None:
+        return x
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+    dist.all_gather(parts, x, group=g)
+    return torch.cat(parts, dim=dim)
+
+
+def block(x: torch.Tensor, axis: str, dim: int, mesh=None) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (``x`` split evenly over
+    ``axis`` of ``mesh``, default the current one)."""
+    if group(axis, mesh) is None:
+        return x
+    mesh = _MESH if mesh is None else mesh
+    n = mesh.shape[axis]
+    return x.chunk(n, dim=dim)[mesh.coords()[axis]].contiguous()
+
+
+# ------------------------------------------------- differentiable forms
+# Each keeps the mesh of its forward, so that its backward reduces over
+# the same ranks wherever the backward runs.
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, _MESH
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis, mesh=ctx.mesh), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, _MESH
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block(g, ctx.axis, ctx.dim, ctx.mesh), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, _MESH
+        return block(x, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim, ctx.mesh), None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated over "model") as the input of a column-split
+    projection: its gradient, a partial sum on each rank, is all-reduced."""
+    return x if group("model") is None else _Copy.apply(x, "model")
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over "model" of each rank's partial ``x`` (a row-split
+    projection's output); the gradient passes through."""
+    return x if group("model") is None else _Reduce.apply(x, "model")
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Each rank's block of a tensor split over "model" along ``dim``,
+    gathered whole; the gradient keeps this rank's block."""
+    return x if group("model") is None else _Gather.apply(x, "model", dim)
+
+
+def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` (replicated over
+    "model"); the gradient blocks are gathered whole."""
+    return x if group("model") is None else _Split.apply(x, "model", dim)

@@ -10,12 +10,16 @@ reference names it: the port's flat keys split at ``.`` and joined with
 the checkpoint's names (:func:`repro_torch.checkpoint.checkpointer.map_named`).
 
 Placement: :func:`place` is the counterpart of ``jax.device_put(tree,
-shardings)``. A mesh whose slots are one device (the one card, or the
-CPU repeated in tests) moves each leaf there; a mesh of several distinct
-devices raises, since splitting a leaf across cards needs
-``torch.distributed`` (ROADMAP queue 1, item 20). The reference's
-activation hints are layout constraints with no effect on values and
-the port places no activation across devices, so :func:`hint` returns
+shardings)``. On a mesh over the ranks of a process group
+(``launch.mesh.make_host_mesh`` under ``torchrun``) each rank keeps its
+own block of each leaf, found from the spec and the rank's mesh
+coordinates, and :func:`gather` makes the leaves whole again; the
+collectives of the step are ``models/parallel.py``'s. Within one process
+a mesh whose slots are one device (the one card, or the CPU repeated in
+tests) moves each leaf there, and a mesh of several distinct devices
+raises (one process drives one device). The reference's activation
+hints are layout constraints with no effect on values, and the ranks'
+activations follow the model's own collectives, so :func:`hint` returns
 its input and the models need not call it.
 """
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any
 import torch
 
 from repro_torch.checkpoint.checkpointer import map_named
+from repro_torch.models import parallel
 
 
 class PartitionSpec(tuple):
@@ -78,6 +83,21 @@ class NamedSharding:
                                  f"over {ways} shards ({self.spec!r})")
             out[dim] = shape[dim] // ways
         return tuple(out)
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``x`` (a view): along each
+        split dim the slot of the rank's mesh coordinates (row-major over
+        a tuple of axes)."""
+        coords = self.mesh.coords()
+        shape = self.shard_shape(x.shape)
+        for dim, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            idx = 0
+            for a in ((entry,) if isinstance(entry, str) else entry):
+                idx = idx * self.mesh.shape[a] + coords[a]
+            x = x.narrow(dim, idx * shape[dim], shape[dim])
+        return x
 
 
 # ------------------------------------------------------- activation hints
@@ -273,33 +293,105 @@ def _is_sharding(x) -> bool:
     return x is None or isinstance(x, NamedSharding)
 
 
+# The layouts that the dense decoder's train step runs split over "model"
+# (ROADMAP item 20a): each leaf's rule and the dims of it that may be split.
+_SLICE_LAYOUTS: list[tuple[re.Pattern, tuple[int, ...]]] = [
+    (re.compile(p), d) for p, d in [
+        (r"(^|/)embed$",             (-2, -1)),   # (V, D): vocab or d_model
+        (r"(^|/)lm_head/w$",         (-1, -2)),   # (D, V)
+        (r"(^|/)attn/w[qkv]/[wb]$",  (-2,)),      # (D, H, hd), (H, hd): heads
+        (r"(^|/)attn/wo/w$",         (-2,)),      # (H*hd, D): the heads' rows
+        (r"(^|/)mlp/w[ig]/[wb]$",    (-1,)),      # (D, F), (F,)
+        (r"(^|/)mlp/wo/w$",          (-2,)),      # (F, D)
+    ]]
+
+
+def _refusal(path: str, spec) -> str | None:
+    """Why the leaf at ``path`` cannot be split by ``spec`` over ranks, or
+    None: a data-axis entry is FSDP (ROADMAP item 20c); a "model" split
+    that is not one of :data:`_SLICE_LAYOUTS` (the MoE, VLM, recurrent
+    and audio leaves; attention's head_dim and input-dim fallbacks) is
+    item 20b."""
+    split = [d for d, e in enumerate(spec) if e is not None]
+    if any(spec[d] != "model" for d in split):
+        return (f"{path} split over {spec!r}: data-axis (FSDP) placement "
+                f"is ROADMAP queue 1, item 20c")
+    if not split:
+        return None
+    for pat, dims in _SLICE_LAYOUTS:
+        if pat.search(path):
+            if split[0] - len(spec) in dims:
+                return None
+            break
+    return (f"{path} split over {spec!r}: a layout outside the dense "
+            f"decoder's tensor parallel slice is ROADMAP queue 1, item 20b")
+
+
 def place(tree, shardings):
     """``tree`` with each tensor leaf on its sharding's device (the
     counterpart of ``jax.device_put(tree, shardings)``). ``shardings``
     mirrors ``tree``, or is one :class:`NamedSharding` for every leaf; a
     None leaf of it, an abstract mesh (``meta`` slots: the production
     meshes) or a fake tensor (the dry run's stand-ins, which hold no
-    storage) leaves the tensor where it is. Raises
-    ``NotImplementedError`` for a mesh of several distinct devices."""
+    storage) leaves the tensor where it is. On a mesh over several ranks
+    each leaf becomes this rank's block, a tensor of its own on the
+    rank's device; a layout outside the dense decoder's slice raises
+    ``NotImplementedError`` (:func:`_refusal`). Within one process a
+    mesh of several distinct devices raises ``NotImplementedError``."""
     from torch._subclasses.fake_tensor import is_fake
 
-    def put(x, s):
+    def check(path, x, s):
+        if s is not None and s.mesh.is_distributed:
+            why = _refusal(path, s.spec)
+            if why is not None:
+                raise NotImplementedError(why)
+        return x
+
+    def put(path, x, s):
         if s is None or is_fake(x):
             return x
+        if s.mesh.is_distributed:
+            b = s.block(x)
+            return torch.empty(b.shape, dtype=b.dtype,
+                               device=s.mesh.local_device()).copy_(b)
         devices = s.mesh.distinct_devices()
         if len(devices) > 1:
             raise NotImplementedError(
-                f"placing over {len(devices)} distinct devices needs "
-                f"multi-card model and FSDP parallelism through "
-                f"torch.distributed: ROADMAP queue 1, item 20 (mesh "
-                f"{dict(s.mesh.shape)}, spec {s.spec!r})")
+                f"placing over {len(devices)} distinct devices from one "
+                f"process: split the leaves over the ranks of a process "
+                f"group (launch.mesh.init_distributed, one rank per card; "
+                f"ROADMAP queue 1, item 20) (mesh {dict(s.mesh.shape)}, "
+                f"spec {s.spec!r})")
         if devices[0].type == "meta":        # an abstract mesh
             return x
         return x.to(devices[0])
 
     if _is_sharding(shardings):
-        return map_named(lambda _, x: put(x, shardings), tree)
+        map_named(lambda path, x: check(path, x, shardings), tree)
+        return map_named(lambda path, x: put(path, x, shardings), tree)
+    _zip_map(check, tree, shardings)         # every leaf, before any block
     return _zip_map(put, tree, shardings)
+
+
+def gather(tree, shardings):
+    """The inverse of :func:`place` on a mesh over several ranks: each
+    leaf whole again on this rank's device (its blocks all-gathered
+    along each split dim, over the axes of its spec entry). Other leaves
+    are returned as they are."""
+    def whole(path, x, s):
+        if s is None or not isinstance(x, torch.Tensor) \
+                or not s.mesh.is_distributed:
+            return x
+        for dim, entry in enumerate(s.spec):
+            if entry is None:
+                continue
+            for a in reversed((entry,) if isinstance(entry, str) else entry):
+                x = parallel.all_gather(x, a, dim, mesh=s.mesh)
+        return x
+
+    if _is_sharding(shardings):
+        return map_named(lambda path, x: whole(path, x, shardings), tree)
+    return _zip_map(whole, tree, shardings)
 
 
 def shard_bytes(tree, shardings) -> int:
@@ -308,7 +400,7 @@ def shard_bytes(tree, shardings) -> int:
     numbers: none)."""
     total = []
 
-    def add(x, s):
+    def add(path, x, s):
         if isinstance(x, torch.Tensor):
             shape = x.shape if s is None else s.shard_shape(x.shape)
             total.append(math.prod(shape) * x.element_size())
@@ -318,20 +410,23 @@ def shard_bytes(tree, shardings) -> int:
     return sum(total)
 
 
-def _zip_map(fn, tree, other):
-    """``fn(leaf, other_leaf)`` over two trees of one structure, whose
-    second has NamedSharding (or None) leaves."""
+def _zip_map(fn, tree, other, prefix: tuple = ()):
+    """``fn(name, leaf, other_leaf)`` over two trees of one structure,
+    whose second has NamedSharding (or None) leaves; ``name`` is the
+    leaf's path as :func:`map_named` names it."""
     if _is_sharding(other):
-        return fn(tree, other)
+        return fn("/".join(prefix), tree, other)
     if isinstance(tree, dict):
         if set(tree) != set(other):
             raise ValueError(f"tree keys {sorted(tree)} != sharding keys "
                              f"{sorted(other)}")
-        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+        return {k: _zip_map(fn, v, other[k], prefix + tuple(str(k).split(".")))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         if len(tree) != len(other):
             raise ValueError(f"{len(tree)} leaves against {len(other)} "
                              f"shardings")
-        out = [_zip_map(fn, v, o) for v, o in zip(tree, other)]
+        out = [_zip_map(fn, v, o, prefix + (str(i),))
+               for i, (v, o) in enumerate(zip(tree, other))]
         return out if isinstance(tree, list) else tuple(out)
     raise ValueError(f"no sharding for leaf {type(tree).__name__}")

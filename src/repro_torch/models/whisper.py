@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import parallel
 from repro_torch.models.decoder import compute_dtype, make_generator
 
 
@@ -138,6 +139,7 @@ def decode_train(params: dict, enc_x: torch.Tensor, tokens: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, T+1)}."""
+    parallel.refuse("the Whisper loss_fn")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     logits = decode_train(params, enc_x, tokens[:, :-1], cfg)
@@ -149,6 +151,7 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
     """Encode the frames and run the decoder over the whole token prefix,
     filling the self-KV caches (slot_pos = arange(T), cache length T) and
     the cross-KV. Returns (last-token logits (B, 1, V), cache)."""
+    parallel.refuse("the Whisper prefill")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -200,6 +203,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)) against the cached cross-KV; the
     self-KV is written in place. Returns (logits (B, 1, V), cache)."""
+    parallel.refuse("the Whisper decode_step")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     x = _add_positions(x, torch.full((1,), int(pos), dtype=torch.int32,
                                      device=x.device), cfg)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import parallel
 from repro_torch.models.decoder import compute_dtype, make_generator
 from repro_torch.models.mamba2 import (init_mamba, init_mamba_state,
                                        mamba_decode, mamba_forward)
@@ -111,6 +112,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
+    parallel.refuse("the Zamba loss_fn")
     tokens = batch["tokens"]
     logits, _ = forward(params, tokens[:, :-1], cfg)
     return L.cross_entropy(logits, tokens[:, 1:])
@@ -122,6 +124,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     block's KV caches (one per application, slot_pos = arange(T), cache
     length T). Always the chunked attention, as in the reference.
     Returns (last-token logits (B, 1, V), cache)."""
+    parallel.refuse("the Zamba prefill")
     b, t = tokens.shape
     dt = compute_dtype(cfg)
     x = L.embed(params["embed"], tokens, dt)
@@ -175,6 +178,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)); the cache is written in place.
     Returns (logits (B, 1, V), cache)."""
+    parallel.refuse("the Zamba decode_step")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     layers, sp = _views(params)
     mc, ac = cache["mamba"], cache["attn"]

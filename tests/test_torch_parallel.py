@@ -1,0 +1,422 @@
+"""Tensor and data parallel training of the dense decoder over
+``torch.distributed`` ranks (``launch/mesh.py``, ``models/parallel.py``,
+``models/sharding.place`` / ``gather``, the split layers, the pruning's
+reduced bisection, the train step's data rows, the checkpointer, the
+train launcher under ``torchrun``), on the CPU over gloo.
+
+Pure tests first (the backend rule, rank coordinates, the refusals, the
+identity outside a mesh). Then 2 and 4 ranks run every rank-side check
+of ``tests/_parallel_workers.py`` once each, and the tests read their
+results against one process on the same inputs: layers rtol 1e-5 / atol
+1e-6 with their gradients, masks bitwise, two AdamW steps' losses rtol
+1e-4 and params atol 1e-5. Last, the train launcher on 4 ranks resumes
+the reference's own 4-device ``--model-parallel 2`` checkpoint and
+holds its losses and final checkpoint."""
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import _parallel_workers as W
+from repro_torch import optim
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint.checkpointer import named_leaves
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import train as train_mod
+from repro_torch.core.steps import TrainState
+from repro_torch.launch.mesh import Mesh, backend_for
+from repro_torch.models import get_model, parallel
+from repro_torch.models.sharding import P, named, param_spec_tree, place
+
+ROOT = Path(__file__).resolve().parent.parent
+HERE = Path(__file__).resolve().parent
+CPU = torch.device("cpu")
+RANK_TIMEOUT = 240                # seconds a rank process may take
+STEPS = {2: [("llama3.2-3b", 2), ("llama3.2-3b", 1), ("qwen2.5-32b", 2),
+             ("deepseek-7b", 2), ("granite-3-2b-v515", 2),
+             ("deepseek-7b-v515", 2)],
+         4: [("llama3.2-3b", 2), ("qwen-h8", 4)]}
+LAYERS = ("attn_forward", "attn_forward_flash", "swiglu", "embed_vocab",
+          "embed_d_model", "unembed_vocab", "unembed_d_model",
+          "cross_entropy_vocab", "vocab_chain")
+
+torch.set_num_threads(1)
+
+
+def _env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(HERE)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _spawn(world: int, out: Path, extra: dict) -> list[dict]:
+    """Runs the rank checks in ``world`` processes; each rank's results.
+    A rank that fails or hangs fails the caller."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "_parallel_workers.py"), str(world),
+         str(r), str(out / "store"), str(out), json.dumps(extra)],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} of {world}: {logs[r][-3000:]}"
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+_RANKS: dict = {}
+_DIRS: dict = {}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """world -> the per-rank results of that many ranks (run once)."""
+    def get(world: int) -> list[dict]:
+        if world not in _RANKS:
+            out = _DIRS[world] = tmp_path_factory.mktemp(f"ranks{world}")
+            extra = {"steps": STEPS[world]}
+            if world == 4:
+                src, dst = out / "one_rank", out / "four_ranks"
+                Checkpointer(str(src)).save(W.ckpt_state(), 1)
+                extra["ckpt"] = [str(src), str(dst)]
+            _RANKS[world] = _spawn(world, out, extra)
+        return _RANKS[world]
+    return get
+
+
+_ONE: dict = {}
+
+
+def _one_rank(name: str) -> dict:
+    if name not in _ONE:
+        _ONE[name] = W.one_rank_steps(name)
+    return _ONE[name]
+
+
+def _fake_mesh(mp: int = 2, world: int = 4) -> Mesh:
+    """A mesh over ranks with no process group behind it: enough for
+    every refusal, which comes before any collective."""
+    ranks = np.arange(world).reshape(world // mp, mp)
+    devices = np.empty(ranks.shape, dtype=object)
+    devices.fill(CPU)
+    return Mesh(devices, ("data", "model"), ranks=ranks)
+
+
+# -------------------------------------------------------------- pure
+
+@pytest.mark.parametrize("devices,backend", [
+    (["cpu"] * 4, "gloo"),
+    (["cuda"] * 2, "gloo"),                 # two ranks on one card
+    (["cuda:0", "cuda:0"], "gloo"),
+    (["cuda:0", "cuda:1", "cuda:2", "cuda:3"], "nccl"),
+    (["cuda:0", "cpu"], "gloo"),
+    (["cuda:1"], "nccl"),
+])
+def test_backend_for(devices, backend):
+    assert backend_for(devices) == backend
+
+
+@pytest.mark.parametrize("world,mp", [(2, 1), (2, 2), (4, 2), (4, 4), (8, 2)])
+def test_rank_to_mesh_coordinates(world, mp):
+    mesh = _fake_mesh(mp, world)
+    assert dict(mesh.shape) == {"data": world // mp, "model": mp}
+    assert mesh.is_distributed
+    for r in range(world):
+        assert mesh.coords(rank=r) == {"data": r // mp, "model": r % mp}
+    one = Mesh(np.array([[CPU]], dtype=object), ("data", "model"))
+    assert not one.is_distributed and one.coords() == {"data": 0, "model": 0}
+
+
+def _moe_params():
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    return get_model(cfg).init(0, device=CPU)
+
+
+@pytest.mark.parametrize("case,item", [
+    ("moe", "20b"), ("head_dim_fallback", "20b"), ("fsdp", "20c")])
+def test_place_refuses_outside_the_slice(case, item):
+    """The MoE leaves (experts on "model"), attention's head_dim fallback
+    (llama's smoke Hkv 2 over 4 model shards) and any data-axis entry
+    (FSDP) raise, naming the ROADMAP item; the dense smoke state at 2
+    model shards passes the check."""
+    mesh = _fake_mesh(4 if case == "head_dim_fallback" else 2)
+    if case == "moe":
+        params = _moe_params()
+        specs = param_spec_tree(params, 2)
+    elif case == "head_dim_fallback":
+        params = get_model(get_smoke_config("llama3.2-3b")).init(
+            0, device=CPU)
+        specs = param_spec_tree(params, 4)
+        assert specs["layers.attn.wk.w"] == P(None, None, None, "model")
+    else:
+        params = {"layers.mlp.wi.w": torch.ones(2, 4, 8)}
+        specs = param_spec_tree(params, 2, fsdp=(("data",), 2))
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        place(params, named(mesh, specs))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llava-next-34b",
+                                  "xlstm-1.3b", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_other_families_refuse_a_mesh_of_ranks(arch):
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    params = model.init(0, device=CPU)
+    batch = {"tokens": torch.zeros((2, 9), dtype=torch.int64)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((2, cfg.num_patches, cfg.d_model))
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
+    with parallel.using(_fake_mesh()):
+        with pytest.raises(NotImplementedError, match="item 20b"):
+            model.loss_fn(params, batch)
+        with pytest.raises(NotImplementedError, match="item 20b"):
+            model.prefill(params, batch)
+    model.loss_fn(params, batch)            # no mesh: as before
+
+
+def test_dense_serve_refuses_a_mesh_of_ranks():
+    model = get_model(get_smoke_config("llama3.2-3b"))
+    params = model.init(0, device=CPU)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with parallel.using(_fake_mesh()):
+        with pytest.raises(NotImplementedError, match="prefill"):
+            model.prefill(params, {"tokens": tokens})
+        with pytest.raises(NotImplementedError, match="decode"):
+            model.decode_step(params, model.init_cache(1, 4, device=CPU),
+                              tokens[:, :1], 0)
+
+
+def test_outside_a_mesh_every_function_is_the_identity():
+    """No mesh, or a mesh of one process: the collectives return their
+    input itself, so the one-process step runs the ops it ran before."""
+    x = torch.randn(3, 4)
+    one = Mesh(np.array([[CPU, CPU]], dtype=object), ("data", "model"))
+    for mesh in (None, one):
+        with parallel.using(mesh):
+            assert parallel.copy_to_model(x) is x
+            assert parallel.reduce_from_model(x) is x
+            assert parallel.gather_from_model(x, -1) is x
+            assert parallel.split_to_model(x, -1) is x
+            assert parallel.all_reduce(x, "data") is x
+            assert parallel.size("model") == 1 and parallel.rank("model") == 0
+            parallel.refuse("anything")
+    assert parallel.current() is None
+
+
+# ------------------------------------------------------ over 2 and 4 ranks
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_host_mesh_spans_the_world(ranks, world):
+    for r, res in enumerate(ranks(world)):
+        for mp, m in res["meshes"].items():
+            assert m["shape"] == {"data": world // mp, "model": mp}
+            assert m["ranks"] == np.arange(world).reshape(-1, mp).tolist()
+            assert m["coords"] == {"data": r // mp, "model": r % mp}
+
+
+@pytest.mark.parametrize("name", [*W.DENSE, "granite-3-2b-v515",
+                                  "deepseek-7b-v515"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_place_gather_round_trip(ranks, world, name):
+    """At 2 model shards ((1, 2) on 2 ranks, (2, 2) on 4): every leaf of
+    the train state placed is the block of the whole leaf and gathers
+    back bitwise, and a rank holds exactly ``shard_bytes``."""
+    for res in ranks(world):
+        r = res["round_trips"][name]
+        assert r["blocks"] and r["gathered"]
+        assert r["bytes"][0] == r["bytes"][1]
+    specs = ranks(world)[0]["round_trips"][name]["specs"]
+    assert specs["layers.attn.wq.w"] == (None, None, "model", None)
+    assert specs["layers.mlp.wo.w"] == (None, "model", None)
+    vocab = ("model", None) if "v515" not in name else (None, "model")
+    assert specs["embed"] == vocab
+    if name.startswith("qwen"):
+        assert specs["layers.attn.wq.b"] == (None, "model", None)
+    if name.startswith("deepseek"):
+        assert specs["lm_head.w"] == ((None, "model") if "v515" not in name
+                                      else ("model", None))
+
+
+@pytest.mark.parametrize("case", LAYERS)
+@pytest.mark.parametrize("world", [2, 4])
+def test_layer_matches_one_rank(ranks, world, case):
+    """Each split layer at mesh (1, world), its output and the gradients
+    of a fixed random contraction of it (the leaves' made whole, the
+    input's) against one rank at rtol 1e-5 / atol 1e-6; every rank's
+    result the same bits."""
+    results = [res["layers"][case] for res in ranks(world)]
+    (out, grads, gx), (out1, grads1, gx1) = results[0]
+    torch.testing.assert_close(out, out1, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx, gx1, rtol=1e-5, atol=1e-6)
+    for k in grads1:
+        torch.testing.assert_close(grads[k], grads1[k], rtol=1e-5,
+                                   atol=1e-6, msg=k)
+    for (o, g, x), _ in results[1:]:
+        assert torch.equal(o, out) and torch.equal(x, gx)
+        assert all(torch.equal(g[k], grads[k]) for k in g)
+
+
+@pytest.mark.parametrize("what", ["masks_0.5", "masks_0.25", "masks_0.1",
+                                  "compress_with_masks_fp8",
+                                  "compress_with_masks_int8"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_split_masks_are_the_one_rank_blocks(ranks, world, what):
+    """``magnitude_masks(shardings=)`` on each rank's blocks (ties, leaves
+    sharing a bisection and one past ``SMALL``) and
+    ``compress_with_masks`` (pruned, then fp8 e5m2 or int8 at the whole
+    leaf's scale) of a whole model: bitwise each rank's block of the
+    one-rank result."""
+    for res in ranks(world):
+        local, whole = res["masks"][what]
+        assert set(local) == set(whole)
+        for k in whole:
+            assert torch.equal(local[k], whole[k]), k
+
+
+@pytest.mark.parametrize("name,mp", STEPS[2], ids=lambda v: str(v))
+def test_adamw_steps_match_one_rank_2(ranks, name, mp):
+    _check_steps(ranks(2), name, mp)
+
+
+@pytest.mark.parametrize("name,mp", STEPS[4], ids=lambda v: str(v))
+def test_adamw_steps_match_one_rank_4(ranks, name, mp):
+    _check_steps(ranks(4), name, mp)
+
+
+def _check_steps(results, name, mp):
+    """Two AdamW steps of the hetero train step (4 tiers, batch 8 x 16)
+    under the train launcher's schedule on the mesh against one rank:
+    losses rtol 1e-4, params atol 1e-5, Adam's moments (linear in the
+    gradients) rtol 1e-4 / atol 1e-7; every rank the same losses and
+    gathered params. AdamW's update is sign-like: a gradient that is
+    rounding noise in both orders of summation (|g| far below eps) moves
+    its weight by up to +-lr in either, so the params are held under the
+    launcher's warmup, where lr stays small, and the gradients through
+    the moments."""
+    one = _one_rank(name)
+    got = results[0]["steps"][f"{name} {mp}"]
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
+    for k, v in one["params"].items():
+        torch.testing.assert_close(got["params"][k], v, rtol=0, atol=1e-5,
+                                   msg=k)
+        for mom in ("m", "v"):
+            torch.testing.assert_close(got[mom][k], one[mom][k], rtol=1e-4,
+                                       atol=1e-7, msg=f"{mom} {k}")
+    for res in results[1:]:
+        r = res["steps"][f"{name} {mp}"]
+        assert r["losses"] == got["losses"]
+        assert all(torch.equal(r["params"][k], got["params"][k])
+                   for k in got["params"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_launcher_mesh_spans_the_world_under_torchrun(ranks, world):
+    """The twin of ``test_torch_lm_model.py::
+    test_launcher_mesh_is_its_device_alone_on_a_multi_card_host``: with
+    ``WORLD_SIZE > 1`` the launcher's mesh at --model-parallel 2 is the
+    world's ranks, (world / 2, 2), and its loss is the one-process
+    run's."""
+    one = train_mod.train(get_smoke_config("llama3.2-3b"), steps=1, batch=8,
+                          seq=8, device="cpu")
+    for r, res in enumerate(ranks(world)):
+        got = res["launcher"]
+        assert got["shape"] == {"data": world // 2, "model": 2}
+        assert got["ranks"] == np.arange(world).reshape(-1, 2).tolist()
+        assert got["coords"] == {"data": r // 2, "model": r % 2}
+        assert got["distinct"] == ["cpu"]
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
+
+
+def _npz(path) -> dict:
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        return {m["name"]: (z[k], m["dtype"]) for k, m in meta.items()}
+
+
+def test_checkpoint_crosses_one_rank_and_four(ranks):
+    """A one-rank checkpoint restores on 4 ranks as each rank's blocks,
+    bitwise, and their save writes the one-rank file's leaves back,
+    bitwise."""
+    assert all(res["ckpt"]["same"] and res["ckpt"]["step"] == 1
+               for res in ranks(4))
+    a = _npz(_DIRS[4] / "one_rank" / "ckpt_00000001.npz")
+    b = _npz(_DIRS[4] / "four_ranks" / "ckpt_00000001.npz")
+    assert set(a) == set(b)
+    for k, (v, dt) in a.items():
+        assert b[k][1] == dt and np.array_equal(b[k][0], v), k
+
+
+# ---------------------------------------- against the sharded reference
+
+def _losses(log: str) -> dict:
+    return {int(m["step"]): m["loss"] for m in
+            (json.loads(line) for line in log.splitlines()
+             if re.match(r'^\{"step"', line))}
+
+
+def test_launcher_matches_the_sharded_reference(tmp_path):
+    """The reference's launcher on 4 host devices (a (2, 2) mesh at
+    --model-parallel 2), 3 steps with a checkpoint each; the port's on 4
+    gloo ranks under torchrun resumes from a copy of its step-1
+    checkpoint to step 3: printed losses within 1e-4, every leaf of the
+    step-3 checkpoint within 1e-5 (names and dtypes equal); that file,
+    written by 4 ranks, restores bitwise in one process."""
+    args = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3", "--batch",
+            "8", "--seq", "32", "--model-parallel", "2", "--ckpt-every", "1",
+            "--log-every", "1"]
+    ref, port = tmp_path / "ref", tmp_path / "port"
+    env = _env()
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run([sys.executable, "-m", "repro.launch.train", *args,
+                        "--ckpt-dir", str(ref)], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "mesh={'data': 2, 'model': 2}" in r.stdout
+    ref_losses = _losses(r.stdout)
+    port.mkdir()
+    shutil.copy(ref / "ckpt_00000001.npz", port)
+    p = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "4",
+                        "-m", "repro_torch.launch.train", *args,
+                        "--ckpt-dir", str(port), "--device", "cpu"],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "restored step 1" in p.stdout
+    assert "mesh={'data': 2, 'model': 2}" in p.stdout
+    got = _losses(p.stdout)
+    assert sorted(got) == [2, 3]
+    for step, loss in got.items():
+        np.testing.assert_allclose(loss, ref_losses[step], rtol=1e-4)
+    a, b = _npz(ref / "ckpt_00000003.npz"), _npz(port / "ckpt_00000003.npz")
+    assert set(a) == set(b)
+    for k, (v, dt) in a.items():
+        assert b[k][1] == dt, k
+        np.testing.assert_allclose(b[k][0], v, rtol=0, atol=1e-5, err_msg=k)
+    # the 4-rank file in one process
+    model = get_model(get_smoke_config("llama3.2-3b"))
+    template = TrainState.create(model, optim.adamw(1e-3), 0, device=CPU)
+    state, step = Checkpointer(str(port)).restore(template)
+    assert step == 3
+    flat = dict(named_leaves(state))
+    assert set(flat) == set(b)
+    for k, t in flat.items():
+        assert np.array_equal(t.numpy(), b[k][0]), k
