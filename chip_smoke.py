@@ -121,9 +121,9 @@ checkpoint reads faults') needs that one named too.
    (then the run from the CPU's params and prompt on the card and the
    CPU: compressed params bitwise, payload bits exactly, tokens equal up
    to the CPU's first top-2 logit gap below 1e-4); train_100m at full
-   width (80,753,152 params, 8 x 512 over 4 tiers, 100 of the
+   width (80,753,152 params, 8 x 512 over 4 tiers, 50 of the
    reference's 300 steps; losses finite, the last below the first,
-   s/step, tokens/s and peak memory; a checkpoint at steps 50 and 100,
+   s/step, tokens/s and peak memory; a checkpoint at steps 25 and 50,
    the last restoring bitwise to the live state).
    Phase "async": the 256-client bench fleet and its width twin under
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
@@ -217,7 +217,7 @@ checkpoint reads faults') needs that one named too.
    finite, flash on the wgmma kernel at hd 128.
 8. Phase "recurrent serve": xlstm-1.3b whole (48 layers, 3,530,676,560
    params) at low and embedded and zamba2-2.7b whole (54 layers,
-   2,422,670,240 params) at hub and low, as in 6 (fake_quant 18 per
+   2,422,670,240 params) at low, as in 6 (fake_quant 18 per
    quantized tier), each with a profiled window of 8 decode steps on the
    low tier; then, in f32 at full width and a 512-token prompt (two
    256-chunks carried), the decode replay against prefill: xLSTM at 8
@@ -261,7 +261,7 @@ checkpoint reads faults') needs that one named too.
    step's ``max_memory_allocated`` (reset before it); (c) the dry-run
    record of llama3.2-3b at decode_32k on the 16 x 16 production mesh:
    status ok, its flops, traffic and per-device argument bytes printed;
-   (d) the dense decoder over two ranks that share the card (gloo: NCCL
+   (d) the decoder over two ranks that share the card (gloo: NCCL
    refuses two ranks on one device), each a process of its own
    (``chip_smoke.py --mesh-rank R``, started and waited for by the phase
    with a time limit; a rank's nonzero exit fails the phase), through
@@ -277,9 +277,15 @@ checkpoint reads faults') needs that one named too.
    exactly ``shard_bytes``; (d2) 4 layers, bf16, flash (wgmma at the
    local 12 / 4 heads), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s,
    peak memory and a profiled step's busy share per rank, losses within
-   3 x the one-rank run's own bf16-vs-f32 distance of its bf16 losses;
-   and llama3.2-3b's dry-run argument bytes per device on a (1, 4)
-   mesh, whole and at 4 layers (computed).
+   3 x the one-rank run's own bf16-vs-f32 distance of its bf16 losses
+   (the reference's sharded bf16 step rounds each of 2 ranks' partial
+   sums as the ranks do, tests/test_torch_parallel_bf16.py); (d3) the
+   same two parts on granite-moe-1b-a400m at full width (experts split
+   over "model", 16 a rank; the embedding on d_model, its vocabulary
+   49155 being odd; on (2, 1) each tier's one 512-token MoE group
+   straddles the data ranks), with the MoE layer's share of the
+   profiled step's wall; and llama3.2-3b's dry-run argument bytes per
+   device on a (1, 4) mesh, whole and at 4 layers (computed).
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -859,7 +865,8 @@ def _flash_cases(device):
     zamba2-2.7b's shared block in the recurrent train phase, 32 / 32 heads
     at hd 80 (not a wgmma width, so the simt kernel), batch 2 per tier
     over 1024; llama3.2-3b's local heads on each of phase mesh's two
-    model ranks, 12 / 4 at hd 128, batch 2 over 1024; whisper-tiny's 6 heads of 64 at the audio train phase's
+    model ranks, 12 / 4 at hd 128, batch 2 over 1024, and granite-moe's
+    there (d3), 8 / 4 at hd 64; whisper-tiny's 6 heads of 64 at the audio train phase's
     shapes, batch 2 per tier: the encoder's non-causal self-attention over
     the 1500 frames (a ragged last 64-key tile of 28 keys), the
     cross-attention of 1024 queries over the 1500 frames (non-causal) and
@@ -907,6 +914,11 @@ def _flash_cases(device):
         ("local_heads_bf16", *qkv(2, 1024, 1024, bf16, cfg.replace(
             num_heads=cfg.num_heads // MESH_RANKS,
             num_kv_heads=cfg.num_kv_heads // MESH_RANKS)), {}, "wgmma"),
+        ("moe_local_heads_bf16", *qkv(2, 1024, 1024, bf16,
+                                      granite_moe.replace(
+            num_heads=granite_moe.num_heads // MESH_RANKS,
+            num_kv_heads=granite_moe.num_kv_heads // MESH_RANKS)), {},
+         "wgmma"),
         ("smoke_hd32_bf16", *qkv(2, 64, 64, bf16, smoke), {}, "simt")]
 
 
@@ -1018,7 +1030,8 @@ def phase_lm_kernels(device) -> dict:
         if label not in ("train_bf16", "train_f32", "granite_bf16",
                          "granite_moe_bf16", "llava_bf16", "zamba_bf16",
                          "whisper_enc_bf16", "whisper_xattn_bf16",
-                         "whisper_dec_bf16", "local_heads_bf16"):
+                         "whisper_dec_bf16", "local_heads_bf16",
+                         "moe_local_heads_bf16"):
             continue
         n_bytes, flops = flash_work(q, k, **kw)
         rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
@@ -1771,11 +1784,11 @@ EXAMPLE_VAL_ACC = 0.97
 EXAMPLE_VAL_ACC_OF = {"async buffer=2 + jitter": 0.965 - 0.01}
 # the reference's default is 300: at 300 one host took 1134 s of command,
 # 1086 s of phases (PERF.md §7). 100 since phase mesh's ranks (d) came
-# (150 took 820 s of phases on an H100 80GB HBM3 host), a checkpoint every
-# TRAIN_100M_CKPT_EVERY in place of the script's 100, so that two are
-# written and the last is the final step's
-TRAIN_100M_STEPS = 100
-TRAIN_100M_CKPT_EVERY = 50
+# (150 took 820 s of phases on an H100 80GB HBM3 host), 50 since its MoE
+# part (d3) came; a checkpoint every TRAIN_100M_CKPT_EVERY in place of the
+# script's 100, so that two are written and the last is the final step's
+TRAIN_100M_STEPS = 50
+TRAIN_100M_CKPT_EVERY = 25
 SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
@@ -2964,7 +2977,7 @@ QWEN_MOE = "qwen3-moe-30b-a3b"
 LLAVA = "llava-next-34b"
 WIDE_LAYERS = 4     # qwen3-moe (of 48) and llava (of 60) serve at full width
 DECODE_STEPS = 8    # the profiled MoE decode window
-HUB_GEN = 2         # tokens of the MoE and VLM hub tiers' checked serve
+HUB_GEN = 2         # tokens of the MoE, VLM and Zamba hubs' checked serve
 
 
 def _serve_tiers(cfg, params, tiers, label: str, device, flash: int = 0,
@@ -3234,7 +3247,8 @@ def phase_moe_train(device) -> dict:
 # ------------------------------------------------ recurrent families
 
 # xLSTM at its quantized tiers only (the warm-up call serves the hub), the
-# embedded tier's k-means over the 2.11e9-element qkv among them
+# embedded tier's k-means over the 2.11e9-element qkv among them; Zamba at
+# low, and at the hub over HUB_GEN tokens since phase mesh (d3) came
 RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
 RECURRENT_TRAIN = {XLSTM: 8, ZAMBA: 12}     # one superblock; two applications
@@ -3258,7 +3272,10 @@ def phase_recurrent_serve(device) -> int:
         params = _full_params(cfg, arch, device)
         serve(cfg, "hub", batch=4, prompt_len=8, gen=2, params=params,
               device=device)                      # warm-up
-        total += _serve_tiers(cfg, params, tiers, arch, device)[0]
+        for tier in tiers:
+            kw = {"gen": HUB_GEN} if tier == "hub" else {}
+            total += _serve_tiers(cfg, params, (tier,), arch, device,
+                                  **kw)[0]
         _profile_decode(cfg, params, "low", device)
         del params
         torch.cuda.empty_cache()
@@ -3416,6 +3433,9 @@ MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=3)  # (d2), warmup 2
 # bf16 rounding of each rank's partial sum of a row-split projection
 MESH_BF16_SLACK = 3.0
 MESH_RANK_TIMEOUT = 420             # seconds the ranks of (d) may take
+# (d3) runs the MoE decoder over the same two ranks at (d1)'s and (d2)'s
+# shapes and bars: granite-moe at full width (E 32 top-8, H 16 / 8, vocab
+# 49155, which splits the embedding on d_model)
 
 
 def phase_mesh(device) -> dict:
@@ -3423,8 +3443,9 @@ def phase_mesh(device) -> dict:
     --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on a
     one-card host) and at 1: losses and final params bitwise; (b) the LM
     dry run of the same config and shape on that host mesh against the
-    real state, batch and step on the card; (c) one production record.
-    Returns the launches of (a)."""
+    real state, batch and step on the card; (c) one production record;
+    (d) the dense and MoE decoders over two ranks (:func:`_mesh_ranks`).
+    Returns the launches of (a) and (d)."""
     import shutil
 
     import torch
@@ -3520,7 +3541,7 @@ def phase_mesh(device) -> dict:
     check(r["status"] == "ok", f"mesh: the {LM_ARCH} decode_32k record on "
                                f"16x16 is ok")
 
-    # (d) the dense decoder trained over two ranks that share the card
+    # (d) the dense and MoE decoders trained over two ranks sharing the card
     _state_bytes_per_card()
     for k, v in _mesh_ranks(device).items():
         got[k] = got.get(k, 0) + v
@@ -3551,10 +3572,10 @@ def _state_bytes_per_card() -> None:
               f"{shard_bytes(args[0], in_sh[0])}")
 
 
-def _mesh_cfg(layers: int, dtype: str):
+def _mesh_cfg(layers: int, dtype: str, arch: str = LM_ARCH):
     from repro_torch.configs import get_config
-    return get_config(LM_ARCH).replace(num_layers=layers, dtype=dtype,
-                                       use_flash=True)
+    return get_config(arch).replace(num_layers=layers, dtype=dtype,
+                                    use_flash=True)
 
 
 def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1):
@@ -3602,53 +3623,66 @@ def _count_exactness(params: dict, densities) -> dict:
     return out
 
 
+def _one_rank_runs(arch: str, device, d: Path, tags: tuple) -> dict:
+    """The one-rank runs of a (d) part, here: ``MESH_F32`` in f32 under
+    the launcher's warmup (its final params saved to ``d`` for the
+    ranks), and ``MESH_BF16`` in bf16 and in f32 (warmup 2) for the bf16
+    bar."""
+    import torch
+    cfg1 = _mesh_cfg(MESH_F32["layers"], "float32", arch)
+    print(f"mesh ({tags[0]}): one rank: {arch} {MESH_F32} f32 use_flash=True "
+          f"tiers=4 (launcher warmup 20)")
+    one, l1 = _mesh_train(cfg1, MESH_F32, 20, device)
+    torch.save({k: v.cpu() for k, v in one["state"]["params"].items()},
+               d / f"one_rank_f32_{arch}.pt")
+    del one["state"]
+    torch.cuda.empty_cache()
+    from repro_torch.models import get_model
+    whole = get_model(cfg1).init(0, device=device)
+    exact = _count_exactness(whole, (0.5, 0.25))
+    del whole
+    print(f"mesh ({tags[0]}): one-rank f32 counts that differ from the exact "
+          f"count, (halving, f32, exact), per leaf past 2^24 elements: "
+          f"{json.dumps(exact)}")
+    cfg2 = _mesh_cfg(MESH_BF16["layers"], "bfloat16", arch)
+    bf, _ = _mesh_train(cfg2, MESH_BF16, 2, device)
+    f32, _ = _mesh_train(cfg2.replace(dtype="float32"), MESH_BF16, 2, device)
+    dist_bf = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
+    print(f"mesh ({tags[1]}): one rank {MESH_BF16}: bf16 losses {bf['losses']} "
+          f"f32 losses {f32['losses']} (max distance {dist_bf:.6g}); "
+          f"bf16 sec_per_step {bf['sec_per_step']}")
+    del bf["state"], f32["state"]
+    torch.cuda.empty_cache()
+    return {"cfg1": cfg1, "cfg2": cfg2, "one": one, "l1": l1, "bf": bf,
+            "dist_bf": dist_bf}
+
+
 def _mesh_ranks(device) -> dict:
-    """(d) the dense decoder over ``MESH_RANKS`` ranks on the one card
-    (gloo: NCCL refuses two ranks on one device), each rank a process of
-    its own (``--mesh-rank``). (d1) llama3.2-3b at full width, 2 layers,
-    f32, flash (simt), 4 tiers, 8 x 256, 2 steps under the launcher's
-    warmup: meshes (1, 2) and (2, 1) against the one-rank launcher from
-    the same seed (losses rtol 1e-4, gathered params atol 1e-5), each
-    rank's masks bitwise the one-rank masks' blocks, its fake_quant
-    launches the one-rank count, its flash launches its attention calls,
-    its placed state exactly ``shard_bytes``. (d2) 4 layers, bf16, flash
-    (wgmma), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s, peak memory
-    and busy share per rank; losses within ``MESH_BF16_SLACK`` x the
-    one-rank run's own bf16-vs-f32 distance. Returns the ranks'
-    launches."""
+    """(d) the decoder over ``MESH_RANKS`` ranks on the one card (gloo:
+    NCCL refuses two ranks on one device), each rank a process of its
+    own (``--mesh-rank``). (d1) llama3.2-3b at full width, 2 layers, f32,
+    flash (simt), 4 tiers, 8 x 256, 2 steps under the launcher's warmup:
+    meshes (1, 2) and (2, 1) against the one-rank launcher from the same
+    seed (losses rtol 1e-4, gathered params atol 1e-5), each rank's masks
+    bitwise the one-rank masks' blocks, its fake_quant launches the
+    one-rank count, its flash launches its attention calls, its placed
+    state exactly ``shard_bytes``. (d2) 4 layers, bf16, flash (wgmma),
+    8 x 1024, 3 steps on (1, 2): s/step, tokens/s, peak memory and busy
+    share per rank; losses within ``MESH_BF16_SLACK`` x the one-rank
+    run's own bf16-vs-f32 distance. (d3) the same two parts on
+    granite-moe-1b-a400m (experts split over "model", 16 a rank; on
+    (2, 1) each tier's one 512-token group straddles the data ranks),
+    with the MoE layer's share of (d3)'s profiled step. Returns the
+    ranks' launches."""
     import shutil
     import socket
 
-    import torch
     d = Path(_ckpt_dir())
     try:
         # the one-rank runs, here
-        cfg1 = _mesh_cfg(MESH_F32["layers"], "float32")
-        print(f"mesh (d1): one rank: {LM_ARCH} {MESH_F32} f32 use_flash=True "
-              f"tiers=4 (launcher warmup 20)")
-        one, l1 = _mesh_train(cfg1, MESH_F32, 20, device)
-        torch.save({k: v.cpu() for k, v in one["state"]["params"].items()},
-                   d / "one_rank_f32.pt")
-        del one["state"]
-        torch.cuda.empty_cache()
-        from repro_torch.models import get_model
-        whole = get_model(cfg1).init(0, device=device)
-        exact = _count_exactness(whole, (0.5, 0.25))
-        del whole
-        print(f"mesh (d1): one-rank f32 counts that differ from the exact "
-              f"count, (halving, f32, exact), per leaf past 2^24 elements: "
-              f"{json.dumps(exact)}")
-        cfg2 = _mesh_cfg(MESH_BF16["layers"], "bfloat16")
-        bf, _ = _mesh_train(cfg2, MESH_BF16, 2, device)
-        f32, _ = _mesh_train(cfg2.replace(dtype="float32"), MESH_BF16, 2,
-                             device)
-        dist_bf = max(abs(a - b) for a, b in zip(bf["losses"],
-                                                 f32["losses"]))
-        print(f"mesh (d2): one rank {MESH_BF16}: bf16 losses {bf['losses']} "
-              f"f32 losses {f32['losses']} (max distance {dist_bf:.6g}); "
-              f"bf16 sec_per_step {bf['sec_per_step']}")
-        del bf["state"], f32["state"]
-        torch.cuda.empty_cache()
+        parts = {"d": _one_rank_runs(LM_ARCH, device, d, ("d1", "d2")),
+                 "d3": _one_rank_runs(MOE_ARCH, device, d,
+                                      ("d3 f32", "d3 bf16"))}
 
         # the ranks
         with socket.socket() as sk:
@@ -3686,67 +3720,109 @@ def _mesh_ranks(device) -> dict:
 
     launches = {"fake_quant": 0, "flash_attention_simt": 0,
                 "flash_attention_wgmma": 0}
+    for part, f32_key, bf16_key in (("d", "d1", "d2"),
+                                    ("d3", "d3 f32", "d3 bf16")):
+        got = _check_ranks(parts[part], [rk[f32_key] for rk in ranks],
+                           [rk[bf16_key] for rk in ranks],
+                           (f32_key, bf16_key))
+        for k in launches:
+            launches[k] += got[k]
+    return launches
+
+
+def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
+                 tags: tuple) -> dict:
+    """The checks of a (d) part against its one-rank runs (``tags``: its
+    f32 and bf16 parts' names); the ranks' launches."""
+    from repro_torch.models.moe import _num_groups
+    one, l1, bf = one_rank["one"], one_rank["l1"], one_rank["bf"]
+    cfg1, cfg2, dist_bf = one_rank["cfg1"], one_rank["cfg2"], \
+        one_rank["dist_bf"]
+    launches = {"fake_quant": 0, "flash_attention_simt": 0,
+                "flash_attention_wgmma": 0}
     calls1 = _attn_calls(cfg1) * 4 * MESH_F32["steps"]
-    for r, rk in enumerate(ranks):
-        for mesh, run in rk["d1"].items():
-            tag = f"mesh (d1) rank {r} mesh {mesh}"
+    for r, (runs, run2) in enumerate(zip(f32s, bf16s)):
+        for mesh, run in runs.items():
+            tag_ = f"mesh ({tags[0]}) rank {r} mesh {mesh}"
             a = run["losses"] + [x for t in run["tier_losses"] for x in t]
             b = one["losses"] + [x for t in one["tier_losses"] for x in t]
             check(all(math.isclose(x, y, rel_tol=1e-4) for x, y in zip(a, b)),
-                  f"{tag}: losses and tier losses {run['losses']} within "
+                  f"{tag_}: losses and tier losses {run['losses']} within "
                   f"rtol 1e-4 of one rank's {one['losses']}")
             if r == 0:
                 check(run["max_param_diff"] <= 1e-5,
-                      f"{tag}: gathered params within atol 1e-5 of one "
+                      f"{tag_}: gathered params within atol 1e-5 of one "
                       f"rank's (max {run['max_param_diff']:.3g})")
             check(run["masks_bitwise"],
-                  f"{tag}: its {run['masks']} masks (2 densities x "
+                  f"{tag_}: its {run['masks']} masks (2 densities x "
                   f"{run['masks'] // 2} leaves) bitwise the one-rank masks' "
                   f"blocks")
             check(run["launches"]["fake_quant"] == l1["fake_quant"],
-                  f"{tag}: fake_quant launched {run['launches']['fake_quant']}"
+                  f"{tag_}: fake_quant launched {run['launches']['fake_quant']}"
                   f" times, the one-rank count {l1['fake_quant']}")
             check(run["launches"]["simt"] == calls1
                   and l1["simt"] == calls1,
-                  f"{tag}: flash_attention launched {calls1} times on the "
+                  f"{tag_}: flash_attention launched {calls1} times on the "
                   f"simt kernel (its attention calls), as one rank")
             check(run["bytes"][0] == run["bytes"][1],
-                  f"{tag}: the placed state's bytes {run['bytes'][0]} == "
+                  f"{tag_}: the placed state's bytes {run['bytes'][0]} == "
                   f"shard_bytes {run['bytes'][1]}")
+            want = (cfg1.num_layers * 4 * MESH_F32["steps"]
+                    if cfg1.is_moe and run["data_ranks"] > 1 else 0)
+            check(run["gathers"] == want,
+                  f"{tag_}: {run['gathers']} all_gathers over \"data\" (one "
+                  f"a MoE layer and tier over several data ranks: {want})")
+            if want:
+                tier = MESH_F32["batch"] // 4 * MESH_F32["seq"]
+                ng = _num_groups(tier, 1)
+                secs = sum(run["sec_per_step"])
+                print(f"{tag_}: each tier's {tier} tokens in {ng} MoE "
+                      f"group(s) of {tier // ng}, {tier // run['data_ranks']}"
+                      f" tokens a data rank; the groups' choices all-gathered"
+                      f" {run['gathers']} times, {run['gather_s'] * 1e3:.3f} "
+                      f"ms of {secs * 1e3:.3f} ms of steps, share "
+                      f"{run['gather_s'] / secs:.4f} (host clock, a device "
+                      f"sync before and after each call)")
             launches["fake_quant"] += run["launches"]["fake_quant"]
             launches["flash_attention_simt"] += run["launches"]["simt"]
-        run = rk["d2"]
-        tag = f"mesh (d2) rank {r} mesh (1, {MESH_RANKS})"
-        sps = statistics.mean(run["sec_per_step"][1:])
-        print(f"{tag}: bf16 losses {run['losses']} sec_per_step "
-              f"{run['sec_per_step']} mean_sec_per_step(steps 2..) {sps:.6f} "
+        tag_ = f"mesh ({tags[1]}) rank {r} mesh (1, {MESH_RANKS})"
+        sps = statistics.mean(run2["sec_per_step"][1:])
+        moe = (f" moe_layer_ms {run2['moe_ms']:.3f} moe_layer_share_of_wall "
+               f"{run2['moe_ms'] / run2['wall_ms']:.4f}"
+               if "moe_ms" in run2 else "")
+        print(f"{tag_}: bf16 losses {run2['losses']} sec_per_step "
+              f"{run2['sec_per_step']} mean_sec_per_step(steps 2..) {sps:.6f} "
               f"tokens_per_s {MESH_BF16['batch'] * MESH_BF16['seq'] / sps:.3f}"
-              f" peak_mem_gb {run['peak_bytes'] / 1e9:.3f} launches "
-              f"{json.dumps(run['launches'])} profiled step: wall_ms "
-              f"{run['wall_ms']:.3f} device_busy_ms {run['busy_ms']:.3f} "
-              f"device_busy_share {run['busy_ms'] / run['wall_ms']:.4f} "
-              f"device_ops {run['ops']}")
-        gap = max(abs(x - y) for x, y in zip(run["losses"], bf["losses"]))
+              f" peak_mem_gb {run2['peak_bytes'] / 1e9:.3f} launches "
+              f"{json.dumps(run2['launches'])} profiled step: wall_ms "
+              f"{run2['wall_ms']:.3f} device_busy_ms {run2['busy_ms']:.3f} "
+              f"device_busy_share {run2['busy_ms'] / run2['wall_ms']:.4f} "
+              f"device_ops {run2['ops']}{moe}")
+        gap = max(abs(x - y) for x, y in zip(run2["losses"], bf["losses"]))
         check(gap <= MESH_BF16_SLACK * dist_bf,
-              f"{tag}: losses within {MESH_BF16_SLACK} x the one-rank bf16-f32"
-              f" distance {dist_bf:.6g} of one rank's bf16 (max {gap:.6g})")
+              f"{tag_}: losses within {MESH_BF16_SLACK} x the one-rank bf16-f32"
+              f" distance {dist_bf:.6g} of one rank's bf16 (max {gap:.6g}; "
+              f"the reference's sharded bf16 step rounds each rank's partial "
+              f"sum to bf16 as these ranks do at 2 ranks, "
+              f"tests/test_torch_parallel_bf16.py)")
         calls2 = _attn_calls(cfg2) * 4 * MESH_BF16["steps"]
-        check(run["launches"]["wgmma"] == calls2
-              and run["launches"]["fake_quant"]
+        check(run2["launches"]["wgmma"] == calls2
+              and run2["launches"]["fake_quant"]
               == 3 * _n_compressible(cfg2) * MESH_BF16["steps"],
-              f"{tag}: flash_attention {calls2} launches on the wgmma kernel "
+              f"{tag_}: flash_attention {calls2} launches on the wgmma kernel "
               f"at the local heads, fake_quant {3 * _n_compressible(cfg2)} a "
               f"step")
-        launches["fake_quant"] += run["launches"]["fake_quant"]
-        launches["flash_attention_wgmma"] += run["launches"]["wgmma"]
+        launches["fake_quant"] += run2["launches"]["fake_quant"]
+        launches["flash_attention_wgmma"] += run2["launches"]["wgmma"]
     return launches
 
 
 def mesh_rank(rank: int, directory: str, port: int) -> int:
     """One rank of phase mesh's (d), in a process of its own: joins the
-    gloo group of ``MESH_RANKS`` on ``port``, runs (d1) on meshes (1, 2)
-    and (2, 1) and (d2) on (1, 2) through ``launch.train``, and writes
-    its results to ``directory/rank{rank}.json``."""
+    gloo group of ``MESH_RANKS`` on ``port``, runs (d1) and (d3)'s f32
+    part on meshes (1, 2) and (2, 1), and (d2) and (d3)'s bf16 part on
+    (1, 2), through ``launch.train``, and writes its results to
+    ``directory/rank{rank}.json``."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed
@@ -3756,32 +3832,40 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
                       LOCAL_WORLD_SIZE=str(MESH_RANKS))
     device = init_distributed("cuda")           # one card for all: gloo
     print(f"rank {rank}: backend {dist.get_backend()} device {device}")
-    out = {"d1": {}}
-    for mp in (MESH_RANKS, 1):
-        run = _mesh_f32_rank(rank, mp, device, Path(directory))
-        out["d1"][f"({MESH_RANKS // mp}, {mp})"] = run
+    out = {}
+    for f32_key, bf16_key, arch in (("d1", "d2", LM_ARCH),
+                                    ("d3 f32", "d3 bf16", MOE_ARCH)):
+        out[f32_key] = {}
+        for mp in (MESH_RANKS, 1):
+            run = _mesh_f32_rank(rank, mp, device, Path(directory), arch)
+            out[f32_key][f"({MESH_RANKS // mp}, {mp})"] = run
+            torch.cuda.empty_cache()
+        out[bf16_key] = _mesh_bf16_rank(device, arch)
         torch.cuda.empty_cache()
-    out["d2"] = _mesh_bf16_rank(device)
     (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
 
 
-def _mesh_f32_rank(rank: int, mp: int, device, directory: Path) -> dict:
+def _mesh_f32_rank(rank: int, mp: int, device, directory: Path,
+                   arch: str) -> dict:
     import torch
     from repro_torch import optim
     from repro_torch.core.compression import compressible, magnitude_masks
     from repro_torch.core.steps import TrainState
     from repro_torch.models import get_model
     from repro_torch.models.sharding import gather, place, shard_bytes
-    cfg = _mesh_cfg(MESH_F32["layers"], "float32")
-    res, launches = _mesh_train(cfg, MESH_F32, 20, device, model_parallel=mp)
+    cfg = _mesh_cfg(MESH_F32["layers"], "float32", arch)
+    with _DataGathers() as gathers:
+        res, launches = _mesh_train(cfg, MESH_F32, 20, device,
+                                    model_parallel=mp)
     sh = res["shardings"]
     params = gather(res["state"]["params"], sh["params"])
     del res["state"]
     diff = None
     if rank == 0:
-        one = torch.load(directory / "one_rank_f32.pt", map_location=device)
+        one = torch.load(directory / f"one_rank_f32_{arch}.pt",
+                         map_location=device)
         diff = max((params[k] - one[k]).abs().max().item() for k in one)
         del one
     del params
@@ -3803,11 +3887,100 @@ def _mesh_f32_rank(rank: int, mp: int, device, directory: Path) -> dict:
         del whole, split
     return {"losses": res["losses"], "tier_losses": res["tier_losses"],
             "sec_per_step": res["sec_per_step"], "launches": launches,
+            "data_ranks": MESH_RANKS // mp, "gathers": gathers.calls,
+            "gather_s": gathers.seconds,
             "max_param_diff": diff, "masks_bitwise": bool(ok), "masks": n,
             "bytes": [local, shard_bytes(state, sh)]}
 
 
-def _mesh_bf16_rank(device) -> dict:
+class _DataGathers:
+    """The calls of ``parallel.all_gather`` over "data" within a window
+    and their seconds on the host clock, each call between two device
+    syncs (the syncs' own cost falls outside): on a data-parallel mesh
+    the MoE layer's gather of its groups' expert choices, the one such
+    gather of a train step."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import parallel
+        self.calls, self.seconds = 0, 0.0
+        inner = parallel.all_gather
+
+        def timed(x, axis, dim, mesh=None):
+            if axis != "data":
+                return inner(x, axis, dim, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(x, axis, dim, mesh)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        self._restore = (parallel, inner)
+        parallel.all_gather = timed
+        return self
+
+    def __exit__(self, *exc):
+        parallel, inner = self._restore
+        parallel.all_gather = inner
+
+
+class _MoeSpans:
+    """The stream time of each MoE layer's forward and backward within a
+    window (CUDA events: the layer's first op to its last, the model
+    ranks' collectives inside it included), by wrapping
+    ``decoder.moe_apply``; ``ms()`` their sum."""
+
+    def __init__(self):
+        self.spans = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import decoder
+        spans, inner = self.spans, decoder.moe_apply
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        class Mark(torch.autograd.Function):
+            """Identity; its backward records an event (``begin``: the
+            output's gradient arrives, else the input's leaves)."""
+            @staticmethod
+            def forward(ctx, x, span, begin):
+                ctx.span, ctx.begin = span, begin
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                ctx.span[0 if ctx.begin else 1] = event()
+                return g, None, None
+
+        def timed(p, x, *a, **k):
+            fwd, bwd = [event(), None], [None, None]
+            y, aux = inner(p, Mark.apply(x, bwd, False), *a, **k)
+            fwd[1] = event()
+            spans.extend([fwd, bwd])
+            return Mark.apply(y, bwd, True), aux
+
+        self._restore = (decoder, inner)
+        decoder.moe_apply = timed
+        return self
+
+    def __exit__(self, *exc):
+        decoder, inner = self._restore
+        decoder.moe_apply = inner
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.spans
+                   if a is not None and b is not None)
+
+
+def _mesh_bf16_rank(device, arch: str) -> dict:
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
@@ -3817,34 +3990,39 @@ def _mesh_bf16_rank(device) -> dict:
     from repro_torch.data.synthetic import make_train_batch
     from repro_torch.launch.mesh import num_batch_shards
     from repro_torch.models import get_model, parallel
-    cfg = _mesh_cfg(MESH_BF16["layers"], "bfloat16")
+    run = MESH_BF16
+    cfg = _mesh_cfg(run["layers"], "bfloat16", arch)
     torch.cuda.reset_peak_memory_stats()
-    res, launches = _mesh_train(cfg, MESH_BF16, 2, device,
+    res, launches = _mesh_train(cfg, run, 2, device,
                                 model_parallel=MESH_RANKS)
     peak = torch.cuda.max_memory_allocated()
     # one more step, profiled (not counted on the main path)
     sh = res["shardings"]["params"]
     mesh = next(iter(sh.values())).mesh
-    steps = MESH_BF16["steps"]
+    steps = run["steps"]
     step = make_hetero_train_step(
         get_model(cfg), optim.adamw(optim.warmup_cosine(3e-4, 2, steps)),
         default_tier_plans(4), num_groups=num_batch_shards(mesh),
         shardings=sh)
-    b = make_train_batch(cfg, ShapeConfig("t", MESH_BF16["seq"],
-                                          MESH_BF16["batch"], "train"),
+    b = make_train_batch(cfg, ShapeConfig("t", run["seq"], run["batch"],
+                                          "train"),
                          n_tiers=4, seed=0, index=steps)
     b = {k: v.to(device) for k, v in b.items()}
+    spans = _MoeSpans() if cfg.is_moe else contextlib.nullcontext()
     torch.cuda.synchronize()
-    with parallel.using(mesh):
+    with parallel.using(mesh), spans:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(res["state"], b)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     ev = device_events(prof)
-    return {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
-            "launches": launches, "peak_bytes": peak, "wall_ms": wall,
-            "busy_ms": sum(us for _, us in ev) / 1e3, "ops": len(ev)}
+    out = {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
+           "launches": launches, "peak_bytes": peak, "wall_ms": wall,
+           "busy_ms": sum(us for _, us in ev) / 1e3, "ops": len(ev)}
+    if cfg.is_moe:
+        out["moe_ms"] = spans.ms()
+    return out
 
 
 # ---------------------------------------------------------------- main

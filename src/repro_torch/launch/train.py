@@ -26,10 +26,13 @@ rank's card its ``LOCAL_RANK`` unless ``--device`` names one for all),
 builds the (world / M, M) mesh of ranks, and places the state by the
 reference's ``param_spec_tree(state, mesh.shape["model"])``: each rank
 draws the whole state from the seed and keeps its blocks. The step runs
-inside ``parallel.using(mesh)``: tensor parallel over "model", each
-"data" rank its rows of the batch. Rank 0 prints the lines; checkpoints
-hold whole leaves. The dense family only (``models/sharding.place``
-refuses the others' layouts).
+inside ``parallel.using(mesh)``: tensor parallel over "model" (heads,
+else head_dim, else d_model; d_ff; the MoE experts; the VLM projector's
+columns; the vocabulary or d_model), each "data" rank its rows of the
+batch. Rank 0 prints the lines; checkpoints hold whole leaves. The
+decoder families (dense, MoE, VLM) run so; ``models/sharding.place``
+refuses a split recurrent leaf (xLSTM, Zamba; ROADMAP item 20e), and
+Whisper's loss refuses the mesh.
 """
 from __future__ import annotations
 

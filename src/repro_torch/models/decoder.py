@@ -14,12 +14,14 @@ memory choice with no numerics) and its sharding hints (one card, no
 mesh) are left out. ``num_groups`` (the data shards a MoE layer groups
 its tokens by) is threaded wherever the reference threads it.
 
-On a mesh of several ranks (``models/parallel.py``) the dense family's
-train loss runs on each rank's blocks of the leaves: heads and d_ff split
-over "model" (``layers.attn_forward``, ``layers.swiglu``), the embedding
-and ``lm_head`` over the vocabulary or d_model (:func:`vocab_layout`).
-Each layer finds its layout from its leaves' shapes against ``cfg``. The
-MoE and VLM families, prefill and decode refuse such a mesh.
+On a mesh of several ranks (``models/parallel.py``) the train loss of
+every family here runs on each rank's blocks of the leaves, split over
+"model": attention on its heads, else head_dim, else d_model
+(``layers.attn_forward``), d_ff (``layers.swiglu``), the experts
+(``moe.moe_apply``), the projector's output columns, the embedding and
+``lm_head`` on the vocabulary or d_model (:func:`vocab_layout`). Each
+layer finds its layout from its leaves' shapes against ``cfg``. Prefill
+and decode refuse such a mesh (ROADMAP item 20f).
 """
 from __future__ import annotations
 
@@ -95,7 +97,8 @@ def _ffn(lp, x, cfg, num_groups):
     """(x + the FFN's output, the MoE aux loss or None for dense)."""
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
-        y, aux = moe_apply(lp["moe"], h, cfg, num_groups)
+        split = lp["moe"]["we_g"].shape[-3] != cfg.num_experts
+        y, aux = moe_apply(lp["moe"], h, cfg, num_groups, split=split)
         return x + y, aux
     split = lp["mlp"]["wi.w"].shape[-1] != cfg.d_ff
     return x + L.swiglu(lp["mlp"], h, split=split), None
@@ -119,11 +122,19 @@ def vocab_layout(leaf: torch.Tensor, cfg, vocab_dim: int):
 
 
 def _embed_inputs(params, tokens, cfg, patches):
-    """Text embeddings, with the projected patches in front for VLM."""
+    """Text embeddings, with the projected patches in front for VLM. A
+    ``projector.w`` split over "model" holds this rank's output columns:
+    the patches enter through ``copy_to_model`` and the columns are
+    gathered whole."""
     x = L.embed(params["embed"], tokens, compute_dtype(cfg),
                 vocab_layout(params["embed"], cfg, 0))
     if patches is not None:
-        pe = L.proj(params, "projector", patches.to(x.dtype))
+        patches = patches.to(x.dtype)
+        if params["projector.w"].shape[-1] != cfg.d_model:
+            pe = parallel.gather_from_model(L.proj(
+                params, "projector", parallel.copy_to_model(patches)), -1)
+        else:
+            pe = L.proj(params, "projector", patches)
         x = torch.cat([pe, x], dim=1)
     return x
 
@@ -151,8 +162,6 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
             window: int = 0, num_groups: int = 1):
     """Returns (logits (B, P + T, V) f32, aux_loss): the MoE layers' aux
     losses summed in layer order, 0 for dense and VLM."""
-    if cfg.family != "dense":
-        parallel.refuse(f"the {cfg.family} family's forward")
     x = _embed_inputs(params, tokens, cfg, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params):
@@ -187,7 +196,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
     first: the cache covers P + T positions. Returns (last-token logits
     (B, 1, V), cache). Always the chunked attention, whatever
     ``cfg.use_flash`` says, as in the reference."""
-    parallel.refuse("prefill")
+    parallel.refuse("prefill", "20f")
     x = _embed_inputs(params, tokens, cfg, patches)
     b, t = x.shape[0], x.shape[1]
     pos = torch.arange(t, device=x.device)
@@ -229,7 +238,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     cache). A sliding window needs no mask here: the ring of
     ``cache_len`` slots keeps only the newest positions, so ``window``
     passes to the attention, which ignores it, as in the reference."""
-    parallel.refuse("decode")
+    parallel.refuse("decode", "20f")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     c = cache["layers"]
     for i, lp in enumerate(_layers(params)):

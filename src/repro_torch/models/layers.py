@@ -215,6 +215,39 @@ def init_attn(generator: torch.Generator, cfg) -> dict:
     }
 
 
+HEADS, HEAD_DIM = "heads", "head_dim"
+
+
+def _qkv_layout(w: torch.Tensor, heads: int, cfg):
+    """Which dim of a q / k / v leaf (d_model, heads, hd) ``w`` holds a
+    block of over "model": HEADS, HEAD_DIM, D_MODEL, or None (whole)."""
+    if w.shape[-2] != heads:
+        return HEADS
+    if w.shape[-1] != cfg.head_dim:
+        return HEAD_DIM
+    if w.shape[-3] != cfg.d_model:
+        return D_MODEL
+    return None
+
+
+def _with_bias(p: dict, name: str, y: torch.Tensor) -> torch.Tensor:
+    b = p.get(name + ".b")
+    return y if b is None else y + b.to(y.dtype)
+
+
+def _kv_heads(k: torch.Tensor, h0: int, hl: int, rep: int) -> torch.Tensor:
+    """The kv heads (dim 2 of the whole ``k``) that q heads [h0, h0 + hl)
+    read at the GQA ratio ``rep``, at a local ratio that maps each local
+    q head to its own kv head; each q head's own copy where no such
+    slice exists. Contiguous, as the flash kernel takes it."""
+    lo, hi = h0 // rep, (h0 + hl - 1) // rep + 1
+    if hl % (hi - lo) == 0 and all(
+            (h0 + j) // rep == lo + j // (hl // (hi - lo))
+            for j in range(hl)):
+        return k[:, :, lo:hi].contiguous()
+    return repeat_kv(k, rep)[:, :, h0:h0 + hl].contiguous()
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
                  positions: torch.Tensor | None = None, use_rope: bool = True,
                  kv_src: torch.Tensor | None = None,
@@ -223,21 +256,63 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     cross-attention (k, v from ``kv_src``, never causal). RoPE, when on,
     takes q at ``positions`` (default arange(T)) and k at arange(S).
     ``cfg.use_flash`` routes the attention itself through the
-    flash_attention kernel. Under a mesh whose "model" axis splits the
-    heads (``p`` holds this rank's heads of q/k/v and their rows of
-    ``wo``), the inputs enter through ``copy_to_model``, the attention
-    runs on the local heads at the local GQA ratio, and ``wo``'s partial
-    output is summed by ``reduce_from_model``."""
+    flash_attention kernel.
+
+    Under a mesh whose "model" axis splits the leaves, each of q / k / v
+    is found from its leaf's shape split on its heads, else head_dim,
+    else d_model (:func:`_qkv_layout`, the reference's rule order). A
+    head or head_dim block is a column block of the projection (its input
+    enters through ``copy_to_model``); a head_dim block is gathered whole
+    before RoPE, which pairs the two halves of head_dim. A d_model block
+    takes this rank's block of the input (``split_to_model``), and its
+    partial q / k / v are summed by ``reduce_from_model``. Where q is
+    split on heads, each rank attends with its q heads over the kv heads
+    they read (a whole k / v sliced per rank takes the ranks' summed
+    gradient, ``copy_to_model``), and ``wo``'s rows of those heads give a
+    partial output, summed. Where no head split is left, every rank
+    attends with every head: correct, only slower; ``wo`` then takes
+    this rank's rows of the output (its rows split) or gives a block of
+    its columns, gathered whole."""
     b, t, _ = x.shape
-    split = p["wq.w"].shape[-2] != cfg.num_heads
-    if split:
-        x = parallel.copy_to_model(x)
-        if kv_src is not None:
-            kv_src = parallel.copy_to_model(kv_src)
     src = x if kv_src is None else kv_src
-    q = proj(p, "wq", x)                                # (B, T, H, hd)
-    k = proj(p, "wk", src)
-    v = proj(p, "wv", src)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lay = {n: _qkv_layout(p[n + ".w"], h if n == "wq" else hkv, cfg)
+           for n in ("wq", "wk", "wv")}
+    wo = p["wo.w"]
+    wo_rows, wo_cols = wo.shape[-2] != h * hd, wo.shape[-1] != cfg.d_model
+    forms = {}                   # each input's split forms, made once
+
+    def form(inp, kind):
+        key = (id(inp), kind == D_MODEL)
+        if key not in forms:
+            forms[key] = (parallel.split_to_model(inp, -1) if kind == D_MODEL
+                          else parallel.copy_to_model(inp))
+        return forms[key]
+
+    local = lay["wq"] == HEADS   # each rank attends with its own q heads
+
+    def project(name, inp):
+        kind = lay[name]
+        if kind is None:
+            y = proj(p, name, inp)                      # (B, T, H, hd)
+        elif kind == D_MODEL:    # this rank's rows: a partial sum
+            w = p[name + ".w"]
+            y = dense(w.reshape(w.shape[0], -1), None, form(inp, kind))
+            y = parallel.reduce_from_model(y).reshape(*inp.shape[:-1],
+                                                      *w.shape[1:])
+            y = _with_bias(p, name, y)
+        else:
+            y = proj(p, name, form(inp, kind))
+            if kind == HEAD_DIM:
+                return (parallel.gather_to_ranks(y, -1) if local
+                        else parallel.gather_from_model(y, -1))
+        return parallel.copy_to_model(y) if local and kind != HEADS else y
+
+    q, k, v = project("wq", x), project("wk", src), project("wv", src)
+    if local and lay["wk"] != HEADS:
+        hl = q.shape[2]
+        h0 = parallel.rank("model") * hl
+        k, v = (_kv_heads(t_, h0, hl, h // hkv) for t_ in (k, v))
     if use_rope:
         if positions is None:
             positions = torch.arange(t, device=x.device)
@@ -247,8 +322,19 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     attend = (flash_attention if getattr(cfg, "use_flash", False)
               else chunked_attention)
     o = attend(q, k, v, causal=causal and kv_src is None, window=window)
-    y = proj(p, "wo", o.reshape(b, t, -1))
-    return parallel.reduce_from_model(y) if split else y
+    o = o.reshape(b, t, -1)
+    if local and not wo_rows:    # wo whole or on d_model: every head
+        o, local = parallel.gather_from_model(o, -1), False
+    if wo_rows:                  # this rank's rows: a partial output
+        if not local:
+            o = parallel.split_to_model(o, -1)
+        y = parallel.reduce_from_model(dense(wo, None, o))
+    elif wo_cols:                # a block of the output's columns
+        y = parallel.gather_from_model(
+            dense(wo, None, parallel.copy_to_model(o)), -1)
+    else:
+        y = dense(wo, None, o)
+    return _with_bias(p, "wo", y)
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,

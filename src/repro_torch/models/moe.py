@@ -21,6 +21,18 @@ of each gather is a gather too (``_RowGather``): a token's gradient sums
 its k slots in f32, rounded once, as the einsum's transpose does, and
 no scatter-add runs. The routing makes no host sync (no ``one_hot``,
 whose range check reads the device).
+
+Over a mesh of ranks (``models/parallel.py``) the experts may be split
+over "model" (expert parallelism: ``we_*`` hold this rank's ``E / M``
+experts, ``rank("model") * E / M`` the first) and the batch over "data"
+(each rank its rows). The router is replicated: routing, the aux loss
+and the capacity positions run on every model rank as on one. Each rank
+gathers and runs only the slots of its experts; each token's f32 sum of
+its local choices' ``gate * out`` is summed over "model" and rounded to
+the compute dtype once. The groups, capacity and positions are those of
+the whole batch: each choice's position comes from its whole group's
+expert choices, gathered over "data", and the expert load (``me``,
+``ce``) is averaged over "data" before its product.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import init_dense
 
 GROUP = 512          # max tokens per dispatch group
@@ -113,24 +126,29 @@ def _sum_slots(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _combine(picked: torch.Tensor, gates: torch.Tensor, dt) -> torch.Tensor:
-    """(n, k, D) expert outputs and (n, k) f32 gates -> (n, D): the gates
-    rounded to ``dt``, the k products summed in f32, rounded once to
-    ``dt``."""
+    """(n, k, D) expert outputs and (n, k) f32 gates -> (n, D) in f32: the
+    gates rounded to ``dt``, the k products summed in f32 (the caller
+    rounds the sum to ``dt`` once)."""
     w = gates.to(dt).to(torch.float32)
-    return torch.einsum("nkd,nk->nd", picked.to(torch.float32), w).to(dt)
+    return torch.einsum("nkd,nk->nd", picked.to(torch.float32), w)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1):
+def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1, *,
+              split: bool = False):
     """x: (B, T, D) -> (out (B, T, D), aux_loss scalar f32). ``p`` holds
-    one layer's ``router.w``, ``we_g``, ``we_i`` and ``we_o``."""
+    one layer's ``router.w``, ``we_g``, ``we_i`` and ``we_o``; ``split``:
+    its ``we_*`` are this rank's block of the experts over "model". On a
+    mesh whose "data" axis has several ranks, ``x`` is this rank's rows
+    of the batch (``core.steps``), in rank order."""
     b, t, d = x.shape
     n = b * t
     e, k = cfg.num_experts, cfg.experts_per_token
-    g = _num_groups(n, num_groups)
-    ng = n // g
+    dp = parallel.size("data")
+    g = _num_groups(n * dp, num_groups)       # of the whole batch
+    ng = n * dp // g
     dt = getattr(torch, cfg.dtype)
     dev = x.device
-    xg = x.reshape(g, ng, d)
+    xg = x.reshape(g, ng, d) if dp == 1 else x.reshape(1, n, d)
     experts = torch.arange(e, device=dev)
 
     # --- routing (f32; the router is excluded from compression) ---
@@ -145,38 +163,65 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1):
     one_hot = top_idx[..., None] == experts                   # (g, ng, k, e)
     ce = torch.mean(torch.sum(one_hot.to(torch.float32), dim=2),
                     dim=(0, 1)) / k
+    if dp > 1:          # the whole batch's load, before the product
+        me = parallel.mean_over_data(me)
+        ce = parallel.all_reduce(ce, "data") / dp
     aux = cfg.router_aux_weight * e * torch.sum(me * ce)
 
     cap = capacity(ng, cfg)
 
     # --- position of each choice within its expert (token-major) ---
-    flat = top_idx.reshape(g, ng * k)
+    if dp > 1:          # every group whole: the data ranks' choices
+        whole = parallel.all_gather(top_idx.reshape(n, k), "data", 0)
+        whole = whole.view(g, ng * k)
+        one_hot = whole[..., None] == experts
+    else:
+        whole = top_idx.reshape(g, ng * k)
     before = torch.cumsum(one_hot.reshape(g, ng * k, e).to(torch.int32),
                           dim=1)                              # (g, ng*k, e)
-    pie = before.gather(-1, flat[..., None])[..., 0] - 1      # (g, ng*k)
+    pie = before.gather(-1, whole[..., None])[..., 0] - 1     # (g, ng*k)
     keep = pie < cap
+    if dp > 1:          # this rank's choices (its rows'), in gl groups
+        c0 = parallel.rank("data") * n * k                    # first choice
+        g0 = c0 // (ng * k)
+        gl = (c0 + n * k - 1) // (ng * k) + 1 - g0
+        flat = top_idx.reshape(n * k)
+        pie = pie.reshape(-1)[c0:c0 + n * k]
+        keep = keep.reshape(-1)[c0:c0 + n * k]
+        grp = torch.arange(c0, c0 + n * k, device=dev) // (ng * k) - g0
+    else:
+        gl, flat = g, whole
+        grp = torch.arange(g, device=dev)[:, None]
+    el = p["we_g"].shape[0]
+    if split:           # this rank's experts, from rank("model") * el
+        e0 = parallel.rank("model") * el
+        keep &= (flat >= e0) & (flat < e0 + el)
+        flat = flat - e0
 
-    # --- expert-major slots (e, g, cap); a dropped choice has none ---
-    n_slots = e * g * cap
-    grp = torch.arange(g, device=dev)[:, None]
-    slot = torch.where(keep, flat * (g * cap) + grp * cap + pie, n_slots)
+    # --- expert-major slots (el, gl, cap); a choice kept out has none ---
+    n_slots = el * gl * cap
+    slot = torch.where(keep, flat * (gl * cap) + grp * cap + pie, n_slots)
     # the choice in each slot, n * k (past the last) where the slot is
-    # empty; dropped choices write past the slots, each to its own index
+    # empty; choices kept out write past the slots, each to its own index
     choice = torch.arange(n * k, device=dev)
     slot_choice = torch.full((n_slots + n * k,), n * k, dtype=torch.int64,
                              device=dev)
     slot_choice.scatter_(
-        0, torch.where(keep, slot, n_slots + choice.view(g, ng * k))
+        0, torch.where(keep, slot, n_slots + choice.view(keep.shape))
         .reshape(-1), choice)
     slot_choice = slot_choice[:n_slots]
 
     # --- dispatch -> expert matmuls -> combine ---
+    if split:           # each rank's part of x's and the gates' gradients
+        x, gates = parallel.copy_to_model(x), parallel.copy_to_model(gates)
     buf = _RowGather.apply(x.reshape(n, d).to(dt), slot_choice // k,
-                           slot.view(n, k)).view(e, g * cap, d)
+                           slot.view(n, k)).view(el, gl * cap, d)
     hg = torch.bmm(buf, p["we_g"].to(dt))
     hi = torch.bmm(buf, p["we_i"].to(dt))
     out = torch.bmm(F.silu(hg) * hi, p["we_o"].to(dt)).reshape(n_slots, d)
     picked = _RowGather.apply(out, slot.reshape(-1),
                               slot_choice[:, None]).view(n, k, d)
     y = _combine(picked, gates.reshape(n, k), dt)
-    return y.reshape(b, t, d).to(x.dtype), aux
+    if split:
+        y = parallel.reduce_from_model(y)
+    return y.to(dt).reshape(b, t, d).to(x.dtype), aux

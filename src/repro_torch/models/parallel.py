@@ -12,7 +12,13 @@ column- then row-parallel pairs on the "model" axis.
 - :func:`reduce_from_model`: all-reduce forward, identity backward (the
   partial sums of a row-split projection);
 - :func:`gather_from_model` / :func:`split_to_model`: all-gather along a
-  dim forward and this rank's block backward, and the converse.
+  dim forward and this rank's block backward, and the converse;
+- :func:`gather_to_ranks`: all-gather forward, all-reduce then this
+  rank's block backward (a whole tensor of which each rank uses its own
+  part, as attention's kv heads under the head_dim fallback);
+- :func:`mean_over_data`: the mean over "data" forward, the gradient
+  passed through whole (the MoE layer's expert load over a batch split
+  by rows, whose step averages the gradients over "data" after).
 
 :func:`using` is the counterpart of the reference's ``with mesh:``: it
 holds the current mesh, as ``sharding.set_rules`` holds the hints.
@@ -53,9 +59,10 @@ def multi_rank() -> bool:
     return _MESH is not None and _MESH.is_distributed
 
 
-def refuse(what: str, item: str = "20b") -> None:
+def refuse(what: str, item: str) -> None:
     """Raises ``NotImplementedError`` for ``what`` on a mesh of several
-    ranks: this slice splits the dense decoder's train step alone."""
+    ranks, naming the ROADMAP item that holds it: the decoder's train
+    step is the one model path split over ranks."""
     if multi_rank():
         raise NotImplementedError(
             f"{what} on a mesh of several ranks ({dict(_MESH.shape)}) is "
@@ -190,3 +197,27 @@ def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of ``x`` (replicated over
     "model"); the gradient blocks are gathered whole."""
     return x if group("model") is None else _Split.apply(x, "model", dim)
+
+
+def gather_to_ranks(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`gather_from_model` for a use that differs per rank: each
+    rank's gradient of the whole tensor is partial, so it is summed over
+    "model" before this rank's block is kept."""
+    return copy_to_model(gather_from_model(x, dim))
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x, "data") / size("data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def mean_over_data(x: torch.Tensor) -> torch.Tensor:
+    """The mean over "data" of each rank's ``x``, its gradient passed to
+    every rank whole: the step averages the ranks' gradients over "data"
+    (``core.steps``), which then sums each rank's share once."""
+    return x if group("data") is None else _DataMean.apply(x)

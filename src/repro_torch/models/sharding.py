@@ -293,38 +293,24 @@ def _is_sharding(x) -> bool:
     return x is None or isinstance(x, NamedSharding)
 
 
-# The layouts that the dense decoder's train step runs split over "model"
-# (ROADMAP item 20a): each leaf's rule and the dims of it that may be split.
-_SLICE_LAYOUTS: list[tuple[re.Pattern, tuple[int, ...]]] = [
-    (re.compile(p), d) for p, d in [
-        (r"(^|/)embed$",             (-2, -1)),   # (V, D): vocab or d_model
-        (r"(^|/)lm_head/w$",         (-1, -2)),   # (D, V)
-        (r"(^|/)attn/w[qkv]/[wb]$",  (-2,)),      # (D, H, hd), (H, hd): heads
-        (r"(^|/)attn/wo/w$",         (-2,)),      # (H*hd, D): the heads' rows
-        (r"(^|/)mlp/w[ig]/[wb]$",    (-1,)),      # (D, F), (F,)
-        (r"(^|/)mlp/wo/w$",          (-2,)),      # (F, D)
-    ]]
+# The leaves of the recurrent families, whose "model" splits no model
+# function runs over ranks yet (ROADMAP item 20e)
+_RECURRENT = re.compile(r"(^|/)(mamba|mlstm|slstm)/")
 
 
 def _refusal(path: str, spec) -> str | None:
     """Why the leaf at ``path`` cannot be split by ``spec`` over ranks, or
     None: a data-axis entry is FSDP (ROADMAP item 20c); a "model" split
-    that is not one of :data:`_SLICE_LAYOUTS` (the MoE, VLM, recurrent
-    and audio leaves; attention's head_dim and input-dim fallbacks) is
-    item 20b."""
+    of a recurrent leaf (Mamba2's, xLSTM's) is item 20e. Every other
+    layout of ``param_spec_tree`` runs in the decoder's train step."""
     split = [d for d, e in enumerate(spec) if e is not None]
     if any(spec[d] != "model" for d in split):
         return (f"{path} split over {spec!r}: data-axis (FSDP) placement "
                 f"is ROADMAP queue 1, item 20c")
-    if not split:
-        return None
-    for pat, dims in _SLICE_LAYOUTS:
-        if pat.search(path):
-            if split[0] - len(spec) in dims:
-                return None
-            break
-    return (f"{path} split over {spec!r}: a layout outside the dense "
-            f"decoder's tensor parallel slice is ROADMAP queue 1, item 20b")
+    if split and _RECURRENT.search(path):
+        return (f"{path} split over {spec!r}: the recurrent families over "
+                f"ranks are ROADMAP queue 1, item 20e")
+    return None
 
 
 def place(tree, shardings):
@@ -335,7 +321,7 @@ def place(tree, shardings):
     meshes) or a fake tensor (the dry run's stand-ins, which hold no
     storage) leaves the tensor where it is. On a mesh over several ranks
     each leaf becomes this rank's block, a tensor of its own on the
-    rank's device; a layout outside the dense decoder's slice raises
+    rank's device; FSDP and a split recurrent leaf raise
     ``NotImplementedError`` (:func:`_refusal`). Within one process a
     mesh of several distinct devices raises ``NotImplementedError``."""
     from torch._subclasses.fake_tensor import is_fake

@@ -139,7 +139,7 @@ def decode_train(params: dict, enc_x: torch.Tensor, tokens: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, T+1)}."""
-    parallel.refuse("the Whisper loss_fn")
+    parallel.refuse("the Whisper loss_fn", "20e")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     logits = decode_train(params, enc_x, tokens[:, :-1], cfg)
@@ -151,7 +151,7 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
     """Encode the frames and run the decoder over the whole token prefix,
     filling the self-KV caches (slot_pos = arange(T), cache length T) and
     the cross-KV. Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper prefill")
+    parallel.refuse("the Whisper prefill", "20e")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -203,7 +203,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)) against the cached cross-KV; the
     self-KV is written in place. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper decode_step")
+    parallel.refuse("the Whisper decode_step", "20e")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     x = _add_positions(x, torch.full((1,), int(pos), dtype=torch.int32,
                                      device=x.device), cfg)

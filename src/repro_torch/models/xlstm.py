@@ -346,7 +346,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
-    parallel.refuse("the xLSTM loss_fn")
+    parallel.refuse("the xLSTM loss_fn", "20e")
     tokens = batch["tokens"]
     logits, _ = forward(params, tokens[:, :-1], cfg)
     return L.cross_entropy(logits, tokens[:, 1:])
@@ -356,7 +356,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
             num_groups: int = 1):
     """Full-sequence forward that fills the recurrent state. Returns
     (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM prefill")
+    parallel.refuse("the xLSTM prefill", "20e")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     mstates, sstates = [], []
     for mls, sp in _superblocks(params):
@@ -400,7 +400,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)): every layer's state updated in
     place in ``cache``. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM decode_step")
+    parallel.refuse("the xLSTM decode_step", "20e")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     mc, sc = cache["mlstm"], cache["slstm"]
     for s, (mls, sp) in enumerate(_superblocks(params)):

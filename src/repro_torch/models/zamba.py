@@ -112,7 +112,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
-    parallel.refuse("the Zamba loss_fn")
+    parallel.refuse("the Zamba loss_fn", "20e")
     tokens = batch["tokens"]
     logits, _ = forward(params, tokens[:, :-1], cfg)
     return L.cross_entropy(logits, tokens[:, 1:])
@@ -124,7 +124,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     block's KV caches (one per application, slot_pos = arange(T), cache
     length T). Always the chunked attention, as in the reference.
     Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba prefill")
+    parallel.refuse("the Zamba prefill", "20e")
     b, t = tokens.shape
     dt = compute_dtype(cfg)
     x = L.embed(params["embed"], tokens, dt)
@@ -178,7 +178,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)); the cache is written in place.
     Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba decode_step")
+    parallel.refuse("the Zamba decode_step", "20e")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     layers, sp = _views(params)
     mc, ac = cache["mamba"], cache["attn"]

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -27,13 +29,25 @@ from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import decoder as TD
 from repro_torch.models import get_model, parallel
 from repro_torch.models import layers as L
+from repro_torch.models import moe as TM
 from repro_torch.models.sharding import (P, NamedSharding, gather, named,
                                          param_spec_tree, place, shard_bytes)
 
 CPU = torch.device("cpu")
+HERE = Path(__file__).resolve().parent
+RANK_TIMEOUT = 240                # seconds a rank process may take
 DENSE = ("llama3.2-3b", "granite-3-2b", "qwen2.5-32b", "deepseek-7b")
+MOE = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
+# the MoE, VLM and attention-fallback configs placed and gathered back,
+# each at the model-parallel widths it is held at
+OTHER_LAYOUTS = {2: [(n, 2) for n in (*MOE, "llava-next-34b",
+                                      "llama-d-model-hd5")],
+                 4: [(n, m) for n in (*MOE, "llava-next-34b")
+                     for m in (2, 4)]
+                 + [("llama3.2-3b", 4), ("llama-d-model", 4)]}
 STEPS = 2
 SHAPE = ShapeConfig("t", 16, 8, "train")
 
@@ -45,14 +59,32 @@ def adamw():
 
 
 def config(name: str):
-    """The dense smoke configs, plus: ``*-v515`` at an odd vocabulary
-    (the d_model fallback of the embedding and lm_head); ``qwen-h8``,
-    qwen's smoke config at 8 / 4 heads, which split 4 ways."""
+    """The smoke configs, plus: ``*-v515`` at an odd vocabulary (the
+    d_model fallback of the embedding and lm_head); ``qwen-h8``, qwen's
+    smoke config at 8 / 4 heads, which split 4 ways; ``granite-moe-cf1``
+    at capacity factor 1, which drops choices; llama's smoke config at one
+    kv head (``llama-kv1``: k / v on head_dim over 2 ranks), at 3 / 1
+    heads (``llama-h3``: q on head_dim too), at 3 / 1 heads of 6
+    (``llama-d-model``: q / k / v on d_model over 4 ranks, ``wo`` on its
+    columns) and of 5 (``llama-d-model-hd5``: the same over 2 ranks; no
+    RoPE on an odd head_dim)."""
     if name.endswith("-v515"):
         return get_smoke_config(name[:-5]).replace(vocab_size=515)
     if name == "qwen-h8":
         return get_smoke_config("qwen2.5-32b").replace(
             num_heads=8, num_kv_heads=4, head_dim=16)
+    if name == "granite-moe-cf1":
+        return get_smoke_config("granite-moe-1b-a400m").replace(
+            capacity_factor=1.0)
+    if name == "llama-kv1":
+        return get_smoke_config("llama3.2-3b").replace(num_kv_heads=1)
+    if name == "llama-h3":
+        return get_smoke_config("llama3.2-3b").replace(
+            num_heads=3, num_kv_heads=1, head_dim=32)
+    if name.startswith("llama-d-model"):
+        return get_smoke_config("llama3.2-3b").replace(
+            num_heads=3, num_kv_heads=1,
+            head_dim=5 if name.endswith("hd5") else 6)
     return get_smoke_config(name)
 
 
@@ -93,6 +125,29 @@ def _mesh_steps(name: str, mp: int) -> dict:
                 ("v", state["opt"]["v"]))}}
 
 
+def bf16_step(arch: str, ckpt_dir: str) -> dict:
+    """One hetero train step (the launcher's AdamW, 4 tiers, 8 x 16, batch
+    index 0) of ``arch``'s smoke config in bf16 from the reference's init
+    checkpoint in ``ckpt_dir`` (``tests/_reference_bf16_step.py``) on the
+    (1, world) mesh of ranks: its loss and AdamW's first moment after it,
+    gathered."""
+    cfg = get_smoke_config(arch).replace(dtype="bfloat16")
+    model, opt = get_model(cfg), adamw()
+    mesh = make_host_mesh(dist.get_world_size(), devices=[CPU])
+    state = TrainState.create(model, opt, 0, device=CPU)
+    sh = named(mesh, param_spec_tree(state, mesh.shape["model"]))
+    state, _ = Checkpointer(ckpt_dir).restore(place(state, sh),
+                                              shardings=sh)
+    step = make_hetero_train_step(model, opt, default_tier_plans(4),
+                                  shardings=sh["params"])
+    batch = make_train_batch(cfg, ShapeConfig("cli", 16, 8, "train"),
+                             n_tiers=4, seed=0, index=0)
+    with parallel.using(mesh):
+        state, metrics = step(state, batch)
+    return {"loss": metrics["loss"].item(),
+            "m": gather(state["opt"]["m"], sh["params"])}
+
+
 # ------------------------------------------------------------------ layers
 
 def _blocks(p: dict, dims: dict) -> dict:
@@ -118,6 +173,120 @@ def _run(fn, p: dict, x: torch.Tensor, dims: dict, mesh=None):
                  else parallel.all_gather(g, "model", dims[k])
                  for k, g in zip(leaves, grads)}
     return out.detach(), whole, grads[-1]
+
+
+def _run_rows(fn, p: dict, x: torch.Tensor, dims: dict, mesh) -> tuple:
+    """:func:`_run` on ``mesh``, whose "data" ranks take their rows of
+    ``x`` (dim 0), as the train step gives them: each rank's loss is
+    ``dp * sum(out * w)`` over its rows plus the last (replicated) entry
+    of ``out`` times its weight (the MoE aux), whose mean over "data" is
+    the one-rank loss; the gradients are the step's, the mean over
+    "data", made whole; the output and the input's gradient (over dp)
+    gathered over "data"."""
+    dp = mesh.shape["data"]
+    with parallel.using(mesh):
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in _blocks(p, dims).items()}
+        xg = parallel.block(x, "data", 0).clone().requires_grad_()
+        out = fn(leaves, xg)
+        w = torch.randn((x.shape[0] * (out.numel() - 1) // xg.shape[0] + 1,),
+                        generator=torch.Generator().manual_seed(9))
+        rows = parallel.block(w[:-1], "data", 0)
+        loss = dp * (out[:-1] * rows).sum() + out[-1] * w[-1]
+        grads = torch.autograd.grad(loss, [*leaves.values(), xg])
+        whole = {}
+        for k, g in zip(leaves, grads):
+            g = parallel.all_reduce(g, "data") / dp
+            whole[k] = (g if dims.get(k) is None
+                        else parallel.all_gather(g, "model", dims[k]))
+        body = parallel.all_gather(out[:-1].detach(), "data", 0)
+        gx = parallel.all_gather(grads[-1], "data", 0) / dp
+    return torch.cat([body, out[-1:].detach()]), whole, gx
+
+
+def _one_rank_rows(fn, p: dict, x: torch.Tensor) -> tuple:
+    """:func:`_run_rows`'s loss in one process."""
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xg = x.clone().requires_grad_()
+    out = fn(leaves, xg)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    grads = torch.autograd.grad((out * w).sum(), [*leaves.values(), xg])
+    return out.detach(), dict(zip(leaves, grads)), grads[-1]
+
+
+def _attn_case(name: str, world: int, seed: int):
+    """(cfg, q / k / v / wo params with random biases, the blocks' dims)
+    of an attention fallback config: ``wq`` on heads or its layout's dim,
+    as ``param_spec_tree`` puts it at ``world`` model shards."""
+    cfg = config(name)
+    gen = torch.Generator().manual_seed(seed)
+    p = L.init_attn(gen, cfg.replace(qkv_bias=True))
+    for k in ("wq.b", "wk.b", "wv.b"):
+        p[k] = torch.randn(p[k].shape, generator=gen) * 0.1
+    specs = param_spec_tree({"attn." + k: v for k, v in p.items()}, world)
+    dims = {k: next((d - len(specs["attn." + k]) for d, e in
+                     enumerate(specs["attn." + k]) if e is not None), None)
+            for k in p}
+    return cfg, p, dims
+
+
+def _other_layer_cases(world: int) -> dict:
+    """The MoE layer, attention's head_dim and d_model fallbacks and the
+    VLM projector at mesh (1, world), and the MoE layer with the batch's
+    rows over "data" ((world, 1), and (2, 2) at 4 ranks), each against
+    one rank on the same inputs."""
+    gen = torch.Generator().manual_seed(1)
+    cases = {}
+    mesh = make_host_mesh(world, devices=[CPU])
+    # MoE at capacity factor 1 (choices dropped), output and aux
+    cfg = config("granite-moe-cf1")
+    moe = TM.init_moe(gen, cfg)
+    experts = {"we_g": 0, "we_i": 0, "we_o": 0}
+    x = torch.randn((4, 8, cfg.d_model), generator=gen)
+
+    def moe_fn(p, x):
+        y, aux = TM.moe_apply(p, x, cfg, split=p["we_g"].shape[0]
+                              != cfg.num_experts)
+        return torch.cat([y.reshape(-1), aux[None]])
+    cases["moe_apply"] = (_run(moe_fn, moe, x, experts, mesh),
+                          _run(moe_fn, moe, x, experts))
+    one = _one_rank_rows(moe_fn, moe, x)
+    for mp in ((1,) if world == 2 else (1, 2)):
+        m = make_host_mesh(mp, devices=[CPU])
+        cases[f"moe_apply_rows_{world // mp}x{mp}"] = (
+            _run_rows(moe_fn, moe, x, experts if mp > 1 else {}, m), one)
+    # attention: q on heads, k / v on head_dim (llama's smoke config at
+    # 4 ranks; at 2, one kv head); q and k / v on head_dim (3 / 1 heads);
+    # q / k / v on d_model and wo on its columns
+    xa = torch.randn((2, 8, 128), generator=gen)
+    for case, name, kw in (
+            ("attn_head_dim", "llama3.2-3b" if world == 4 else "llama-kv1",
+             {"use_flash": True}),
+            ("attn_head_dim_q", "llama-h3", {}),
+            ("attn_d_model", "llama-d-model" if world == 4
+             else "llama-d-model-hd5", {})):
+        acfg, p, dims = _attn_case(name, world, 2)
+        acfg = acfg.replace(**kw)
+        rope = acfg.head_dim % 2 == 0
+
+        def attn_fn(p, x, acfg=acfg, rope=rope):
+            return L.attn_forward(p, x, acfg, use_rope=rope)
+        cases[case] = (_run(attn_fn, p, xa, dims, mesh),
+                       _run(attn_fn, p, xa, dims))
+    # the projected patches, in front of the text embeddings
+    vcfg = config("llava-next-34b")
+    vp = {"embed": L.init_embed(gen, vcfg.vocab_size, vcfg.d_model),
+          "projector.w": torch.randn((vcfg.d_model, vcfg.d_model),
+                                     generator=gen) * 0.05}
+    tokens = torch.randint(0, vcfg.vocab_size, (2, 8), generator=gen)
+    patches = torch.randn((2, vcfg.num_patches, vcfg.d_model), generator=gen)
+
+    def vlm_fn(p, x):
+        return TD._embed_inputs(p, tokens, vcfg, x)
+    vdims = {"embed": 0, "projector.w": -1}
+    cases["projector"] = (_run(vlm_fn, vp, patches, vdims, mesh),
+                          _run(vlm_fn, vp, patches, vdims))
+    return cases
 
 
 def _layer_cases(world: int) -> dict:
@@ -175,20 +344,20 @@ def _layer_cases(world: int) -> dict:
             {"t": table_v}, x, {"t": 0}),
     }
     mesh = make_host_mesh(world, devices=[CPU])
-    return {name: (_run(fn, p, xx, dims, mesh), _run(fn, p, xx, dims))
-            for name, (fn, p, xx, dims) in cases.items()}
+    return {**{name: (_run(fn, p, xx, dims, mesh), _run(fn, p, xx, dims))
+               for name, (fn, p, xx, dims) in cases.items()},
+            **_other_layer_cases(world)}
 
 
 # --------------------------------------------------------- place / masks
 
-def _round_trips(mp: int) -> dict:
-    """For each dense smoke config (and the odd vocabulary) at ``mp``
-    model shards: the specs, and whether every placed leaf is the block
-    of the whole one, gathers back bitwise, and the bytes equal
-    ``shard_bytes``."""
-    mesh = make_host_mesh(mp, devices=[CPU])
+def _round_trips(pairs) -> dict:
+    """For each (config, model shards) of ``pairs``: the specs, and
+    whether every placed leaf is the block of the whole one, gathers back
+    bitwise, and the bytes equal ``shard_bytes``."""
     out = {}
-    for name in (*DENSE, "granite-3-2b-v515", "deepseek-7b-v515"):
+    for name, mp in pairs:
+        mesh = make_host_mesh(mp, devices=[CPU])
         cfg = config(name)
         model, opt = get_model(cfg), optim.adamw(1e-3)
         state = TrainState.create(model, opt, 0, device=CPU)
@@ -208,7 +377,8 @@ def _round_trips(mp: int) -> dict:
                               *placed["opt"]["m"].values(),
                               *placed["opt"]["v"].values(),
                               placed["opt"]["count"], placed["step"]))
-        out[name] = {"specs": {k: tuple(v) for k, v in specs["params"]
+        out[name if mp == 2 else f"{name} {mp}"] = {
+                     "specs": {k: tuple(v) for k, v in specs["params"]
                                .items()},
                      "blocks": blocks, "gathered": same,
                      "bytes": (local, shard_bytes(state, sh))}
@@ -233,9 +403,11 @@ def _mask_leaves() -> tuple[dict, dict]:
 
 def _masks(world: int) -> dict:
     """``magnitude_masks(shardings=)`` at mesh (1, world) and the one-rank
-    masks' blocks, per density; and ``compress_with_masks`` of qwen-h8's
-    params (pruned, then fp8 e5m2 or int8, whose per-tensor scale is the
-    whole leaf's) against one rank's blocks."""
+    masks' blocks, per density; and ``compress_with_masks`` of a whole
+    model (pruned, then fp8 e5m2 or int8, whose per-tensor scale is the
+    whole leaf's) against one rank's blocks: qwen-h8 (heads), the MoE
+    configs (experts), an attention fallback (d_model at 4 ranks,
+    head_dim at 2) and llama's head_dim fallback (heads at 2)."""
     mesh = make_host_mesh(world, devices=[CPU])
     ws, specs = _mask_leaves()
     sh = {k: NamedSharding(mesh, s) for k, s in specs.items()}
@@ -246,10 +418,16 @@ def _masks(world: int) -> dict:
                                 density, shardings=sh)
         out[f"masks_{density}"] = (local, {k: sh[k].block(m)
                                            for k, m in whole.items()})
-    cfg = config("qwen-h8")
-    params = get_model(cfg).init(0, device=CPU)
-    psh = named(mesh, param_spec_tree(params, world))
-    for label, e, m_bits in (("fp8", 5, 2), ("int8", 0, 8)):
+    for label, name, e, m_bits in (
+            ("fp8", "qwen-h8", 5, 2), ("int8", "qwen-h8", 0, 8),
+            ("moe_fp8", "granite-moe-1b-a400m", 5, 2),
+            ("moe_int8", "qwen3-moe-30b-a3b", 0, 8),
+            ("attn_fallback_fp8", "llama-d-model" if world == 4
+             else "llama-d-model-hd5", 5, 2),
+            ("head_dim_int8", "llama3.2-3b" if world == 4
+             else "llama-kv1", 0, 8)):
+        params = get_model(config(name)).init(0, device=CPU)
+        psh = named(mesh, param_spec_tree(params, world))
         cp, m = compress_with_masks(params, 0.25, e, m_bits)
         with parallel.using(mesh):
             lcp, lm = compress_with_masks(place(params, psh), 0.25, e,
@@ -259,6 +437,38 @@ def _masks(world: int) -> dict:
             {**{k: psh[k].block(v) for k, v in cp.items()},
              **{"mask/" + k: (psh[k].block(v) if v.dim() else v)
                 for k, v in m.items()}})
+    return out
+
+
+def family_batch(cfg) -> dict:
+    """A seeded (2, 9) token batch, with (2, P, D) patches for VLM."""
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9),
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
+                                       generator=gen)
+    return batch
+
+
+def _family_losses(world: int) -> dict:
+    """The MoE and VLM decoders' ``loss_fn`` on each rank's blocks at mesh
+    (1, world), and whether ``prefill`` still refuses there."""
+    mesh = make_host_mesh(world, devices=[CPU])
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "llava-next-34b"):
+        cfg = config(arch)
+        model = get_model(cfg)
+        params = model.init(0, device=CPU)
+        placed = place(params, named(mesh, param_spec_tree(params, world)))
+        with parallel.using(mesh):
+            loss = model.loss_fn(placed, family_batch(cfg)).item()
+            try:
+                model.prefill(placed, family_batch(cfg))
+                refused = ""
+            except NotImplementedError as e:
+                refused = str(e)
+        out[arch] = {"loss": loss, "prefill": refused}
     return out
 
 
@@ -289,18 +499,17 @@ def _launcher(world: int, mp: int) -> dict:
             "coords": mesh.coords(), "losses": res["losses"]}
 
 
-def ckpt_state() -> dict:
-    """The train state the checkpoint crossing saves (qwen-h8, seed 1)."""
-    cfg = config("qwen-h8")
-    model, opt = get_model(cfg), optim.adamw(1e-3)
+def ckpt_state(name: str = "qwen-h8") -> dict:
+    """The train state a checkpoint crossing saves (seed 1)."""
+    model, opt = get_model(config(name)), optim.adamw(1e-3)
     return TrainState.create(model, opt, 1, device=CPU)
 
 
-def _restore_and_save(src: str, dst: str) -> dict:
+def _restore_and_save(src: str, dst: str, name: str) -> dict:
     """A one-rank checkpoint of :func:`ckpt_state` restored on the
     (1, world) mesh, and saved back from every rank: whether each
     restored leaf is bitwise this rank's placed block, and the step."""
-    state = ckpt_state()
+    state = ckpt_state(name)
     mesh = make_host_mesh(dist.get_world_size(), devices=[CPU])
     sh = named(mesh, param_spec_tree(state, mesh.shape["model"]))
     placed = place(state, sh)
@@ -319,12 +528,51 @@ def _tensors(tree) -> list:
 
 # ------------------------------------------------------------------ entry
 
+def env() -> dict:
+    """The environment of a rank (or reference) process: the port's
+    ``src`` and this directory on the path, one thread."""
+    out = dict(os.environ)
+    out["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE.parent / "src"), str(HERE)]
+        + ([out["PYTHONPATH"]] if out.get("PYTHONPATH") else []))
+    out["OMP_NUM_THREADS"] = "1"
+    return out
+
+
+def spawn(world: int, out: Path, extra: dict) -> list[dict]:
+    """Runs this file's rank checks in ``world`` processes (the test
+    side); each rank's results. A rank that fails or hangs fails the
+    caller."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "_parallel_workers.py"), str(world),
+         str(r), str(out / "store"), str(out), json.dumps(extra)],
+        env=env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} of {world}: {logs[r][-3000:]}"
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
 def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
     """One rank: every check for ``world`` ranks, its results saved to
     ``out/rank{rank}.pt``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
+    if "bf16" in extra:         # the reference's bf16 step on (1, 2) alone
+        res = {arch: bf16_step(arch, ckpt)
+               for arch, ckpt in extra["bf16"].items()}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return
     res = {"meshes": {}}
     for mp in (1, 2, world):
         mesh = make_host_mesh(mp, devices=[CPU])
@@ -333,12 +581,16 @@ def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
                              "coords": mesh.coords()}
     res["layers"] = _layer_cases(world)
     res["masks"] = _masks(world)
-    res["round_trips"] = _round_trips(2)
+    res["round_trips"] = _round_trips(
+        [(n, 2) for n in (*DENSE, "granite-3-2b-v515", "deepseek-7b-v515")]
+        + OTHER_LAYOUTS[world])
     res["steps"] = {f"{name} {mp}": _mesh_steps(name, mp)
                     for name, mp in extra["steps"]}
     res["launcher"] = _launcher(world, 2)
-    if "ckpt" in extra:
-        res["ckpt"] = _restore_and_save(*extra["ckpt"])
+    res["families"] = _family_losses(world)
+    for name, (src, dst) in extra.get("ckpt", {}).items():
+        res["ckpt" if name == "qwen-h8" else f"ckpt {name}"] = \
+            _restore_and_save(src, dst, name)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
 

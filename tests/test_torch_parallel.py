@@ -1,8 +1,10 @@
-"""Tensor and data parallel training of the dense decoder over
-``torch.distributed`` ranks (``launch/mesh.py``, ``models/parallel.py``,
-``models/sharding.place`` / ``gather``, the split layers, the pruning's
-reduced bisection, the train step's data rows, the checkpointer, the
-train launcher under ``torchrun``), on the CPU over gloo.
+"""Tensor, expert and data parallel training of the decoder (dense, MoE,
+VLM) over ``torch.distributed`` ranks (``launch/mesh.py``,
+``models/parallel.py``, ``models/sharding.place`` / ``gather``, the split
+layers, attention's head_dim and d_model fallbacks, the MoE layer's
+experts and batch rows, the projector, the pruning's reduced bisection,
+the train step's data rows, the checkpointer, the train launcher under
+``torchrun``), on the CPU over gloo.
 
 Pure tests first (the backend rule, rank coordinates, the refusals, the
 identity outside a mesh). Then 2 and 4 ranks run every rank-side check
@@ -10,21 +12,22 @@ of ``tests/_parallel_workers.py`` once each, and the tests read their
 results against one process on the same inputs: layers rtol 1e-5 / atol
 1e-6 with their gradients, masks bitwise, two AdamW steps' losses rtol
 1e-4 and params atol 1e-5. Last, the train launcher on 4 ranks resumes
-the reference's own 4-device ``--model-parallel 2`` checkpoint and
-holds its losses and final checkpoint."""
+the reference's own 4-device checkpoint and holds its losses and final
+checkpoint (``tests/test_torch_parallel_bf16.py`` holds the bf16 step
+on 2 ranks to the reference's own sharded one)."""
 import json
-import os
 import re
 import shutil
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import _parallel_workers as W
+from _parallel_workers import env as _env
+from _parallel_workers import spawn as _spawn
 from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.checkpoint.checkpointer import named_leaves
@@ -35,49 +38,27 @@ from repro_torch.launch.mesh import Mesh, backend_for
 from repro_torch.models import get_model, parallel
 from repro_torch.models.sharding import P, named, param_spec_tree, place
 
-ROOT = Path(__file__).resolve().parent.parent
-HERE = Path(__file__).resolve().parent
 CPU = torch.device("cpu")
-RANK_TIMEOUT = 240                # seconds a rank process may take
 STEPS = {2: [("llama3.2-3b", 2), ("llama3.2-3b", 1), ("qwen2.5-32b", 2),
              ("deepseek-7b", 2), ("granite-3-2b-v515", 2),
-             ("deepseek-7b-v515", 2)],
-         4: [("llama3.2-3b", 2), ("qwen-h8", 4)]}
+             ("deepseek-7b-v515", 2),
+             ("granite-moe-1b-a400m", 2), ("granite-moe-1b-a400m", 1),
+             ("qwen3-moe-30b-a3b", 2), ("qwen3-moe-30b-a3b", 1),
+             ("granite-moe-cf1", 1), ("llava-next-34b", 2)],
+         4: [("llama3.2-3b", 2), ("qwen-h8", 4),
+             ("granite-moe-1b-a400m", 2), ("granite-moe-1b-a400m", 4),
+             ("qwen3-moe-30b-a3b", 2), ("qwen3-moe-30b-a3b", 4),
+             ("llava-next-34b", 2)]}
 LAYERS = ("attn_forward", "attn_forward_flash", "swiglu", "embed_vocab",
           "embed_d_model", "unembed_vocab", "unembed_d_model",
           "cross_entropy_vocab", "vocab_chain")
+OTHER_LAYERS = [(2, "moe_apply_rows_2x1"), (4, "moe_apply_rows_4x1"),
+                (4, "moe_apply_rows_2x2")] + [
+    (w, c) for w in (2, 4) for c in ("moe_apply", "attn_head_dim",
+                                     "attn_head_dim_q", "attn_d_model",
+                                     "projector")]
 
 torch.set_num_threads(1)
-
-
-def _env() -> dict:
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(HERE)]
-        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    env["OMP_NUM_THREADS"] = "1"
-    return env
-
-
-def _spawn(world: int, out: Path, extra: dict) -> list[dict]:
-    """Runs the rank checks in ``world`` processes; each rank's results.
-    A rank that fails or hangs fails the caller."""
-    procs = [subprocess.Popen(
-        [sys.executable, str(HERE / "_parallel_workers.py"), str(world),
-         str(r), str(out / "store"), str(out), json.dumps(extra)],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {world}: {logs[r][-3000:]}"
-    return [torch.load(out / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
 
 
 _RANKS: dict = {}
@@ -92,9 +73,12 @@ def ranks(tmp_path_factory):
             out = _DIRS[world] = tmp_path_factory.mktemp(f"ranks{world}")
             extra = {"steps": STEPS[world]}
             if world == 4:
-                src, dst = out / "one_rank", out / "four_ranks"
-                Checkpointer(str(src)).save(W.ckpt_state(), 1)
-                extra["ckpt"] = [str(src), str(dst)]
+                extra["ckpt"] = {}
+                for name in ("qwen-h8", "granite-moe-1b-a400m"):
+                    src, dst = (out / f"one_rank {name}",
+                                out / f"four_ranks {name}")
+                    Checkpointer(str(src)).save(W.ckpt_state(name), 1)
+                    extra["ckpt"][name] = [str(src), str(dst)]
             _RANKS[world] = _spawn(world, out, extra)
         return _RANKS[world]
     return get
@@ -149,32 +133,55 @@ def _moe_params():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("moe", "20b"), ("head_dim_fallback", "20b"), ("fsdp", "20c")])
-def test_place_refuses_outside_the_slice(case, item):
-    """The MoE leaves (experts on "model"), attention's head_dim fallback
-    (llama's smoke Hkv 2 over 4 model shards) and any data-axis entry
-    (FSDP) raise, naming the ROADMAP item; the dense smoke state at 2
-    model shards passes the check."""
+    ("moe", None), ("head_dim_fallback", None), ("mamba2", "20e"),
+    ("xlstm", "20e"), ("fsdp", "20c")])
+def test_place_refuses_outside_the_slice(case, item, monkeypatch):
+    """Any data-axis entry (FSDP) and a "model" split of a recurrent leaf
+    (Mamba2's, xLSTM's) raise, naming the ROADMAP item; the MoE leaves
+    (experts on "model") and attention's head_dim fallback (llama's smoke
+    Hkv 2 over 4 model shards) pass the check, every leaf of them."""
     mesh = _fake_mesh(4 if case == "head_dim_fallback" else 2)
     if case == "moe":
         params = _moe_params()
         specs = param_spec_tree(params, 2)
+        assert specs["layers.moe.we_g"] == P(None, "model", None, None)
     elif case == "head_dim_fallback":
         params = get_model(get_smoke_config("llama3.2-3b")).init(
             0, device=CPU)
         specs = param_spec_tree(params, 4)
         assert specs["layers.attn.wk.w"] == P(None, None, None, "model")
+    elif case in ("mamba2", "xlstm"):
+        arch = "zamba2-2.7b" if case == "mamba2" else "xlstm-1.3b"
+        params = get_model(get_smoke_config(arch)).init(0, device=CPU)
+        specs = param_spec_tree(params, 2)
+        leaf = next(k for k in params if re.search(
+            r"(mamba|mlstm|slstm)\.", k) and "model" in specs[k])
+        params, specs = {leaf: params[leaf]}, {leaf: specs[leaf]}
     else:
         params = {"layers.mlp.wi.w": torch.ones(2, 4, 8)}
         specs = param_spec_tree(params, 2, fsdp=(("data",), 2))
+    sh = named(mesh, specs)
+    if item is None:        # rank 1 keeps its blocks (no collective runs)
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 1)
+        placed = place(params, sh)
+        split = 0
+        for k, x in params.items():
+            assert torch.equal(placed[k], sh[k].block(x)), k
+            split += placed[k].shape != x.shape
+        assert split
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        place(params, named(mesh, specs))
+        place(params, sh)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llava-next-34b",
                                   "xlstm-1.3b", "zamba2-2.7b",
                                   "whisper-tiny"])
-def test_other_families_refuse_a_mesh_of_ranks(arch):
+def test_other_families_refuse_a_mesh_of_ranks(ranks, arch):
+    """xLSTM, Zamba and Whisper refuse a mesh of ranks in their loss and
+    prefill (ROADMAP item 20e). The MoE and VLM decoders' loss runs on
+    each rank's blocks at (1, 2) and (1, 4), the one-rank loss at rtol
+    1e-5, and their prefill refuses (item 20f)."""
     cfg = get_smoke_config(arch)
     model = get_model(cfg)
     params = model.init(0, device=CPU)
@@ -183,11 +190,23 @@ def test_other_families_refuse_a_mesh_of_ranks(arch):
         batch["patches"] = torch.zeros((2, cfg.num_patches, cfg.d_model))
     if cfg.family == "audio":
         batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
-    with parallel.using(_fake_mesh()):
-        with pytest.raises(NotImplementedError, match="item 20b"):
-            model.loss_fn(params, batch)
-        with pytest.raises(NotImplementedError, match="item 20b"):
-            model.prefill(params, batch)
+    if cfg.family in ("moe", "vlm"):
+        one = model.loss_fn(params, W.family_batch(cfg)).item()
+        for world in (2, 4):
+            for res in ranks(world):
+                got = res["families"][arch]
+                np.testing.assert_allclose(got["loss"], one, rtol=1e-5)
+                assert "prefill" in got["prefill"]
+                assert "item 20f" in got["prefill"]
+        with parallel.using(_fake_mesh()):
+            with pytest.raises(NotImplementedError, match="item 20f"):
+                model.prefill(params, batch)
+    else:
+        with parallel.using(_fake_mesh()):
+            with pytest.raises(NotImplementedError, match="item 20e"):
+                model.loss_fn(params, batch)
+            with pytest.raises(NotImplementedError, match="item 20e"):
+                model.prefill(params, batch)
     model.loss_fn(params, batch)            # no mesh: as before
 
 
@@ -214,9 +233,12 @@ def test_outside_a_mesh_every_function_is_the_identity():
             assert parallel.reduce_from_model(x) is x
             assert parallel.gather_from_model(x, -1) is x
             assert parallel.split_to_model(x, -1) is x
+            assert parallel.gather_to_ranks(x, -1) is x
+            assert parallel.mean_over_data(x) is x
             assert parallel.all_reduce(x, "data") is x
+            assert parallel.all_gather(x, "data", 0) is x
             assert parallel.size("model") == 1 and parallel.rank("model") == 0
-            parallel.refuse("anything")
+            parallel.refuse("anything", "20f")
     assert parallel.current() is None
 
 
@@ -254,6 +276,34 @@ def test_place_gather_round_trip(ranks, world, name):
                                       else ("model", None))
 
 
+@pytest.mark.parametrize("world,name,mp", [
+    (w, n, m) for w in (2, 4) for n, m in W.OTHER_LAYOUTS[w]],
+    ids=lambda v: str(v))
+def test_place_gather_round_trip_other_layouts(ranks, world, name, mp):
+    """The MoE (experts on "model"), VLM (the projector's columns) and
+    attention-fallback states at ``mp`` model shards of ``world`` ranks:
+    every leaf placed is the block of the whole one and gathers back
+    bitwise, and a rank holds exactly ``shard_bytes``."""
+    key = name if mp == 2 else f"{name} {mp}"
+    for res in ranks(world):
+        r = res["round_trips"][key]
+        assert r["blocks"] and r["gathered"]
+        assert r["bytes"][0] == r["bytes"][1]
+    specs = ranks(world)[0]["round_trips"][key]["specs"]
+    if "moe" in name:
+        for k in ("we_g", "we_i", "we_o"):
+            assert specs[f"layers.moe.{k}"] == (None, "model", None, None)
+        assert specs["layers.moe.router.w"] == (None, None, None)
+    if name == "llava-next-34b":
+        assert specs["projector.w"] == (None, "model")
+    if name == "llama3.2-3b" or ("moe" in name and mp == 4):   # Hkv 2
+        assert specs["layers.attn.wq.w"] == (None, None, "model", None)
+        assert specs["layers.attn.wk.w"] == (None, None, None, "model")
+    if name.startswith("llama-d-model"):
+        assert specs["layers.attn.wq.w"] == (None, "model", None, None)
+        assert specs["layers.attn.wo.w"] == (None, None, "model")
+
+
 @pytest.mark.parametrize("case", LAYERS)
 @pytest.mark.parametrize("world", [2, 4])
 def test_layer_matches_one_rank(ranks, world, case):
@@ -275,7 +325,11 @@ def test_layer_matches_one_rank(ranks, world, case):
 
 @pytest.mark.parametrize("what", ["masks_0.5", "masks_0.25", "masks_0.1",
                                   "compress_with_masks_fp8",
-                                  "compress_with_masks_int8"])
+                                  "compress_with_masks_int8",
+                                  "compress_with_masks_moe_fp8",
+                                  "compress_with_masks_moe_int8",
+                                  "compress_with_masks_attn_fallback_fp8",
+                                  "compress_with_masks_head_dim_int8"])
 @pytest.mark.parametrize("world", [2, 4])
 def test_split_masks_are_the_one_rank_blocks(ranks, world, what):
     """``magnitude_masks(shardings=)`` on each rank's blocks (ties, leaves
@@ -288,6 +342,36 @@ def test_split_masks_are_the_one_rank_blocks(ranks, world, what):
         assert set(local) == set(whole)
         for k in whole:
             assert torch.equal(local[k], whole[k]), k
+
+
+@pytest.mark.parametrize("world,case", OTHER_LAYERS, ids=lambda v: str(v))
+def test_other_layout_matches_one_rank(ranks, world, case):
+    """The MoE layer (experts over "model", choices dropped at capacity
+    factor 1; output and aux loss, the router's gradient included), and
+    over "data" ((world, 1), (2, 2): each rank its rows, one group
+    straddling them, the step's mean of the gradients); attention with q
+    on heads and k / v on head_dim (kv heads sliced per rank), with q and
+    k / v on head_dim (every head on every rank), and on d_model with
+    ``wo`` on its columns; the projected patches in front of the text:
+    against one rank at rtol 1e-5 / atol 1e-6, output and gradients
+    (every leaf's made whole, the input's), every rank the same bits.
+    The d_model split sums each projection's f32 partials in another
+    order, and that rounding reaches every gradient of the layer at the
+    size of its largest (10-20 here; k's bias, whose exact gradient is 0
+    under the softmax, is that noise alone), so its gradients are held at
+    atol 1e-6 of the layer's largest gradient."""
+    results = [res["layers"][case] for res in ranks(world)]
+    (out, grads, gx), (out1, grads1, gx1) = results[0]
+    torch.testing.assert_close(out, out1, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx, gx1, rtol=1e-5, atol=1e-6)
+    scale = (max(g.abs().max().item() for g in grads1.values())
+             if case == "attn_d_model" else 1.0)
+    for k in grads1:
+        torch.testing.assert_close(grads[k], grads1[k], rtol=1e-5,
+                                   atol=1e-6 * scale, msg=k)
+    for (o, g, x), _ in results[1:]:
+        assert torch.equal(o, out) and torch.equal(x, gx)
+        assert all(torch.equal(g[k], grads[k]) for k in g)
 
 
 @pytest.mark.parametrize("name,mp", STEPS[2], ids=lambda v: str(v))
@@ -354,10 +438,20 @@ def test_checkpoint_crosses_one_rank_and_four(ranks):
     """A one-rank checkpoint restores on 4 ranks as each rank's blocks,
     bitwise, and their save writes the one-rank file's leaves back,
     bitwise."""
-    assert all(res["ckpt"]["same"] and res["ckpt"]["step"] == 1
+    _crosses(ranks, "qwen-h8", "ckpt")
+
+
+def test_moe_checkpoint_crosses_one_rank_and_four(ranks):
+    """As above for granite-moe's smoke state at (1, 4): each rank one
+    of its 4 experts, attention on the head_dim fallback."""
+    _crosses(ranks, "granite-moe-1b-a400m", "ckpt granite-moe-1b-a400m")
+
+
+def _crosses(ranks, name: str, key: str) -> None:
+    assert all(res[key]["same"] and res[key]["step"] == 1
                for res in ranks(4))
-    a = _npz(_DIRS[4] / "one_rank" / "ckpt_00000001.npz")
-    b = _npz(_DIRS[4] / "four_ranks" / "ckpt_00000001.npz")
+    a = _npz(_DIRS[4] / f"one_rank {name}" / "ckpt_00000001.npz")
+    b = _npz(_DIRS[4] / f"four_ranks {name}" / "ckpt_00000001.npz")
     assert set(a) == set(b)
     for k, (v, dt) in a.items():
         assert b[k][1] == dt and np.array_equal(b[k][0], v), k
@@ -371,16 +465,24 @@ def _losses(log: str) -> dict:
              if re.match(r'^\{"step"', line))}
 
 
-def test_launcher_matches_the_sharded_reference(tmp_path):
-    """The reference's launcher on 4 host devices (a (2, 2) mesh at
-    --model-parallel 2), 3 steps with a checkpoint each; the port's on 4
+@pytest.mark.parametrize("arch,mp", [
+    ("llama3.2-3b", 2), ("granite-moe-1b-a400m", 2),
+    ("granite-moe-1b-a400m", 4), ("llava-next-34b", 2)],
+    ids=lambda v: str(v))
+def test_launcher_matches_the_sharded_reference(tmp_path, arch, mp):
+    """The reference's launcher on 4 host devices (a (4 / mp, mp) mesh at
+    --model-parallel mp), 3 steps with a checkpoint each; the port's on 4
     gloo ranks under torchrun resumes from a copy of its step-1
     checkpoint to step 3: printed losses within 1e-4, every leaf of the
     step-3 checkpoint within 1e-5 (names and dtypes equal); that file,
-    written by 4 ranks, restores bitwise in one process."""
-    args = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3", "--batch",
-            "8", "--seq", "32", "--model-parallel", "2", "--ckpt-every", "1",
-            "--log-every", "1"]
+    written by 4 ranks, restores bitwise in one process. granite-moe at
+    mp 4 runs one expert a rank and attention on the head_dim fallback
+    (Hkv 2 over 4); on (2, 2) its one 64-token group a tier straddles
+    the data ranks."""
+    args = ["--arch", arch, "--smoke", "--steps", "3", "--batch",
+            "8", "--seq", "32", "--model-parallel", str(mp),
+            "--ckpt-every", "1", "--log-every", "1"]
+    mesh = f"mesh={{'data': {4 // mp}, 'model': {mp}}}"
     ref, port = tmp_path / "ref", tmp_path / "port"
     env = _env()
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -389,7 +491,7 @@ def test_launcher_matches_the_sharded_reference(tmp_path):
                         "--ckpt-dir", str(ref)], env=env, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert "mesh={'data': 2, 'model': 2}" in r.stdout
+    assert mesh in r.stdout
     ref_losses = _losses(r.stdout)
     port.mkdir()
     shutil.copy(ref / "ckpt_00000001.npz", port)
@@ -401,7 +503,7 @@ def test_launcher_matches_the_sharded_reference(tmp_path):
                        timeout=300)
     assert p.returncode == 0, p.stderr[-3000:]
     assert "restored step 1" in p.stdout
-    assert "mesh={'data': 2, 'model': 2}" in p.stdout
+    assert mesh in p.stdout
     got = _losses(p.stdout)
     assert sorted(got) == [2, 3]
     for step, loss in got.items():
@@ -412,7 +514,7 @@ def test_launcher_matches_the_sharded_reference(tmp_path):
         assert b[k][1] == dt, k
         np.testing.assert_allclose(b[k][0], v, rtol=0, atol=1e-5, err_msg=k)
     # the 4-rank file in one process
-    model = get_model(get_smoke_config("llama3.2-3b"))
+    model = get_model(get_smoke_config(arch))
     template = TrainState.create(model, optim.adamw(1e-3), 0, device=CPU)
     state, step = Checkpointer(str(port)).restore(template)
     assert step == 3
