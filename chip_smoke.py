@@ -94,7 +94,7 @@ checkpoint reads faults') needs that one named too.
      f32 and the int8 bf16 train rows codebook_matmul's.
 3. Phase "slice": ``simulate`` on the card at the 256-client bench fleet,
    20 rounds each: the masked fleet (eager, scan, scan_pallas), its
-   width-sliced twin (scan, scan_pallas) and, 10 rounds, FedAvg with fp8
+   width-sliced twin (scan, scan_pallas) and, 5 rounds, FedAvg with fp8
    uploads and error feedback on the six-tier quickstart fleet (scan,
    scan_pallas).
    Launch counters are zeroed just before each scan_pallas run and read
@@ -106,8 +106,9 @@ checkpoint reads faults') needs that one named too.
    the per-leaf route, each timed.
    Phase "examples": the five scripts of ``repro_torch.examples`` through
    their ``main`` (or the functions behind it), each one's launches
-   counted (counters zeroed just before it): quickstart (30 rounds of the
-   six-tier FedAvg fleet, engine scan: losses finite and falling);
+   counted (counters zeroed just before it): quickstart (15 of its 30
+   rounds of the six-tier FedAvg fleet, engine scan: losses finite and
+   falling);
    hetero_fl_sim at its 60 rounds (the paper's 8-device fleet per client:
    all-hub FedSGD, hetero FedSGD, FedAvg with five local steps, fp8
    uploads with EF; the cohort runs, masked against width-sliced, async;
@@ -121,9 +122,9 @@ checkpoint reads faults') needs that one named too.
    (then the run from the CPU's params and prompt on the card and the
    CPU: compressed params bitwise, payload bits exactly, tokens equal up
    to the CPU's first top-2 logit gap below 1e-4); train_100m at full
-   width (80,753,152 params, 8 x 512 over 4 tiers, 50 of the
+   width (80,753,152 params, 8 x 512 over 4 tiers, 20 of the
    reference's 300 steps; losses finite, the last below the first,
-   s/step, tokens/s and peak memory; a checkpoint at steps 25 and 50,
+   s/step, tokens/s and peak memory; a checkpoint at steps 10 and 20,
    the last restoring bitwise to the live state).
    Phase "async": the 256-client bench fleet and its width twin under
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
@@ -144,8 +145,9 @@ checkpoint reads faults') needs that one named too.
    non-finite params. (c) the async masked fleet with retried and
    corrupted uploads, 20 windows, eager and scan bitwise. Each run's ms
    per round (window) beside the clean run's.
-   Phase "checkpoint": the masked fleet with fp8 EF, 20 rounds with a
-   checkpoint every 5, cut at 10 and resumed: params bitwise and records
+   Phase "checkpoint": the masked fleet with fp8 EF, 10 rounds with a
+   checkpoint every 5, cut at 5 and resumed (the async run: 20 windows,
+   cut at 10): params bitwise and records
    equal to the uninterrupted run, under (b)'s first policy eager and
    scan, (a)'s scan_pallas, and (c)'s async run eager and scan; save and
    restore of a cohort and an async server state timed, with the npz
@@ -168,7 +170,7 @@ checkpoint reads faults') needs that one named too.
    engine="scan_pallas" refused; a 16-client, 4-edge fleet's 3 rounds
    within 1e-5 of the port's CPU path. (b) sync_wait under (a)'s
    availability policy of phase faults, eager and scan bitwise, equal
-   counts. (c) fp8 EF cut at 10 of 20 rounds and resumed, eager and
+   counts. (c) fp8 EF cut at 5 of 10 rounds and resumed, eager and
    scan, bitwise; the npz holds the (E, cap, ...) EF rows; save and
    restore timed. (d) the reference's acceptance fleet: 100,000 clients
    of the four tiers over 8 edges, FedSGD, ScanEngine(chunk_rounds=10),
@@ -180,7 +182,7 @@ checkpoint reads faults') needs that one named too.
 4. Phase "serve": llama3.2-3b at its full config (28 layers, bf16
    compute), compressed for the tiers hub (none), low (pruned + fp8) and
    embedded (k-means + fp4) through ``repro_torch.launch.serve``: batch
-   4, prompt 64, 32 greedy
+   4, prompt 64, 8 greedy
    tokens; fake_quant must launch 10 times per quantized tier and never
    for the hub. At 2 layers of full width in f32, the decode replay of the
    prompt must agree with prefill's last-token logits.
@@ -197,7 +199,7 @@ checkpoint reads faults') needs that one named too.
    steps, its flash_attention launches all on the simt kernel.
 6. Phase "moe serve": granite-moe-1b-a400m whole (24 layers, 32 experts
    top-8, 1,334,628,352 params) through ``launch.serve`` for the tiers
-   of 4 (the hub over 2 tokens, the others 32), fake_quant once per
+   of 4 (the hub over 2 tokens, the others 8), fake_quant once per
    compressible leaf (10, the router
    excluded) per quantized tier, and a profiled window of 8 decode
    steps on the low tier; then qwen3-moe-30b-a3b and llava-next-34b at
@@ -229,7 +231,7 @@ checkpoint reads faults') needs that one named too.
    full width: xLSTM at 8 of 48 layers (one superblock), Zamba at 12 of
    54 (two applications) at peak lr 3e-5: losses finite and the mean
    loss falling over the last two steps, fake_quant 54 per step, Zamba's
-   flash 8 per step on the simt kernel (hd 80); one step of each
+   flash 8 per step on the simt kernel (hd 80); one step of Zamba's
    profiled.
 10. Phase "audio serve": whisper-tiny whole (4 encoder + 4 decoder
    layers, 36,463,488 params, 1500 frame positions) with ``use_flash``
@@ -250,7 +252,7 @@ checkpoint reads faults') needs that one named too.
 12. Phase "mesh": (a) whisper-tiny whole through ``launch.train`` at
    --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on
    one card, the state placed by ``param_spec_tree``) and at 1, bf16,
-   flash, 4 tiers, AdamW, 8 x 1024 over 1500 frames, 3 steps each: flash
+   flash, 4 tiers, AdamW, 8 x 1024 over 1500 frames, 2 steps each: flash
    48 and fake_quant 93 per step, losses and final params bitwise
    between the two; (b) the LM dry run (``launch.dryrun.dry_run_step``,
    fake tensors on the host) of the same config and shape on that mesh,
@@ -269,23 +271,33 @@ checkpoint reads faults') needs that one named too.
    width, 2 layers, f32, flash (simt), 4 tiers, 8 x 256, 2 steps under
    the launcher's warmup, on meshes (1, 2) and (2, 1) against the
    one-rank launcher from the same seed: losses and tier losses rtol
-   1e-4, gathered params atol 1e-5, each rank's masks at densities 0.5
+   1e-4, params (below), each rank's masks at densities 0.5
    and 0.25 bitwise the one-rank masks' blocks (the one-rank f32 counts
    of the embedding, past 2^24, are printed against exact counts),
    fake_quant launches per rank the one-rank count, flash 16 simt
    launches per rank (its attention calls), each rank's placed state
    exactly ``shard_bytes``; (d2) 4 layers, bf16, flash (wgmma at the
-   local 12 / 4 heads), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s,
-   peak memory and a profiled step's busy share per rank, losses within
-   3 x the one-rank run's own bf16-vs-f32 distance of its bf16 losses
-   (the reference's sharded bf16 step rounds each of 2 ranks' partial
-   sums as the ranks do, tests/test_torch_parallel_bf16.py); (d3) the
-   same two parts on granite-moe-1b-a400m at full width (experts split
-   over "model", 16 a rank; the embedding on d_model, its vocabulary
-   49155 being odd; on (2, 1) each tier's one 512-token MoE group
-   straddles the data ranks), with the MoE layer's share of the
-   profiled step's wall; and llama3.2-3b's dry-run argument bytes per
-   device on a (1, 4) mesh, whole and at 4 layers (computed).
+   local 12 / 4 heads), 8 x 1024, 3 steps on (1, 2): s/step, tokens/s and
+   peak memory per rank, losses within 3 x the one-rank run's own
+   bf16-vs-f32 distance of its bf16 losses (the two ranks' bf16 sums
+   round once, as the reference's sharded bf16 step's f32 sums do,
+   tests/test_torch_parallel_bf16.py); (d3) the same two parts on
+   granite-moe-1b-a400m at full width (experts split over "model", 16 a
+   rank; the embedding on d_model, its vocabulary 49155 being odd; on
+   (2, 1) each tier's one 512-token MoE group straddles the data ranks),
+   with a profiled step's busy share and the MoE layer's share of its
+   wall; (d4) (d1)'s part on (1, 2) for xlstm-1.3b at 8 layers (one
+   superblock), zamba2-2.7b at 6 (one application of the shared block;
+   flash simt at hd 80) and whisper-tiny whole (flash simt on the
+   1500-frame encoder, the decoder and the cross-attention), and (d2)'s
+   part with its profiled step for zamba2-2.7b. The f32 parts' bars past
+   the losses: AdamW's first moment within 1e-3 of its leaf's largest of
+   one rank's, and the params within atol 1e-5; in (d4) alone a param
+   whose first moment flips sign at most 1e-3 of its leaf's largest may
+   pass it by up to 2 lr (a gradient at f32 noise, whose sign AdamW's
+   step turns into +-lr; counted and printed). And
+   llama3.2-3b's dry-run argument bytes per device on a (1, 4) mesh,
+   whole and at 4 layers (computed).
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -316,7 +328,9 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
-FEDAVG_ROUNDS = 10                  # the slice's FedAvg fleet: ~10x a FedSGD round
+FEDAVG_ROUNDS = 5                   # the slice's FedAvg fleet: ~10x a FedSGD round
+CKPT_ROUNDS = 10                    # the FL kill-and-resume runs, cut at half
+QUICKSTART_ROUNDS = 15              # of the script's 30
 LM_ARCH = "llama3.2-3b"
 MOE_ARCH = "granite-moe-1b-a400m"
 XLSTM = "xlstm-1.3b"
@@ -1785,10 +1799,11 @@ EXAMPLE_VAL_ACC_OF = {"async buffer=2 + jitter": 0.965 - 0.01}
 # the reference's default is 300: at 300 one host took 1134 s of command,
 # 1086 s of phases (PERF.md §7). 100 since phase mesh's ranks (d) came
 # (150 took 820 s of phases on an H100 80GB HBM3 host), 50 since its MoE
-# part (d3) came; a checkpoint every TRAIN_100M_CKPT_EVERY in place of the
-# script's 100, so that two are written and the last is the final step's
-TRAIN_100M_STEPS = 50
-TRAIN_100M_CKPT_EVERY = 25
+# part (d3) came, 20 since its part (d4); a checkpoint every
+# TRAIN_100M_CKPT_EVERY in place of the script's 100, so that two are
+# written and the last is the final step's
+TRAIN_100M_STEPS = 20
+TRAIN_100M_CKPT_EVERY = 10
 SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
@@ -2009,9 +2024,13 @@ def phase_examples(device) -> dict:
     counted (counters zeroed just before it); returns their sums."""
     from repro_torch.examples import paper_mlp_repro, quickstart
     launches: dict = {}
-    res = _example("quickstart",
-                   lambda: quickstart.main(["--device", str(device)]),
-                   launches)
+    rounds_before, quickstart.ROUNDS = quickstart.ROUNDS, QUICKSTART_ROUNDS
+    try:
+        res = _example("quickstart",
+                       lambda: quickstart.main(["--device", str(device)]),
+                       launches)
+    finally:
+        quickstart.ROUNDS = rounds_before
     _finite_falling("quickstart", res.losses)
 
     _hetero_fl_sim(device, launches)
@@ -2386,11 +2405,12 @@ def phase_checkpoint(device, faults: dict) -> dict:
     sc = FLScenario(fleet=fleet, upload=ef, faults=FaultPolicy(**FL_FAULTS))
     for engine in ("eager", "scan"):
         res = _kill_and_resume(sc, engine, device, "fl_policy fp8_ef",
-                               ROUNDS)
+                               CKPT_ROUNDS)
     _save_restore(sc, res, device, "fl_policy fp8_ef (cohort)")
     _kill_and_resume(FLScenario(fleet=fleet, upload=ef,
                                 faults=FaultPolicy(**AVAIL_FAULTS)),
-                     "scan_pallas", device, "availability fp8_ef", ROUNDS)
+                     "scan_pallas", device, "availability fp8_ef",
+                     CKPT_ROUNDS)
     a_sc, a_runs = faults["async"]
     for engine in ("eager", "scan"):
         res = _kill_and_resume(a_sc, engine, device, "async masked",
@@ -2456,7 +2476,7 @@ def phase_checkpoint(device, faults: dict) -> dict:
 # ------------------------------------------------------------ topology
 
 TOPO_EDGES = 8
-TOPO_ROUNDS = 3                     # (a) and (b); (c) cuts 20 at 10
+TOPO_ROUNDS = 3                     # (a) and (b); (c) runs CKPT_ROUNDS
 TOPO_CHUNK = 2                      # a chunk of 2, then one resumed from it
 ACCEPT_CLIENTS = 100_000            # benchmarks/fl_bench.py:354-396
 ACCEPT_CHUNK = 10
@@ -2640,7 +2660,7 @@ def phase_topology(device, ms_log: dict) -> dict:
     fake_quant.launches = 0
     for engine in ("eager", "scan"):
         res = _kill_and_resume(sc, engine, device, "topology quant_ef",
-                               ROUNDS)
+                               CKPT_ROUNDS)
     cap = [c.cap for c in res.server.cohorts]
     d = _ckpt_dir()
     try:
@@ -2720,6 +2740,7 @@ def phase_topology(device, ms_log: dict) -> dict:
 
 # one tier with no compression, one pruned + fp8, one k-means + fp4
 SERVE_TIERS = ("hub", "low", "embedded")
+SERVE_GEN = 8               # tokens a served tier decodes (phase budget)
 
 
 def phase_serve(device) -> int:
@@ -2730,7 +2751,7 @@ def phase_serve(device) -> int:
     from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.launch.serve import serve
     from repro_torch.models import get_model
-    batch, prompt, gen = 4, 64, 32
+    batch, prompt, gen = 4, 64, SERVE_GEN
     cfg = get_config(LM_ARCH)
     params = get_model(cfg).init(0, device=device)
     check({k: tuple(v.shape) for k, v in params.items()}
@@ -2981,7 +3002,7 @@ HUB_GEN = 2         # tokens of the MoE, VLM and Zamba hubs' checked serve
 
 
 def _serve_tiers(cfg, params, tiers, label: str, device, flash: int = 0,
-                 gen: int = 32) -> tuple[int, int]:
+                 gen: int = None) -> tuple[int, int]:
     """``launch.serve`` of ``params`` for each tier at batch 4, prompt 64,
     ``gen`` tokens, counters zeroed before each call: fake_quant once per
     compressible leaf for a quantized tier, 0 for the hub; flash_attention
@@ -2993,6 +3014,7 @@ def _serve_tiers(cfg, params, tiers, label: str, device, flash: int = 0,
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
     batch, prompt = 4, 64
+    gen = SERVE_GEN if gen is None else gen
     n_leaves = _n_compressible(cfg)
     routes = flash_attention.route_launches
     total = total_flash = 0
@@ -3253,6 +3275,9 @@ RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
 RECURRENT_TRAIN = {XLSTM: 8, ZAMBA: 12}     # one superblock; two applications
 RECURRENT_STEPS = 3
+# the train steps profiled: not xLSTM's since phase mesh (d4) (its sLSTM
+# loop's host cost, 264k device ops a step, is in PERF.md §5)
+RECURRENT_PROFILED = (ZAMBA,)
 # AdamW's peak lr: at 3e-4, the other train phases' lr, Zamba's mean loss
 # on an H100 jumps at step 3 under AdamW's first updates and then swings
 # (15.05, 11.47, 12.16 at steps 3-5), the uncompressed tiers the most; at
@@ -3315,7 +3340,8 @@ def phase_recurrent_train(device) -> dict:
                              f"last two steps: {c[-2]:.4f} -> {c[-1]:.4f}")
         got["fake_quant"] += launches["fake_quant"]
         got["flash_attention_simt"] += launches["simt"]
-        _profile_train_step(cfg, res["state"], steps, arch, device, lr)
+        if arch in RECURRENT_PROFILED:
+            _profile_train_step(cfg, res["state"], steps, arch, device, lr)
         del res
     return got
 
@@ -3423,7 +3449,7 @@ def phase_audio_train(device) -> dict:
 
 # ------------------------------------------------------ meshes, dry run
 
-MESH_STEPS = 3
+MESH_STEPS = 2                      # (a)'s steps (phase budget)
 MESH_MEMORY_RTOL = 0.25             # dry-run bytes vs the card's peak
 MESH_RANKS = 2                      # (d): two ranks share the card over gloo
 MESH_F32 = dict(layers=2, batch=8, seq=256, steps=2)    # (d1), warmup 20
@@ -3435,7 +3461,17 @@ MESH_BF16_SLACK = 3.0
 MESH_RANK_TIMEOUT = 420             # seconds the ranks of (d) may take
 # (d3) runs the MoE decoder over the same two ranks at (d1)'s and (d2)'s
 # shapes and bars: granite-moe at full width (E 32 top-8, H 16 / 8, vocab
-# 49155, which splits the embedding on d_model)
+# 49155, which splits the embedding on d_model). (d4) runs xLSTM, Zamba2
+# and Whisper at full width at (d1)'s shape and bars on (1, 2), and times
+# Zamba's bf16 part at (d2)'s shape (the device-bound family, flash on its
+# 16 local heads of 80).
+# The parts of (d): (f32 tag, bf16 tag or None, arch, layers, the
+# model-parallel widths of the f32 part's meshes)
+MESH_PARTS = (("d1", "d2", LM_ARCH, None, (MESH_RANKS, 1)),
+              ("d3 f32", "d3 bf16", MOE_ARCH, None, (MESH_RANKS, 1)),
+              ("d4 zamba", "d4 bf16", ZAMBA, 6, (MESH_RANKS,)),  # one app.
+              ("d4 whisper", None, WHISPER, 4, (MESH_RANKS,)),   # whole
+              ("d4 xlstm", None, XLSTM, 8, (MESH_RANKS,)))   # one superblock
 
 
 def phase_mesh(device) -> dict:
@@ -3444,8 +3480,8 @@ def phase_mesh(device) -> dict:
     one-card host) and at 1: losses and final params bitwise; (b) the LM
     dry run of the same config and shape on that host mesh against the
     real state, batch and step on the card; (c) one production record;
-    (d) the dense and MoE decoders over two ranks (:func:`_mesh_ranks`).
-    Returns the launches of (a) and (d)."""
+    (d) the dense and MoE decoders, xLSTM, Zamba2 and Whisper over two
+    ranks (:func:`_mesh_ranks`). Returns the launches of (a) and (d)."""
     import shutil
 
     import torch
@@ -3541,7 +3577,7 @@ def phase_mesh(device) -> dict:
     check(r["status"] == "ok", f"mesh: the {LM_ARCH} decode_32k record on "
                                f"16x16 is ok")
 
-    # (d) the dense and MoE decoders trained over two ranks sharing the card
+    # (d) every family trained over two ranks sharing the card
     _state_bytes_per_card()
     for k, v in _mesh_ranks(device).items():
         got[k] = got.get(k, 0) + v
@@ -3572,8 +3608,12 @@ def _state_bytes_per_card() -> None:
               f"{shard_bytes(args[0], in_sh[0])}")
 
 
-def _mesh_cfg(layers: int, dtype: str, arch: str = LM_ARCH):
+def _mesh_cfg(layers: int | None, dtype: str, arch: str = LM_ARCH):
+    """``arch`` at full width, ``layers`` deep (None: the (d1) / (d2)
+    depth of the run of ``dtype``), flash on."""
     from repro_torch.configs import get_config
+    if layers is None:
+        layers = (MESH_F32 if dtype == "float32" else MESH_BF16)["layers"]
     return get_config(arch).replace(num_layers=layers, dtype=dtype,
                                     use_flash=True)
 
@@ -3623,38 +3663,49 @@ def _count_exactness(params: dict, densities) -> dict:
     return out
 
 
-def _one_rank_runs(arch: str, device, d: Path, tags: tuple) -> dict:
-    """The one-rank runs of a (d) part, here: ``MESH_F32`` in f32 under
-    the launcher's warmup (its final params saved to ``d`` for the
-    ranks), and ``MESH_BF16`` in bf16 and in f32 (warmup 2) for the bf16
-    bar."""
+def _one_rank_runs(part: tuple, device, d: Path) -> dict:
+    """The one-rank runs of a (d) part (:data:`MESH_PARTS`), here:
+    ``MESH_F32`` in f32 under the launcher's warmup (its final params
+    saved to ``d`` for the ranks), and where the part has a bf16 part
+    ``MESH_BF16`` in bf16 and in f32 (warmup 2) for the bf16 bar."""
     import torch
-    cfg1 = _mesh_cfg(MESH_F32["layers"], "float32", arch)
-    print(f"mesh ({tags[0]}): one rank: {arch} {MESH_F32} f32 use_flash=True "
-          f"tiers=4 (launcher warmup 20)")
+    t0 = time.perf_counter()
+    tag1, tag2, arch, layers, _ = part
+    cfg1 = _mesh_cfg(layers, "float32", arch)
+    print(f"mesh ({tag1}): one rank: {arch} {MESH_F32} layers "
+          f"{cfg1.num_layers} f32 use_flash=True tiers=4 (launcher warmup "
+          f"20)")
     one, l1 = _mesh_train(cfg1, MESH_F32, 20, device)
-    torch.save({k: v.cpu() for k, v in one["state"]["params"].items()},
-               d / f"one_rank_f32_{arch}.pt")
+    torch.save({g: {k: v.cpu() for k, v in tree.items()} for g, tree in (
+        ("params", one["state"]["params"]), ("m", one["state"]["opt"]["m"]))},
+        d / f"one_rank_f32_{cfg1.name}.pt")
     del one["state"]
     torch.cuda.empty_cache()
-    from repro_torch.models import get_model
-    whole = get_model(cfg1).init(0, device=device)
-    exact = _count_exactness(whole, (0.5, 0.25))
-    del whole
-    print(f"mesh ({tags[0]}): one-rank f32 counts that differ from the exact "
-          f"count, (halving, f32, exact), per leaf past 2^24 elements: "
-          f"{json.dumps(exact)}")
-    cfg2 = _mesh_cfg(MESH_BF16["layers"], "bfloat16", arch)
-    bf, _ = _mesh_train(cfg2, MESH_BF16, 2, device)
+    out = {"cfg1": cfg1, "one": one, "l1": l1}
+    if layers is None:              # the decoders' pruning counts
+        from repro_torch.models import get_model
+        whole = get_model(cfg1).init(0, device=device)
+        exact = _count_exactness(whole, (0.5, 0.25))
+        del whole
+        print(f"mesh ({tag1}): one-rank f32 counts that differ from the "
+              f"exact count, (halving, f32, exact), per leaf past 2^24 "
+              f"elements: {json.dumps(exact)}")
+    if tag2 is None:
+        print(f"mesh ({tag1}): one-rank runs {time.perf_counter() - t0:.1f} s")
+        return out
+    cfg2 = _mesh_cfg(layers, "bfloat16", arch)
+    bf, l2 = _mesh_train(cfg2, MESH_BF16, 2, device)
     f32, _ = _mesh_train(cfg2.replace(dtype="float32"), MESH_BF16, 2, device)
     dist_bf = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
-    print(f"mesh ({tags[1]}): one rank {MESH_BF16}: bf16 losses {bf['losses']} "
-          f"f32 losses {f32['losses']} (max distance {dist_bf:.6g}); "
-          f"bf16 sec_per_step {bf['sec_per_step']}")
+    print(f"mesh ({tag2}): one rank {MESH_BF16} layers {cfg2.num_layers}: "
+          f"bf16 losses {bf['losses']} f32 losses {f32['losses']} (max "
+          f"distance {dist_bf:.6g}); bf16 sec_per_step {bf['sec_per_step']}"
+          f" launches {json.dumps(l2)}")
     del bf["state"], f32["state"]
     torch.cuda.empty_cache()
-    return {"cfg1": cfg1, "cfg2": cfg2, "one": one, "l1": l1, "bf": bf,
-            "dist_bf": dist_bf}
+    print(f"mesh ({tag1}, {tag2}): one-rank runs "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {**out, "cfg2": cfg2, "bf": bf, "l2": l2, "dist_bf": dist_bf}
 
 
 def _mesh_ranks(device) -> dict:
@@ -3672,17 +3723,17 @@ def _mesh_ranks(device) -> dict:
     run's own bf16-vs-f32 distance. (d3) the same two parts on
     granite-moe-1b-a400m (experts split over "model", 16 a rank; on
     (2, 1) each tier's one 512-token group straddles the data ranks),
-    with the MoE layer's share of (d3)'s profiled step. Returns the
-    ranks' launches."""
+    with the MoE layer's share of (d3)'s profiled step. (d4) (d1)'s part
+    on (1, 2) for xlstm-1.3b (8 layers), zamba2-2.7b (6) and whisper-tiny
+    (whole), and (d2)'s for zamba2-2.7b (flash on the simt route, hd 80).
+    Returns the ranks' launches."""
     import shutil
     import socket
 
     d = Path(_ckpt_dir())
     try:
         # the one-rank runs, here
-        parts = {"d": _one_rank_runs(LM_ARCH, device, d, ("d1", "d2")),
-                 "d3": _one_rank_runs(MOE_ARCH, device, d,
-                                      ("d3 f32", "d3 bf16"))}
+        parts = [_one_rank_runs(part, device, d) for part in MESH_PARTS]
 
         # the ranks
         with socket.socket() as sk:
@@ -3720,24 +3771,28 @@ def _mesh_ranks(device) -> dict:
 
     launches = {"fake_quant": 0, "flash_attention_simt": 0,
                 "flash_attention_wgmma": 0}
-    for part, f32_key, bf16_key in (("d", "d1", "d2"),
-                                    ("d3", "d3 f32", "d3 bf16")):
-        got = _check_ranks(parts[part], [rk[f32_key] for rk in ranks],
-                           [rk[bf16_key] for rk in ranks],
-                           (f32_key, bf16_key))
+    for part, one_rank in zip(MESH_PARTS, parts):
+        got = _check_ranks(one_rank, [rk[part[0]] for rk in ranks],
+                           [rk.get(part[1]) for rk in ranks], part[:2])
         for k in launches:
             launches[k] += got[k]
     return launches
 
 
+def _flash_route(cfg) -> str:
+    """The flash_attention route of ``cfg``'s attention: bf16 at hd 64 or
+    128 on the tensor cores, else the CUDA cores."""
+    return ("wgmma" if cfg.dtype == "bfloat16" and cfg.head_dim in (64, 128)
+            else "simt")
+
+
 def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
                  tags: tuple) -> dict:
     """The checks of a (d) part against its one-rank runs (``tags``: its
-    f32 and bf16 parts' names); the ranks' launches."""
+    f32 and bf16 parts' names; bf16 None: no bf16 part); the ranks'
+    launches."""
     from repro_torch.models.moe import _num_groups
-    one, l1, bf = one_rank["one"], one_rank["l1"], one_rank["bf"]
-    cfg1, cfg2, dist_bf = one_rank["cfg1"], one_rank["cfg2"], \
-        one_rank["dist_bf"]
+    one, l1, cfg1 = one_rank["one"], one_rank["l1"], one_rank["cfg1"]
     launches = {"fake_quant": 0, "flash_attention_simt": 0,
                 "flash_attention_wgmma": 0}
     calls1 = _attn_calls(cfg1) * 4 * MESH_F32["steps"]
@@ -3749,10 +3804,24 @@ def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
             check(all(math.isclose(x, y, rel_tol=1e-4) for x, y in zip(a, b)),
                   f"{tag_}: losses and tier losses {run['losses']} within "
                   f"rtol 1e-4 of one rank's {one['losses']}")
-            if r == 0:
-                check(run["max_param_diff"] <= 1e-5,
-                      f"{tag_}: gathered params within atol 1e-5 of one "
-                      f"rank's (max {run['max_param_diff']:.3g})")
+            check(run["m_share"] <= MESH_M_SHARE,
+                  f"{tag_}: AdamW's first moment within {MESH_M_SHARE:g} of "
+                  f"its leaf's largest of one rank's (max "
+                  f"{run['m_share']:.3g})")
+            flips = tags[0] in MESH_FLIP_PARTS
+            check(run["max_param_diff"] <= 1e-5 and (
+                run["flip_max_diff"] <= run["flip_bound"] if flips
+                else run["flips"] == 0),
+                  f"{tag_}: its params within atol 1e-5 of one rank's (max "
+                  f"{run['max_param_diff']:.3g})"
+                  + (f" but where AdamW's first moment flips sign below "
+                     f"{MESH_M_SHARE:g} of its leaf's largest: "
+                     f"{run['flips']} such params past 1e-5, max "
+                     f"{run['flip_max_diff']:.3g} <= 2 lr "
+                     f"{run['flip_bound']:.3g}; the largest (leaf, one-rank "
+                     f"m / leaf max, ranks' m / leaf max, diff) "
+                     f"{run['flip_worst']}" if flips
+                     else f", every one ({run['flips']} sign flips past it)"))
             check(run["masks_bitwise"],
                   f"{tag_}: its {run['masks']} masks (2 densities x "
                   f"{run['masks'] // 2} leaves) bitwise the one-rank masks' "
@@ -3785,43 +3854,53 @@ def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
                       f"sync before and after each call)")
             launches["fake_quant"] += run["launches"]["fake_quant"]
             launches["flash_attention_simt"] += run["launches"]["simt"]
+        if tags[1] is None:
+            continue
+        bf, cfg2, dist_bf = one_rank["bf"], one_rank["cfg2"], \
+            one_rank["dist_bf"]
         tag_ = f"mesh ({tags[1]}) rank {r} mesh (1, {MESH_RANKS})"
         sps = statistics.mean(run2["sec_per_step"][1:])
-        moe = (f" moe_layer_ms {run2['moe_ms']:.3f} moe_layer_share_of_wall "
-               f"{run2['moe_ms'] / run2['wall_ms']:.4f}"
-               if "moe_ms" in run2 else "")
+        prof = ""
+        if "wall_ms" in run2:
+            prof = (f" profiled step: wall_ms {run2['wall_ms']:.3f} "
+                    f"device_busy_ms {run2['busy_ms']:.3f} device_busy_share "
+                    f"{run2['busy_ms'] / run2['wall_ms']:.4f} device_ops "
+                    f"{run2['ops']}")
+        if "moe_ms" in run2:
+            prof += (f" moe_layer_ms {run2['moe_ms']:.3f} "
+                     f"moe_layer_share_of_wall "
+                     f"{run2['moe_ms'] / run2['wall_ms']:.4f}")
         print(f"{tag_}: bf16 losses {run2['losses']} sec_per_step "
               f"{run2['sec_per_step']} mean_sec_per_step(steps 2..) {sps:.6f} "
               f"tokens_per_s {MESH_BF16['batch'] * MESH_BF16['seq'] / sps:.3f}"
               f" peak_mem_gb {run2['peak_bytes'] / 1e9:.3f} launches "
-              f"{json.dumps(run2['launches'])} profiled step: wall_ms "
-              f"{run2['wall_ms']:.3f} device_busy_ms {run2['busy_ms']:.3f} "
-              f"device_busy_share {run2['busy_ms'] / run2['wall_ms']:.4f} "
-              f"device_ops {run2['ops']}{moe}")
+              f"{json.dumps(run2['launches'])}{prof}")
         gap = max(abs(x - y) for x, y in zip(run2["losses"], bf["losses"]))
         check(gap <= MESH_BF16_SLACK * dist_bf,
               f"{tag_}: losses within {MESH_BF16_SLACK} x the one-rank bf16-f32"
               f" distance {dist_bf:.6g} of one rank's bf16 (max {gap:.6g}; "
-              f"the reference's sharded bf16 step rounds each rank's partial "
-              f"sum to bf16 as these ranks do at 2 ranks, "
+              f"the two ranks' bf16 sums round once, as the reference's "
+              f"sharded bf16 step's f32 sums do, "
               f"tests/test_torch_parallel_bf16.py)")
         calls2 = _attn_calls(cfg2) * 4 * MESH_BF16["steps"]
-        check(run2["launches"]["wgmma"] == calls2
-              and run2["launches"]["fake_quant"]
+        route = _flash_route(cfg2)
+        l2 = one_rank["l2"]
+        check(run2["launches"][route] == calls2 == l2[route]
+              and run2["launches"]["fake_quant"] == l2["fake_quant"]
               == 3 * _n_compressible(cfg2) * MESH_BF16["steps"],
-              f"{tag_}: flash_attention {calls2} launches on the wgmma kernel "
-              f"at the local heads, fake_quant {3 * _n_compressible(cfg2)} a "
-              f"step")
+              f"{tag_}: flash_attention {calls2} launches on the {route} "
+              f"kernel at the local heads (hd {cfg2.head_dim}), fake_quant "
+              f"{3 * _n_compressible(cfg2)} a step: the one-rank counts")
         launches["fake_quant"] += run2["launches"]["fake_quant"]
-        launches["flash_attention_wgmma"] += run2["launches"]["wgmma"]
+        launches[f"flash_attention_{route}"] += run2["launches"][route]
     return launches
 
 
 def mesh_rank(rank: int, directory: str, port: int) -> int:
     """One rank of phase mesh's (d), in a process of its own: joins the
-    gloo group of ``MESH_RANKS`` on ``port``, runs (d1) and (d3)'s f32
-    part on meshes (1, 2) and (2, 1), and (d2) and (d3)'s bf16 part on
-    (1, 2), through ``launch.train``, and writes its results to
+    gloo group of ``MESH_RANKS`` on ``port``, runs each part of
+    :data:`MESH_PARTS` through ``launch.train`` (its f32 part on its
+    meshes, its bf16 part on (1, 2)), and writes its results to
     ``directory/rank{rank}.json``."""
     import torch
     import torch.distributed as dist
@@ -3833,42 +3912,41 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
     device = init_distributed("cuda")           # one card for all: gloo
     print(f"rank {rank}: backend {dist.get_backend()} device {device}")
     out = {}
-    for f32_key, bf16_key, arch in (("d1", "d2", LM_ARCH),
-                                    ("d3 f32", "d3 bf16", MOE_ARCH)):
+    for f32_key, bf16_key, arch, layers, mps in MESH_PARTS:
+        t0 = time.perf_counter()
         out[f32_key] = {}
-        for mp in (MESH_RANKS, 1):
-            run = _mesh_f32_rank(rank, mp, device, Path(directory), arch)
+        cfg = _mesh_cfg(layers, "float32", arch)
+        for mp in mps:
+            run = _mesh_f32_rank(mp, device, Path(directory), cfg)
             out[f32_key][f"({MESH_RANKS // mp}, {mp})"] = run
             torch.cuda.empty_cache()
-        out[bf16_key] = _mesh_bf16_rank(device, arch)
-        torch.cuda.empty_cache()
+        if bf16_key is not None:
+            out[bf16_key] = _mesh_bf16_rank(
+                device, _mesh_cfg(layers, "bfloat16", arch),
+                profiled=arch != LM_ARCH)
+            torch.cuda.empty_cache()
+        print(f"rank {rank}: part {f32_key}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
 
 
-def _mesh_f32_rank(rank: int, mp: int, device, directory: Path,
-                   arch: str) -> dict:
+def _mesh_f32_rank(mp: int, device, directory: Path, cfg) -> dict:
     import torch
     from repro_torch import optim
     from repro_torch.core.compression import compressible, magnitude_masks
     from repro_torch.core.steps import TrainState
     from repro_torch.models import get_model
-    from repro_torch.models.sharding import gather, place, shard_bytes
-    cfg = _mesh_cfg(MESH_F32["layers"], "float32", arch)
+    from repro_torch.models.sharding import place, shard_bytes
     with _DataGathers() as gathers:
         res, launches = _mesh_train(cfg, MESH_F32, 20, device,
                                     model_parallel=mp)
     sh = res["shardings"]
-    params = gather(res["state"]["params"], sh["params"])
+    diffs = _against_one_rank(res["state"], sh["params"],
+                              directory / f"one_rank_f32_{cfg.name}.pt",
+                              device)
     del res["state"]
-    diff = None
-    if rank == 0:
-        one = torch.load(directory / f"one_rank_f32_{arch}.pt",
-                         map_location=device)
-        diff = max((params[k] - one[k]).abs().max().item() for k in one)
-        del one
-    del params
     # at init: the masks of the two pruned tiers' densities, and the bytes
     model = get_model(cfg)
     state = TrainState.create(model, optim.adamw(3e-4), 0, device=device)
@@ -3889,8 +3967,63 @@ def _mesh_f32_rank(rank: int, mp: int, device, directory: Path,
             "sec_per_step": res["sec_per_step"], "launches": launches,
             "data_ranks": MESH_RANKS // mp, "gathers": gathers.calls,
             "gather_s": gathers.seconds,
-            "max_param_diff": diff, "masks_bitwise": bool(ok), "masks": n,
+            **diffs, "masks_bitwise": bool(ok), "masks": n,
             "bytes": [local, shard_bytes(state, sh)]}
+
+
+# (d)'s f32 bars past the losses. AdamW's first moment m is linear in the
+# summed gradients (its update is not: a gradient off by a factor moves no
+# param), so m is held within this share of its leaf's largest one-rank
+# |m|: sound runs read at most 8.94e-05 (xLSTM), a gradient summed once
+# too few or too many times reads a share of order 1. The params are held
+# within atol 1e-5 of one rank's. In (d4) alone an element may pass 1e-5
+# where the ranks' m and the one-rank m differ in sign and the one-rank
+# |m| is at most this share of its leaf's largest: there the gradient is
+# at the f32 noise of the ranks' other summation order, and AdamW's step
+# (lr 0 at step 0, so only step 1's, each of size up to lr) moves the two
+# runs apart by up to 2 lr. Such elements are counted and printed.
+MESH_M_SHARE = 1e-3
+MESH_FLIP_PARTS = ("d4 zamba", "d4 whisper", "d4 xlstm")
+
+
+def _against_one_rank(state: dict, sh: dict, path: Path, device) -> dict:
+    """This rank's blocks of the params and of AdamW's first moment after a
+    (d) f32 run against the same blocks of the one-rank run's (saved at
+    ``path``): the largest first-moment difference as a share of its
+    leaf's largest one-rank |m|; the largest param difference outside
+    the sign flips below :data:`MESH_M_SHARE`, and of those flips the
+    count past 1e-5, their largest difference with its bound 2 lr, and
+    the largest few as (leaf, one-rank m / its leaf's largest, this
+    run's m / the same, param difference)."""
+    import torch
+    from repro_torch import optim
+    one = torch.load(path, map_location="cpu", mmap=True)
+    lr = float(optim.warmup_cosine(3e-4, 20, MESH_F32["steps"])(
+        MESH_F32["steps"] - 1))
+    out = {"max_param_diff": 0.0, "flips": 0, "flip_max_diff": 0.0,
+           "flip_bound": 2 * lr, "m_share": 0.0, "flip_worst": []}
+    for k, p in state["params"].items():
+        p1 = sh[k].block(one["params"][k]).to(device)
+        m1 = sh[k].block(one["m"][k]).to(device)
+        m = state["opt"]["m"][k]
+        scale = one["m"][k].abs().max().item()
+        dp = (p - p1).abs()
+        flip = (m1.abs() <= MESH_M_SHARE * scale) \
+            & (torch.sign(m) != torch.sign(m1)) & (dp > 1e-5)
+        out["max_param_diff"] = max(out["max_param_diff"], dp.masked_fill(
+            flip, 0).max().item())
+        if flip.any():
+            out["flips"] += int(flip.sum())
+            d = dp.masked_fill(~flip, 0).flatten()
+            out["flip_max_diff"] = max(out["flip_max_diff"], d.max().item())
+            for i in d.topk(min(3, int(flip.sum()))).indices.tolist():
+                out["flip_worst"].append(
+                    (k, m1.flatten()[i].item() / scale,
+                     m.flatten()[i].item() / scale, d[i].item()))
+        dm = (m - m1).abs().max().item()
+        out["m_share"] = max(out["m_share"], dm / scale if scale else dm)
+    out["flip_worst"] = sorted(out["flip_worst"], key=lambda w: -w[3])[:5]
+    return out
 
 
 class _DataGathers:
@@ -3978,7 +4111,7 @@ class _MoeSpans:
                    if a is not None and b is not None)
 
 
-def _mesh_bf16_rank(device, arch: str) -> dict:
+def _mesh_bf16_rank(device, cfg, profiled: bool) -> dict:
     import contextlib
 
     import torch
@@ -3991,11 +4124,14 @@ def _mesh_bf16_rank(device, arch: str) -> dict:
     from repro_torch.launch.mesh import num_batch_shards
     from repro_torch.models import get_model, parallel
     run = MESH_BF16
-    cfg = _mesh_cfg(run["layers"], "bfloat16", arch)
     torch.cuda.reset_peak_memory_stats()
     res, launches = _mesh_train(cfg, run, 2, device,
                                 model_parallel=MESH_RANKS)
     peak = torch.cuda.max_memory_allocated()
+    out = {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
+           "launches": launches, "peak_bytes": peak}
+    if not profiled:
+        return out
     # one more step, profiled (not counted on the main path)
     sh = res["shardings"]["params"]
     mesh = next(iter(sh.values())).mesh
@@ -4017,9 +4153,8 @@ def _mesh_bf16_rank(device, arch: str) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     ev = device_events(prof)
-    out = {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
-           "launches": launches, "peak_bytes": peak, "wall_ms": wall,
-           "busy_ms": sum(us for _, us in ev) / 1e3, "ops": len(ev)}
+    out.update(wall_ms=wall, busy_ms=sum(us for _, us in ev) / 1e3,
+               ops=len(ev))
     if cfg.is_moe:
         out["moe_ms"] = spans.ms()
     return out

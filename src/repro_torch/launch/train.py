@@ -28,11 +28,14 @@ reference's ``param_spec_tree(state, mesh.shape["model"])``: each rank
 draws the whole state from the seed and keeps its blocks. The step runs
 inside ``parallel.using(mesh)``: tensor parallel over "model" (heads,
 else head_dim, else d_model; d_ff; the MoE experts; the VLM projector's
-columns; the vocabulary or d_model), each "data" rank its rows of the
-batch. Rank 0 prints the lines; checkpoints hold whole leaves. The
-decoder families (dense, MoE, VLM) run so; ``models/sharding.place``
-refuses a split recurrent leaf (xLSTM, Zamba; ROADMAP item 20e), and
-Whisper's loss refuses the mesh.
+columns; the Mamba2 and xLSTM heads, their projections' outputs
+gathered where their column blocks do not line up; the vocabulary or
+d_model), each "data" rank its rows of the batch (Whisper's frames
+too). Rank 0 prints the lines; checkpoints hold whole leaves. Every
+family trains so (``--arch xlstm-1.3b``, ``zamba2-2.7b``,
+``whisper-tiny`` as the decoders); ``models/sharding.place`` refuses a
+data-axis (FSDP) entry (ROADMAP item 20c), and serving over ranks is
+item 20f.
 """
 from __future__ import annotations
 

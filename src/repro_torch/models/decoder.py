@@ -139,10 +139,11 @@ def _embed_inputs(params, tokens, cfg, patches):
     return x
 
 
-def _unembed(params, x, cfg, layout=None):
-    """Logits in f32 by the vocabulary ``layout`` of the tied embedding or
-    of ``lm_head.w`` (:func:`vocab_layout`): this rank's block of the
-    vocabulary for ``layers.VOCAB``, else whole."""
+def unembed_head(params, x, cfg, layout=None):
+    """The final norm, then logits in f32 by the vocabulary ``layout`` of
+    the tied embedding or of ``lm_head.w`` (:func:`head_layout`): this
+    rank's block of the vocabulary for ``layers.VOCAB``, else whole. The
+    xLSTM and Zamba heads are this one (untied)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return L.unembed(x, params["embed"], layout)
@@ -151,7 +152,8 @@ def _unembed(params, x, cfg, layout=None):
     return L.proj(params, "lm_head", x.to(torch.float32))
 
 
-def _head_layout(params, cfg):
+def head_layout(params, cfg):
+    """:func:`vocab_layout` of the leaf the logits come from."""
     return (vocab_layout(params["embed"], cfg, 0) if cfg.tie_embeddings
             else vocab_layout(params["lm_head.w"], cfg, -1))
 
@@ -168,7 +170,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
         x, a = _block(lp, x, cfg, window, num_groups)
         if a is not None:
             aux = aux + a
-    return _unembed(params, x, cfg, _head_layout(params, cfg)), aux
+    return unembed_head(params, x, cfg, head_layout(params, cfg)), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
@@ -184,7 +186,7 @@ def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
     logits, aux = forward(params, tokens[:, :-1], cfg, patches=patches)
     if patches is not None:
         logits = logits[:, patches.shape[1]:, :]
-    split = _head_layout(params, cfg) == L.VOCAB
+    split = head_layout(params, cfg) == L.VOCAB
     return L.cross_entropy(logits, tokens[:, 1:], vocab_split=split) + aux
 
 
@@ -215,7 +217,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
         "k": torch.stack(ks), "v": torch.stack(vs),
         "slot_pos": torch.arange(t, dtype=torch.int32, device=x.device)
         .expand(cfg.num_layers, t).contiguous()}}
-    return _unembed(params, x[:, -1:, :], cfg), cache
+    return unembed_head(params, x[:, -1:, :], cfg), cache
 
 
 # ----------------------------------------------------------------- decode
@@ -246,4 +248,4 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
         h, _ = L.attn_decode(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                              cl, int(pos), cfg, window=window)
         x, _ = _ffn(lp, x + h, cfg, num_groups)
-    return _unembed(params, x, cfg), cache
+    return unembed_head(params, x, cfg), cache

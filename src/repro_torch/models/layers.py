@@ -67,6 +67,24 @@ def proj(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def proj_whole(p: dict, name: str, x: torch.Tensor, full: int,
+               x_model: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`proj` with a 2-D leaf whose ``full`` output columns may be
+    split over "model" in blocks that do not line up with the output's
+    parts (the reference lets GSPMD reshard them): this rank's columns of
+    ``x`` (replicated, entering through ``copy_to_model``; ``x_model`` is
+    that copy when several projections of ``x`` share it), gathered
+    whole. The caller uses the whole output alike on every rank, or
+    takes its own part through ``split_to_model`` / ``copy_to_model``,
+    so the gradient of the whole is whole on every rank and
+    ``gather_from_model`` keeps this rank's block of it."""
+    if p[name + ".w"].shape[-1] == full:
+        return proj(p, name, x)
+    if x_model is None:
+        x_model = parallel.copy_to_model(x)
+    return parallel.gather_from_model(proj(p, name, x_model), -1)
+
+
 def _named(prefix: str, p: dict) -> dict:
     return {prefix + k: v for k, v in p.items()}
 
@@ -76,6 +94,39 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.to(torch.float32)).to(dt)
+
+
+def norm_proj_rows(p: dict, name: str, y: torch.Tensor,
+                   norm_w: torch.Tensor, full: int, eps: float,
+                   gate=None) -> torch.Tensor:
+    """The tail of a layer: :func:`rms_norm` of ``y`` (width ``full``) by
+    ``norm_w``, then ``gate(h, local)`` where given, then the projection
+    ``name`` (a 2-D leaf). On a mesh of several ranks ``norm_w`` and
+    ``name``'s rows may be this rank's block of ``full``, split over
+    "model" (Mamba's ``gate_norm`` / ``out_proj``, mLSTM's ``mnorm`` /
+    ``down``, sLSTM's ``gnorm`` / ``down``): ``local(t)`` is then this
+    rank's block of a whole ``t`` (``y`` may already be the block: its
+    heads), the sum of squares of each row is all-reduced over "model" (a
+    (..., 1) f32 tensor crosses the ranks, not the rows) with its
+    gradient summed, and the partial outputs are summed over "model"."""
+    width = norm_w.shape[-1]
+
+    def local(t: torch.Tensor) -> torch.Tensor:
+        return t if t.shape[-1] == width else parallel.split_to_model(t, -1)
+
+    if width == full:
+        h = rms_norm(y, norm_w, eps)
+    else:
+        dt = y.dtype
+        x = local(y).to(torch.float32)
+        ss = parallel.copy_to_model(parallel.reduce_from_model(
+            torch.sum(x * x, dim=-1, keepdim=True)))
+        h = (x * torch.rsqrt(ss / full + eps)
+             * norm_w.to(torch.float32)).to(dt)
+    if gate is not None:
+        h = gate(h, local)
+    out = proj(p, name, h)
+    return out if width == full else parallel.reduce_from_model(out)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -395,11 +446,21 @@ def init_gelu_mlp(generator: torch.Generator, d_model: int,
             **_named("wo.", init_dense(generator, d_ff, d_model, bias=True))}
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: dict, x: torch.Tensor, *,
+             split: bool = False) -> torch.Tensor:
     """Biased ``wi``, GELU, biased ``wo``. ``jax.nn.gelu`` is the tanh
-    approximation by default, and so is this one."""
-    return proj(p, "wo", torch.nn.functional.gelu(proj(p, "wi", x),
-                                                  approximate="tanh"))
+    approximation by default, and so is this one. ``split``: ``p`` holds
+    this rank's columns of ``wi`` and ``wi.b`` and rows of ``wo`` (d_ff
+    split over "model"): the input enters through ``copy_to_model``, the
+    partial outputs are summed by ``reduce_from_model`` and ``wo.b`` is
+    added once, after the sum."""
+    if not split:
+        return proj(p, "wo", torch.nn.functional.gelu(proj(p, "wi", x),
+                                                      approximate="tanh"))
+    h = torch.nn.functional.gelu(proj(p, "wi", parallel.copy_to_model(x)),
+                                 approximate="tanh")
+    return _with_bias(p, "wo", parallel.reduce_from_model(
+        dense(p["wo.w"], None, h)))
 
 
 def init_embed(generator: torch.Generator, vocab: int,

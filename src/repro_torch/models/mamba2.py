@@ -6,7 +6,9 @@ as in the reference.
 
 Params of one layer are a flat name -> tensor dict (``in_proj.w``,
 ``conv_w``, ``a_log``, ...). The scan and the state are f32 whatever the
-compute dtype; ``softplus`` is JAX's form (``layers.softplus``).
+compute dtype; ``softplus`` is JAX's form (``layers.softplus``). On a
+mesh of several ranks :func:`mamba_forward` runs on each rank's blocks
+of the leaves (its docstring says how).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import parallel
 
 CHUNK = 256
 
@@ -50,10 +53,19 @@ def init_mamba(gen: torch.Generator, cfg) -> dict:
 
 
 def _split_proj(p: dict, u: torch.Tensor, cfg):
-    """(z, x, B, C, dt) of the input projection."""
+    """(z, x, B, C, dt) of the input projection, whole (its columns
+    gathered where they are split over "model")."""
     d_in, nheads, _ = dims(cfg)
     n = cfg.ssm_state
-    return L.proj(p, "in_proj", u).split([d_in, d_in, n, n, nheads], dim=-1)
+    parts = [d_in, d_in, n, n, nheads]
+    return L.proj_whole(p, "in_proj", u, sum(parts)).split(parts, dim=-1)
+
+
+def _whole(leaf: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """``leaf`` whole along ``dim`` (its blocks over "model" gathered)."""
+    if leaf.shape[dim] == full:
+        return leaf
+    return parallel.gather_from_model(leaf, dim)
 
 
 def _ssd_scan(x, bmat, cmat, dt, a, cfg, init_state=None):
@@ -103,26 +115,41 @@ def _dt(dt_raw: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def mamba_forward(p: dict, u: torch.Tensor, cfg, state=None):
-    """u: (B, T, D) -> (out (B, T, D), decode-ready {conv, ssm})."""
+    """u: (B, T, D) -> (out (B, T, D), decode-ready {conv, ssm}).
+
+    Over "model" the reference splits ``in_proj``'s columns, the conv's
+    channels, the per-head vectors and ``gate_norm`` / ``out_proj``'s
+    rows (d_in). The first two blocks do not line up with z|x|B|C|dt, so
+    ``in_proj``'s output is gathered whole and the conv runs on whole
+    channels (its small weights gathered whole), alike on every rank.
+    Then each rank runs the SSD scan on its heads (x, z and dt its
+    block; B and C whole, one group), and the gated norm and
+    ``out_proj`` on its block of d_in (``layers.norm_proj_rows``). Where
+    the heads do not split, every rank runs them all and the norm takes
+    its block of their output."""
     b, t, _ = u.shape
-    d_in, nheads, _ = dims(cfg)
+    d_in, nheads, conv_dim = dims(cfg)
     z, x, bmat, cmat, dt = _split_proj(p, u, cfg)
     xbc_raw = torch.cat([x, bmat, cmat], dim=-1)
-    xbc = L.causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xbc = L.causal_conv(xbc_raw, _whole(p["conv_w"], 0, conv_dim),
+                        _whole(p["conv_b"], -1, conv_dim))
     x, bmat, cmat = xbc.split([d_in, cfg.ssm_state, cfg.ssm_state], dim=-1)
+    heads = p["a_log"].shape[-1] != nheads       # this rank's heads
+    if heads:
+        x, z, dt = (parallel.split_to_model(y, -1) for y in (x, z, dt))
+        bmat, cmat = parallel.copy_to_model(bmat), parallel.copy_to_model(cmat)
     dt = _dt(dt, p)
     a = -torch.exp(p["a_log"])
-    xh = x.reshape(b, t, nheads, cfg.ssm_headdim)
+    xh = x.reshape(b, t, -1, cfg.ssm_headdim)
     y, fstate = _ssd_scan(xh, bmat, cmat, dt, a, cfg,
                           None if state is None else state["ssm"])
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = L.rms_norm(y.reshape(b, t, d_in) * F.silu(z), p["gate_norm"],
-                   cfg.norm_eps)
+    out = L.norm_proj_rows(p, "out_proj", y.reshape(b, t, -1) * F.silu(z),
+                           p["gate_norm"], d_in, cfg.norm_eps)
     w1 = cfg.conv_width - 1
     tail = xbc_raw[:, -w1:, :] if t >= w1 else F.pad(xbc_raw,
                                                     (0, 0, w1 - t, 0))
-    return L.proj(p, "out_proj", y), {
-        "conv": tail.to(getattr(torch, cfg.dtype)), "ssm": fstate}
+    return out, {"conv": tail.to(getattr(torch, cfg.dtype)), "ssm": fstate}
 
 
 def init_mamba_state(cfg, batch: int, device) -> dict:

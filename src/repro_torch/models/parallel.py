@@ -61,8 +61,8 @@ def multi_rank() -> bool:
 
 def refuse(what: str, item: str) -> None:
     """Raises ``NotImplementedError`` for ``what`` on a mesh of several
-    ranks, naming the ROADMAP item that holds it: the decoder's train
-    step is the one model path split over ranks."""
+    ranks, naming the ROADMAP item that holds it: every family's train
+    step runs split over ranks, its prefill and decode do not."""
     if multi_rank():
         raise NotImplementedError(
             f"{what} on a mesh of several ranks ({dict(_MESH.shape)}) is "
@@ -105,6 +105,19 @@ def all_reduce(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM,
     return out
 
 
+def sum_over(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """:func:`all_reduce` of the partial sums ``x``, as the reference's
+    sharded step sums them: a bf16 or f16 ``x`` is summed in f32 and
+    rounded once to its dtype. Over two ranks gloo's sum in ``x``'s dtype
+    gives the same bits (one addition, rounded once) and moves half the
+    bytes, so the cast is made over three ranks or more only."""
+    g = group(axis, mesh)
+    if g is not None and x.dtype in (torch.bfloat16, torch.float16) \
+            and dist.get_world_size(g) > 2:
+        return all_reduce(x.to(torch.float32), axis, mesh=mesh).to(x.dtype)
+    return all_reduce(x, axis, mesh=mesh)
+
+
 def all_gather(x: torch.Tensor, axis: str, dim: int,
                mesh=None) -> torch.Tensor:
     """The blocks of ``axis``'s ranks concatenated along ``dim``, in rank
@@ -140,13 +153,13 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.axis, mesh=ctx.mesh), None
+        return sum_over(g, ctx.axis, ctx.mesh), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
-        return all_reduce(x, axis)
+        return sum_over(x, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -177,13 +190,15 @@ class _Split(torch.autograd.Function):
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """``x`` (replicated over "model") as the input of a column-split
-    projection: its gradient, a partial sum on each rank, is all-reduced."""
+    projection: its gradient, a partial sum on each rank, is summed
+    (:func:`sum_over`)."""
     return x if group("model") is None else _Copy.apply(x, "model")
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """The sum over "model" of each rank's partial ``x`` (a row-split
-    projection's output); the gradient passes through."""
+    projection's output, summed by :func:`sum_over`); the gradient
+    passes through."""
     return x if group("model") is None else _Reduce.apply(x, "model")
 
 

@@ -293,23 +293,13 @@ def _is_sharding(x) -> bool:
     return x is None or isinstance(x, NamedSharding)
 
 
-# The leaves of the recurrent families, whose "model" splits no model
-# function runs over ranks yet (ROADMAP item 20e)
-_RECURRENT = re.compile(r"(^|/)(mamba|mlstm|slstm)/")
-
-
 def _refusal(path: str, spec) -> str | None:
     """Why the leaf at ``path`` cannot be split by ``spec`` over ranks, or
-    None: a data-axis entry is FSDP (ROADMAP item 20c); a "model" split
-    of a recurrent leaf (Mamba2's, xLSTM's) is item 20e. Every other
-    layout of ``param_spec_tree`` runs in the decoder's train step."""
-    split = [d for d, e in enumerate(spec) if e is not None]
-    if any(spec[d] != "model" for d in split):
+    None: a data-axis entry is FSDP (ROADMAP item 20c). Every "model"
+    layout of ``param_spec_tree`` runs in the train step of its family."""
+    if any(e not in (None, "model") for e in spec):
         return (f"{path} split over {spec!r}: data-axis (FSDP) placement "
                 f"is ROADMAP queue 1, item 20c")
-    if split and _RECURRENT.search(path):
-        return (f"{path} split over {spec!r}: the recurrent families over "
-                f"ranks are ROADMAP queue 1, item 20e")
     return None
 
 
@@ -321,9 +311,10 @@ def place(tree, shardings):
     meshes) or a fake tensor (the dry run's stand-ins, which hold no
     storage) leaves the tensor where it is. On a mesh over several ranks
     each leaf becomes this rank's block, a tensor of its own on the
-    rank's device; FSDP and a split recurrent leaf raise
-    ``NotImplementedError`` (:func:`_refusal`). Within one process a
-    mesh of several distinct devices raises ``NotImplementedError``."""
+    rank's device, for every family's leaves; FSDP raises
+    ``NotImplementedError`` (:func:`_refusal`, item 20c). Within one
+    process a mesh of several distinct devices raises
+    ``NotImplementedError``."""
     from torch._subclasses.fake_tensor import is_fake
 
     def check(path, x, s):

@@ -13,6 +13,14 @@ the tied ``embed``. The reference's ``lax.scan`` over layers is a Python
 loop over ``unstack``ed views; its sharding ``hint``s and ``remat`` have
 no meaning here (``decode_train`` takes ``remat`` and ignores it).
 
+On a mesh of several ranks the train loss runs on each rank's blocks of
+the leaves, split over "model" by the reference's ``param_spec_tree``:
+self- and cross-attention through ``layers.attn_forward`` (heads, else
+head_dim), the MLPs on d_ff (``layers.gelu_mlp(split=True)``), the tied
+embedding on the vocabulary, or on d_model where the vocabulary does
+not divide (whisper-tiny's 51865); the LayerNorms stay whole. Prefill
+and decode refuse such a mesh (ROADMAP item 20f).
+
 ``cfg.use_flash`` routes the encoder's self-attention, the decoder's
 self-attention in training and every cross-attention of training and
 prefill through the flash_attention kernel (non-causal over the encoder's
@@ -31,7 +39,8 @@ import torch
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import parallel
-from repro_torch.models.decoder import compute_dtype, make_generator
+from repro_torch.models.decoder import (compute_dtype, make_generator,
+                                        vocab_layout)
 
 
 def sinusoid_freq(d_model: int, device=None) -> torch.Tensor:
@@ -101,6 +110,11 @@ def _add_positions(x: torch.Tensor, positions: torch.Tensor,
     return x + sinusoid(positions, cfg.d_model, x.dtype)[None]
 
 
+def _mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The GELU MLP, on this rank's block of d_ff where ``wi`` is split."""
+    return L.gelu_mlp(p, x, split=p["wi.w"].shape[-1] != cfg.d_ff)
+
+
 def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> (B, S_enc, D)."""
     x = frames.to(compute_dtype(cfg))
@@ -108,7 +122,7 @@ def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
     for lp in _layers(params, "enc_layers."):
         x = x + L.attn_forward(lp["attn"], _ln(lp["ln1"], x, cfg.norm_eps),
                                cfg, causal=False, use_rope=False)
-        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps))
+        x = x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
     return _ln(L.subtree(params, "enc_norm."), x, cfg.norm_eps)
 
 
@@ -118,19 +132,23 @@ def _dec_block(lp: dict, x: torch.Tensor, enc_x: torch.Tensor, cfg,
                            window=window, use_rope=False)
     x = x + L.attn_forward(lp["xattn"], _ln(lp["ln_x"], x, cfg.norm_eps),
                            cfg, kv_src=enc_x, use_rope=False, causal=False)
-    return x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps))
+    return x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """f32 logits through the tied embedding: this rank's block of the
+    vocabulary where the embedding splits it, else whole."""
     x = _ln(L.subtree(params, "dec_norm."), x, cfg.norm_eps)
-    return L.unembed(x, params["embed"])
+    return L.unembed(x, params["embed"], vocab_layout(params["embed"], cfg,
+                                                      0))
 
 
 def decode_train(params: dict, enc_x: torch.Tensor, tokens: torch.Tensor,
                  cfg, *, window: int = 0, remat: bool = True) -> torch.Tensor:
     """Teacher-forced decoder over ``tokens`` (B, T) attending to
     ``enc_x``: logits (B, T, V) f32."""
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     x = _add_positions(x, torch.arange(x.shape[1], device=x.device), cfg)
     for lp in _layers(params, "dec_layers."):
         x = _dec_block(lp, x, enc_x, cfg, window)
@@ -139,11 +157,11 @@ def decode_train(params: dict, enc_x: torch.Tensor, tokens: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, T+1)}."""
-    parallel.refuse("the Whisper loss_fn", "20e")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     logits = decode_train(params, enc_x, tokens[:, :-1], cfg)
-    return L.cross_entropy(logits, tokens[:, 1:])
+    return L.cross_entropy(logits, tokens[:, 1:], vocab_split=vocab_layout(
+        params["embed"], cfg, 0) == L.VOCAB)
 
 
 def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
@@ -151,7 +169,7 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
     """Encode the frames and run the decoder over the whole token prefix,
     filling the self-KV caches (slot_pos = arange(T), cache length T) and
     the cross-KV. Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper prefill", "20e")
+    parallel.refuse("the Whisper prefill", "20f")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -203,7 +221,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)) against the cached cross-KV; the
     self-KV is written in place. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper decode_step", "20e")
+    parallel.refuse("the Whisper decode_step", "20f")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     x = _add_positions(x, torch.full((1,), int(pos), dtype=torch.int32,
                                      device=x.device), cfg)

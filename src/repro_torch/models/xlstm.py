@@ -17,6 +17,12 @@ numerics) are left out. Every cast of the reference is kept: products
 in f32, states in f32, gates cast to f32 after their projection in the
 compute dtype. Decode writes the cache in place.
 
+On a mesh of several ranks the train loss runs on each rank's blocks of
+the leaves, split over "model" by the reference's ``param_spec_tree``
+(:func:`mlstm_forward`, :func:`slstm_forward`; the embedding and
+``lm_head`` on the vocabulary). Prefill and decode refuse such a mesh
+(ROADMAP item 20f).
+
 One departure (ROADMAP queue 3): the reference builds the intra-chunk
 decay as ``where(tri, exp(seg), 0)``, whose ``exp`` overflows above the
 diagonal of a 256-long chunk, so its backward multiplies 0 by inf and
@@ -35,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import parallel
-from repro_torch.models.decoder import compute_dtype, make_generator
+from repro_torch.models.decoder import (compute_dtype, head_layout,
+                                        make_generator, unembed_head,
+                                        vocab_layout)
 
 CHUNK = 256
 
@@ -140,26 +148,42 @@ def _conv_tail(x_raw: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
-    """x: (B, T, D) -> (x + out, {conv, mC, mn})."""
+    """x: (B, T, D) -> (x + out, {conv, mC, mn}).
+
+    Over "model" the reference splits the columns of ``up``, ``qkv`` and
+    ``gates``, which do not line up with xc|z, q|k|v or i|f: each
+    output is gathered whole (``layers.proj_whole``) and the conv, whole
+    in the reference too, runs alike on every rank. ``mnorm``, ``skip``
+    and ``down``'s rows split d_in, which lines up with the heads: each
+    rank runs the cell on its heads (its block of q, k, v and the
+    gates), then the norm, the skip and the gate on its block of d_in
+    and ``down`` on its rows (``layers.norm_proj_rows``). Where the heads
+    do not split, every rank runs them all and takes its block after."""
     b, t, _ = x.shape
     d_in, hd, _ = dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    xc_raw, z = L.proj(p, "up", h).chunk(2, dim=-1)
+    xc_raw, z = L.proj_whole(p, "up", h, 2 * d_in).chunk(2, dim=-1)
     xc = L.causal_conv(xc_raw, p["conv_w"], p["conv_b"])
-    q, k, v = L.proj(p, "qkv", xc).chunk(3, dim=-1)
-    gates = L.proj(p, "gates", xc)
+    xm = parallel.copy_to_model(xc)     # the input of both split products
+    q, k, v = L.proj_whole(p, "qkv", xc, 3 * d_in, xm).chunk(3, dim=-1)
+    gates = L.proj_whole(p, "gates", xc, 2 * cfg.num_heads, xm)
     gates = gates.to(L.acc_dtype(gates.dtype))
     i_raw, f_raw = gates.chunk(2, dim=-1)                      # (B, T, H)
+    width = p["mnorm"].shape[-1]        # d_in, or this rank's block of it
+    heads = width != d_in and width % hd == 0           # this rank's heads
+    if heads:
+        q, k, v, i_raw, f_raw = (parallel.split_to_model(y, -1)
+                                 for y in (q, k, v, i_raw, f_raw))
     igate = torch.sigmoid(i_raw)
     log_f = L.log_sigmoid(f_raw)
-    heads = (b, t, cfg.num_heads, hd)
+    shape = (b, t, -1, hd)
     hout, (cmat, nvec) = _mlstm_cell_chunked(
-        q.reshape(heads), k.reshape(heads), v.reshape(heads), igate, log_f,
+        q.reshape(shape), k.reshape(shape), v.reshape(shape), igate, log_f,
         None if state is None else (state["mC"], state["mn"]))
-    hout = hout.reshape(b, t, d_in)
-    hout = L.rms_norm(hout, p["mnorm"], cfg.norm_eps) \
-        + p["skip"].to(x.dtype) * xc
-    out = L.proj(p, "down", hout * F.silu(z))
+    out = L.norm_proj_rows(
+        p, "down", hout.reshape(b, t, -1), p["mnorm"], d_in, cfg.norm_eps,
+        lambda h, local: (h + p["skip"].to(x.dtype) * local(xc))
+        * F.silu(local(z)))
     return x + out, {"conv": _conv_tail(xc_raw, cfg.conv_width),
                      "mC": cmat, "mn": nvec}
 
@@ -263,27 +287,48 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
     :func:`_slstm_cell` from Python (:func:`layers.scan`, which the dry
     run counts by its length), the state in f32. The recurrent
     weight and the input gates are cast and laid out once for the T steps
-    (a copy per step would keep T copies alive for the backward)."""
+    (a copy per step would keep T copies alive for the backward).
+
+    Over "model" the reference splits ``gates_x``'s columns (which do not
+    line up with the heads: its output is gathered whole), ``r_gates``
+    on its last dim, and ``gnorm`` and ``down``'s rows on d_model, which
+    lines up with the heads. The recurrence is block-diagonal by head, so
+    each rank gathers ``r_gates`` whole once and runs the T steps on its
+    heads with no communication, then the norm over its block and
+    ``down`` on its rows, the partial outputs summed. Where the heads do
+    not split, every rank runs them all and takes its block after."""
     b, t, d = x.shape
     hds = d // cfg.num_heads
     xin = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    gx = _gates_ifoz(L.proj(p, "gates_x", xin).reshape(b, t, 4,
-                                                       cfg.num_heads, hds))
+    g = L.proj_whole(p, "gates_x", xin, 4 * d).reshape(b, t, 4,
+                                                         cfg.num_heads, hds)
+    width = p["gnorm"].shape[-1]        # d, or this rank's block of it
+    heads = width != d and width % hds == 0             # this rank's heads
+    r = p["r_gates"]
+    if r.shape[-1] != hds:      # each rank's use differs where heads split
+        r = (parallel.gather_to_ranks if heads
+             else parallel.gather_from_model)(r, -1)
+    elif heads:
+        r = parallel.copy_to_model(r)
+    if heads:
+        g = parallel.split_to_model(g, 3)
+        hl = g.shape[3]
+        r = r.narrow(1, parallel.rank("model") * hl, hl)
+    gx = _gates_ifoz(g)
     if state is None:
-        z = torch.zeros((b, cfg.num_heads, hds), dtype=gx.dtype,
+        z = torch.zeros((b, gx.shape[3], hds), dtype=gx.dtype,
                         device=x.device)
         state = (z, z, z)
-    rm = _r_matrix(p["r_gates"], torch.promote_types(state[2].dtype,
-                                                     p["r_gates"].dtype))
+    rm = _r_matrix(r, torch.promote_types(state[2].dtype, r.dtype))
+
     def step(c, st, g):
         st = _slstm_cell(c[0], g[0], st)
         return st, st[2]
 
     state, hs = L.scan(step, state, (gx,), (rm,))
-    hout = hs.reshape(b, t, d).to(x.dtype)
-    hout = L.rms_norm(hout, p["gnorm"], cfg.norm_eps)
-    return x + L.proj(p, "down", hout), {"sc": state[0], "sn": state[1],
-                                         "sh": state[2]}
+    out = L.norm_proj_rows(p, "down", hs.reshape(b, t, -1).to(x.dtype),
+                           p["gnorm"], d, cfg.norm_eps)
+    return x + out, {"sc": state[0], "sn": state[1], "sh": state[2]}
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
@@ -326,37 +371,33 @@ def _superblocks(params: dict) -> list:
     return list(zip(mlstm, L.unstack(L.subtree(params, "blocks.slstm."))))
 
 
-def _unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The f32 head: the final norm in the compute dtype, then
-    ``lm_head`` on x cast to f32."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.proj(params, "lm_head", x.to(torch.float32))
-
-
 def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
             num_groups: int = 1):
-    """Returns (logits (B, T, V) f32, aux 0)."""
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    """Returns (logits (B, T, V) f32, aux 0): on a mesh of several ranks
+    this rank's block of the vocabulary where ``lm_head.w`` splits it
+    (:func:`decoder.head_layout`)."""
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     for mls, sp in _superblocks(params):
         for lp in mls:
             x, _ = mlstm_forward(lp, x, cfg)
         x, _ = slstm_forward(sp, x, cfg)
-    return _unembed(params, x, cfg), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return unembed_head(params, x, cfg, head_layout(params, cfg)), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
-    parallel.refuse("the xLSTM loss_fn", "20e")
     tokens = batch["tokens"]
     logits, _ = forward(params, tokens[:, :-1], cfg)
-    return L.cross_entropy(logits, tokens[:, 1:])
+    return L.cross_entropy(logits, tokens[:, 1:], vocab_split=head_layout(
+        params, cfg) == L.VOCAB)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
             num_groups: int = 1):
     """Full-sequence forward that fills the recurrent state. Returns
     (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM prefill", "20e")
+    parallel.refuse("the xLSTM prefill", "20f")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     mstates, sstates = [], []
     for mls, sp in _superblocks(params):
@@ -371,7 +412,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
                        for k in mstates[0]},
              "slstm": {k: torch.stack([s[k] for s in sstates])
                        for k in sstates[0]}}
-    return _unembed(params, x[:, -1:, :], cfg), cache
+    return unembed_head(params, x[:, -1:, :], cfg), cache
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
@@ -400,7 +441,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)): every layer's state updated in
     place in ``cache``. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM decode_step", "20e")
+    parallel.refuse("the xLSTM decode_step", "20f")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     mc, sc = cache["mlstm"], cache["slstm"]
     for s, (mls, sp) in enumerate(_superblocks(params)):
@@ -412,4 +453,4 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
         x, new = slstm_decode(sp, x, {k: v[s] for k, v in sc.items()}, cfg)
         for k, v in new.items():
             sc[k][s].copy_(v)
-    return _unembed(params, x, cfg), cache
+    return unembed_head(params, x, cfg), cache

@@ -12,6 +12,13 @@ application ``(idx + 1) // every - 1`` indexes the stacked KV caches
 ``attn.{k, v, slot_pos}`` (apps, B, S, Hkv, hd). Decode caches: every
 layer's mamba state and the applications' KV caches, written in place.
 
+On a mesh of several ranks the train loss runs on each rank's blocks of
+the leaves, split over "model" by the reference's ``param_spec_tree``:
+the Mamba2 layers as ``mamba2.mamba_forward`` says, the shared block's
+attention and MLP as the decoder's (``layers.attn_forward``,
+``layers.swiglu``), the embedding and ``lm_head`` on the vocabulary.
+Prefill and decode refuse such a mesh (ROADMAP item 20f).
+
 As in the reference, ``init_cache`` fills the applications' ``slot_pos``
 with 0, not -1: a decode step before the cache is full also attends to
 the empty slots (k = v = 0), so a replay equals prefill only with a
@@ -24,7 +31,9 @@ import torch
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import parallel
-from repro_torch.models.decoder import compute_dtype, make_generator
+from repro_torch.models.decoder import (compute_dtype, head_layout,
+                                        make_generator, unembed_head,
+                                        vocab_layout)
 from repro_torch.models.mamba2 import (init_mamba, init_mamba_state,
                                        mamba_decode, mamba_forward)
 
@@ -68,7 +77,9 @@ def _views(params: dict):
 
 
 def _mlp(sp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    return x + L.swiglu(sp["mlp"], L.rms_norm(x, sp["ln2"], cfg.norm_eps))
+    split = sp["mlp"]["wi.w"].shape[-1] != cfg.d_ff
+    return x + L.swiglu(sp["mlp"], L.rms_norm(x, sp["ln2"], cfg.norm_eps),
+                        split=split)
 
 
 def _shared_block(sp: dict, x: torch.Tensor, cfg, window: int):
@@ -85,11 +96,6 @@ def _shared_block_decode(sp: dict, x: torch.Tensor, cache_a: dict, pos: int,
     return _mlp(sp, x + h, cfg), cache_a
 
 
-def _unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.proj(params, "lm_head", x.to(torch.float32))
-
-
 def _is_app(idx: int, cfg) -> bool:
     """Whether the shared block runs after layer ``idx``."""
     return (idx + 1) % cfg.attn_every == 0
@@ -98,8 +104,11 @@ def _is_app(idx: int, cfg) -> bool:
 def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
             num_groups: int = 1):
     """Returns (logits (B, T, V) f32, aux 0). ``cfg.use_flash`` routes the
-    shared block's attention through the flash_attention kernel."""
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    shared block's attention through the flash_attention kernel. On a
+    mesh of several ranks the logits are this rank's block of the
+    vocabulary where ``lm_head.w`` splits it (:func:`decoder.head_layout`)."""
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     layers, sp = _views(params)
     for idx, lp in enumerate(layers):
         y, _ = mamba_forward(lp["mamba"], L.rms_norm(x, lp["ln"],
@@ -107,15 +116,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
         x = x + y
         if _is_app(idx, cfg):
             x = _shared_block(sp, x, cfg, window)
-    return _unembed(params, x, cfg), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return unembed_head(params, x, cfg, head_layout(params, cfg)), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
-    parallel.refuse("the Zamba loss_fn", "20e")
     tokens = batch["tokens"]
     logits, _ = forward(params, tokens[:, :-1], cfg)
-    return L.cross_entropy(logits, tokens[:, 1:])
+    return L.cross_entropy(logits, tokens[:, 1:], vocab_split=head_layout(
+        params, cfg) == L.VOCAB)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
@@ -124,7 +133,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     block's KV caches (one per application, slot_pos = arange(T), cache
     length T). Always the chunked attention, as in the reference.
     Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba prefill", "20e")
+    parallel.refuse("the Zamba prefill", "20f")
     b, t = tokens.shape
     dt = compute_dtype(cfg)
     x = L.embed(params["embed"], tokens, dt)
@@ -154,7 +163,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
         attn["v"][app] = v.to(dt)
         attn["slot_pos"][app] = pos.to(torch.int32)
     mamba = {k: torch.stack([s[k] for s in mstates]) for k in mstates[0]}
-    return _unembed(params, x[:, -1:, :], cfg), {"mamba": mamba,
+    return unembed_head(params, x[:, -1:, :], cfg), {"mamba": mamba,
                                                  "attn": attn}
 
 
@@ -178,7 +187,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)); the cache is written in place.
     Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba decode_step", "20e")
+    parallel.refuse("the Zamba decode_step", "20f")
     x = L.embed(params["embed"], tokens, compute_dtype(cfg))
     layers, sp = _views(params)
     mc, ac = cache["mamba"], cache["attn"]
@@ -194,4 +203,4 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
             x, _ = _shared_block_decode(sp, x, {k: v[app] for k, v in
                                                 ac.items()}, int(pos), cfg,
                                         window)
-    return _unembed(params, x, cfg), cache
+    return unembed_head(params, x, cfg), cache

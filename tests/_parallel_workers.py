@@ -1,10 +1,12 @@
-"""The rank side of ``tests/test_torch_parallel.py``: each of ``world``
+"""The rank side of ``tests/test_torch_parallel*.py``: each of ``world``
 processes runs this file on the CPU over gloo,
 
     python tests/_parallel_workers.py WORLD RANK STORE OUT EXTRA_JSON
 
 and saves its results to ``OUT/rank{RANK}.pt`` for the test to read.
-JAX-free, so the ranks import torch and the port alone. The ranks meet
+JAX-free, so the ranks import torch and the port alone (the test-side
+comparisons at the end run the reference's launcher as a process of its
+own). The ranks meet
 through a file store, not a port, so test workers running side by side
 never collide.
 """
@@ -12,15 +14,19 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint.checkpointer import named_leaves
 from repro_torch.configs import ShapeConfig, get_smoke_config
 from repro_torch.core.compression import (compress_with_masks,
                                           default_tier_plans,
@@ -67,7 +73,9 @@ def config(name: str):
     heads (``llama-h3``: q on head_dim too), at 3 / 1 heads of 6
     (``llama-d-model``: q / k / v on d_model over 4 ranks, ``wo`` on its
     columns) and of 5 (``llama-d-model-hd5``: the same over 2 ranks; no
-    RoPE on an odd head_dim)."""
+    RoPE on an odd head_dim); ``xlstm-h2`` (xLSTM's smoke config at 2
+    heads) and ``zamba-hd128`` (Zamba's at Mamba2 heads of 128, 2 of
+    them): at 4 ranks d_in splits but the heads do not."""
     if name.endswith("-v515"):
         return get_smoke_config(name[:-5]).replace(vocab_size=515)
     if name == "qwen-h8":
@@ -81,6 +89,10 @@ def config(name: str):
     if name == "llama-h3":
         return get_smoke_config("llama3.2-3b").replace(
             num_heads=3, num_kv_heads=1, head_dim=32)
+    if name == "xlstm-h2":
+        return get_smoke_config("xlstm-1.3b").replace(num_heads=2)
+    if name == "zamba-hd128":
+        return get_smoke_config("zamba2-2.7b").replace(ssm_headdim=128)
     if name.startswith("llama-d-model"):
         return get_smoke_config("llama3.2-3b").replace(
             num_heads=3, num_kv_heads=1,
@@ -441,22 +453,32 @@ def _masks(world: int) -> dict:
 
 
 def family_batch(cfg) -> dict:
-    """A seeded (2, 9) token batch, with (2, P, D) patches for VLM."""
+    """A seeded (2, 9) token batch, with (2, P, D) patches for VLM and
+    (2, S_enc, D) frames for audio."""
     gen = torch.Generator().manual_seed(4)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9),
                                      generator=gen)}
     if cfg.family == "vlm":
         batch["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
                                        generator=gen)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
     return batch
 
 
+FAMILIES = ("granite-moe-1b-a400m", "llava-next-34b", "xlstm-1.3b",
+            "zamba2-2.7b", "whisper-tiny")
+RECURRENT = ("xlstm-1.3b", "zamba2-2.7b", "whisper-tiny")
+
+
 def _family_losses(world: int) -> dict:
-    """The MoE and VLM decoders' ``loss_fn`` on each rank's blocks at mesh
-    (1, world), and whether ``prefill`` still refuses there."""
+    """Each family's ``loss_fn`` on each rank's blocks at mesh (1, world)
+    (the MoE and VLM decoders, xLSTM, Zamba and Whisper), and whether
+    ``prefill`` still refuses there."""
     mesh = make_host_mesh(world, devices=[CPU])
     out = {}
-    for arch in ("granite-moe-1b-a400m", "llava-next-34b"):
+    for arch in FAMILIES:
         cfg = config(arch)
         model = get_model(cfg)
         params = model.init(0, device=CPU)
@@ -470,6 +492,154 @@ def _family_losses(world: int) -> dict:
                 refused = str(e)
         out[arch] = {"loss": loss, "prefill": refused}
     return out
+
+
+# ------------------------------------ xLSTM, Zamba and Whisper over ranks
+
+def _specs_dims(p: dict, prefix: str, world: int) -> dict:
+    """The dim (from the end) of each leaf of ``p`` that
+    ``param_spec_tree`` splits over ``world`` model shards, the leaf
+    named ``prefix + name`` (None: whole)."""
+    specs = param_spec_tree({prefix + k: v for k, v in p.items()}, world)
+    return {k: next((d - len(specs[prefix + k]) for d, e in
+                     enumerate(specs[prefix + k]) if e is not None), None)
+            for k in p}
+
+
+def _jitter(p: dict, gen, names) -> dict:
+    """``p`` with the leaves ``names`` (ones, zeros or linspaces at init)
+    moved by seeded noise, so that their gradients test the layout."""
+    return {k: v + 0.1 * torch.randn(v.shape, generator=gen)
+            if k in names else v for k, v in p.items()}
+
+
+def _recurrent_layer_cases(world: int) -> dict:
+    """``mamba_forward``, ``mlstm_forward``, ``slstm_forward`` and
+    ``gelu_mlp(split=True)`` at mesh (1, world) against one rank on the
+    same inputs, each leaf split as ``param_spec_tree`` splits it; at 4
+    ranks also the layouts whose heads do not split (``xlstm-h2``,
+    ``zamba-hd128``)."""
+    from repro_torch.models import mamba2 as TMB
+    from repro_torch.models import xlstm as TX
+    gen = torch.Generator().manual_seed(6)
+    mesh = make_host_mesh(world, devices=[CPU])
+    names = [("mamba", "zamba2-2.7b"), ("mlstm", "xlstm-1.3b"),
+             ("slstm", "xlstm-1.3b"), ("gelu_mlp", "whisper-tiny")]
+    if world == 4:
+        names += [("mamba", "zamba-hd128"), ("mlstm", "xlstm-h2"),
+                  ("slstm", "xlstm-h2")]
+    cases = {}
+    for kind, name in names:
+        cfg = config(name)
+        x = torch.randn((2, 16, cfg.d_model), generator=gen)
+        if kind == "mamba":
+            p = _jitter(TMB.init_mamba(gen, cfg), gen, (
+                "a_log", "conv_b", "d_skip", "dt_bias", "gate_norm"))
+
+            def fn(p, x, cfg=cfg):
+                return TMB.mamba_forward(p, x, cfg)[0]
+        elif kind == "mlstm":
+            p = _jitter(TX.init_mlstm(gen, cfg), gen, (
+                "ln", "conv_b", "gates.b", "mnorm", "skip"))
+
+            def fn(p, x, cfg=cfg):
+                return TX.mlstm_forward(p, x, cfg)[0]
+        elif kind == "slstm":
+            p = _jitter(TX.init_slstm(gen, cfg), gen, (
+                "ln", "gates_x.b", "gnorm"))
+
+            def fn(p, x, cfg=cfg):
+                return TX.slstm_forward(p, x, cfg)[0]
+        else:
+            p = _jitter(L.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff), gen,
+                        ("wi.b", "wo.b"))
+
+            def fn(p, x, cfg=cfg):
+                return L.gelu_mlp(p, x, split=p["wi.w"].shape[-1]
+                                  != cfg.d_ff)
+        dims = _specs_dims(p, f"{'mlp' if kind == 'gelu_mlp' else kind}/",
+                           world)
+        key = kind if name in RECURRENT else f"{kind} {name}"
+        cases[key] = (_run(fn, p, x, dims, mesh), _run(fn, p, x, dims),
+                      {k: d for k, d in dims.items() if d is not None},
+                      _run_f64(fn, p, x))
+    return cases
+
+
+def _run_f64(fn, p: dict, x: torch.Tensor) -> tuple:
+    """:func:`_run` in one process with the leaves, the input and the
+    contraction's weights (drawn in f32) in f64: the answer both f32 runs
+    are held to (the norms still compute in f32)."""
+    leaves = {k: v.double().requires_grad_() for k, v in p.items()}
+    xg = x.double().requires_grad_()
+    out = fn(leaves, xg)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    grads = torch.autograd.grad((out * w.double()).sum(),
+                                [*leaves.values(), xg])
+    return out.detach(), dict(zip(leaves, grads)), grads[-1]
+
+
+def _family_masks(world: int) -> dict:
+    """``compress_with_masks`` (pruned at 0.25, then fp8 e5m2 or int8 at
+    the whole leaf's scale) of each recurrent family's smoke params on
+    each rank's blocks at mesh (1, world) and the one-rank result's
+    blocks."""
+    mesh = make_host_mesh(world, devices=[CPU])
+    out = {}
+    for name in RECURRENT:
+        params = get_model(config(name)).init(0, device=CPU)
+        psh = named(mesh, param_spec_tree(params, world))
+        for label, e, m_bits in (("fp8", 5, 2), ("int8", 0, 8)):
+            cp, m = compress_with_masks(params, 0.25, e, m_bits)
+            with parallel.using(mesh):
+                lcp, lm = compress_with_masks(place(params, psh), 0.25, e,
+                                              m_bits, shardings=psh)
+            out[f"{name} {label}"] = (
+                {**lcp, **{"mask/" + k: v for k, v in lm.items()}},
+                {**{k: psh[k].block(v) for k, v in cp.items()},
+                 **{"mask/" + k: (psh[k].block(v) if v.dim() else v)
+                    for k, v in m.items()}})
+    return out
+
+
+def _bf16_sums(world: int) -> dict:
+    """The sums over "model" of each rank's seeded bf16 partials (4096
+    values a rank, at scales 2^-8..2^8) at mesh (1, world): forward,
+    ``reduce_from_model`` of them; backward, the gradient that
+    ``copy_to_model`` and ``gather_to_ranks`` give a bf16 input when each
+    rank's output gradient is its partials. With every rank's partials
+    (drawn here from their seeds) and the old arithmetic: the partials
+    all-reduced in bf16 through gloo, each addition rounded."""
+    parts = []
+    for r in range(world):
+        gen = torch.Generator().manual_seed(100 + r)
+        scale = 2.0 ** torch.randint(-8, 9, (4096,), generator=gen)
+        parts.append((torch.randn((4096,), generator=gen)
+                      * scale).to(torch.bfloat16))
+    mesh = make_host_mesh(world, devices=[CPU])
+    mine = parts[dist.get_rank()]
+    x = torch.zeros_like(mine, requires_grad=True)
+    xs = torch.zeros_like(mine[:4096 // world], requires_grad=True)
+    with parallel.using(mesh):
+        got = parallel.reduce_from_model(mine)
+        parallel.copy_to_model(x).backward(mine)
+        parallel.gather_to_ranks(xs, -1).backward(mine)
+    old = mine.clone()
+    dist.all_reduce(old)
+    return {"forward": got, "backward": x.grad, "gather_to_ranks": xs.grad,
+            "parts": parts, "old": old}
+
+
+def run_recurrent(world: int, extra: dict) -> dict:
+    """Every rank-side check of ``tests/test_torch_parallel_recurrent.py``
+    for ``world`` ranks."""
+    return {"bf16_sums": _bf16_sums(world),
+            "layers": _recurrent_layer_cases(world),
+            "masks": _family_masks(world),
+            "round_trips": _round_trips([(n, m) for n in RECURRENT
+                                         for m in sorted({2, world})]),
+            "steps": {f"{name} {mp}": _mesh_steps(name, mp)
+                      for name, mp in extra["steps"]}}
 
 
 # -------------------------------------------------------------- launcher
@@ -526,6 +696,98 @@ def _tensors(tree) -> list:
     return [tree]
 
 
+# ------------------------------------------------ test-side comparisons
+
+def check_steps(results, name: str, mp: int, one: dict) -> None:
+    """Two AdamW steps of the hetero train step (4 tiers, batch 8 x 16)
+    under the train launcher's schedule on the mesh against one rank
+    (``one``, :func:`one_rank_steps`): losses rtol 1e-4, params atol
+    1e-5, Adam's moments (linear in the gradients) rtol 1e-4 / atol
+    1e-7; every rank the same losses and gathered params. AdamW's update
+    is sign-like: a gradient that is rounding noise in both orders of
+    summation (|g| far below eps) moves its weight by up to +-lr in
+    either, so the params are held under the launcher's warmup, where lr
+    stays small, and the gradients through the moments."""
+    got = results[0]["steps"][f"{name} {mp}"]
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
+    for k, v in one["params"].items():
+        torch.testing.assert_close(got["params"][k], v, rtol=0, atol=1e-5,
+                                   msg=k)
+        for mom in ("m", "v"):
+            torch.testing.assert_close(got[mom][k], one[mom][k], rtol=1e-4,
+                                       atol=1e-7, msg=f"{mom} {k}")
+    for res in results[1:]:
+        r = res["steps"][f"{name} {mp}"]
+        assert r["losses"] == got["losses"]
+        assert all(torch.equal(r["params"][k], got["params"][k])
+                   for k in got["params"])
+
+
+def npz(path) -> dict:
+    """A checkpoint file's leaves: name -> (array, dtype name)."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        return {m["name"]: (z[k], m["dtype"]) for k, m in meta.items()}
+
+
+def _losses(log: str) -> dict:
+    return {int(m["step"]): m["loss"] for m in
+            (json.loads(line) for line in log.splitlines()
+             if re.match(r'^\{"step"', line))}
+
+
+def launcher_vs_reference(tmp_path: Path, arch: str, mp: int) -> None:
+    """The reference's launcher on 4 host devices (a (4 / mp, mp) mesh at
+    --model-parallel mp), 3 steps with a checkpoint each; the port's on 4
+    gloo ranks under torchrun resumes from a copy of its step-1
+    checkpoint to step 3: printed losses within 1e-4, every leaf of the
+    step-3 checkpoint within 1e-5 (names and dtypes equal); that file,
+    written by 4 ranks, restores bitwise in one process."""
+    args = ["--arch", arch, "--smoke", "--steps", "3", "--batch",
+            "8", "--seq", "32", "--model-parallel", str(mp),
+            "--ckpt-every", "1", "--log-every", "1"]
+    mesh = f"mesh={{'data': {4 // mp}, 'model': {mp}}}"
+    ref, port = tmp_path / "ref", tmp_path / "port"
+    ref_env = env()
+    ref_env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    ref_env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run([sys.executable, "-m", "repro.launch.train", *args,
+                        "--ckpt-dir", str(ref)], env=ref_env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert mesh in r.stdout
+    ref_losses = _losses(r.stdout)
+    port.mkdir()
+    shutil.copy(ref / "ckpt_00000001.npz", port)
+    p = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "4",
+                        "-m", "repro_torch.launch.train", *args,
+                        "--ckpt-dir", str(port), "--device", "cpu"],
+                       env=env(), capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "restored step 1" in p.stdout
+    assert mesh in p.stdout
+    got = _losses(p.stdout)
+    assert sorted(got) == [2, 3]
+    for step, loss in got.items():
+        np.testing.assert_allclose(loss, ref_losses[step], rtol=1e-4)
+    a, b = npz(ref / "ckpt_00000003.npz"), npz(port / "ckpt_00000003.npz")
+    assert set(a) == set(b)
+    for k, (v, dt) in a.items():
+        assert b[k][1] == dt, k
+        np.testing.assert_allclose(b[k][0], v, rtol=0, atol=1e-5, err_msg=k)
+    # the 4-rank file in one process
+    model = get_model(get_smoke_config(arch))
+    template = TrainState.create(model, optim.adamw(1e-3), 0, device=CPU)
+    state, step = Checkpointer(str(port)).restore(template)
+    assert step == 3
+    flat = dict(named_leaves(state))
+    assert set(flat) == set(b)
+    for k, t in flat.items():
+        assert np.array_equal(t.numpy(), b[k][0]), k
+
+
 # ------------------------------------------------------------------ entry
 
 def env() -> dict:
@@ -567,6 +829,11 @@ def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
+    if "recurrent" in extra:    # xLSTM, Zamba and Whisper alone
+        torch.save(run_recurrent(world, extra["recurrent"]),
+                   os.path.join(out, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return
     if "bf16" in extra:         # the reference's bf16 step on (1, 2) alone
         res = {arch: bf16_step(arch, ckpt)
                for arch, ckpt in extra["bf16"].items()}

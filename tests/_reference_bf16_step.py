@@ -1,11 +1,11 @@
 """The reference's hetero train step in bf16, one step from its own init,
-on a (1, 2) host mesh as its train launcher builds it
+on a (1, MP) host mesh as its train launcher builds it
 (``src/repro/launch/train.py``) and on one device, and in f32 on one
-device; run in a process of its own, whose two host devices XLA_FLAGS
-forces:
+device; run in a process of its own, whose MP host devices XLA_FLAGS
+forces (MP 2 when not given):
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu \\
-        python tests/_reference_bf16_step.py OUT_DIR ARCH
+    XLA_FLAGS=--xla_force_host_platform_device_count=MP JAX_PLATFORMS=cpu \\
+        python tests/_reference_bf16_step.py OUT_DIR ARCH [MP]
 
 writes the arch's init state as a checkpoint
 (``OUT_DIR/ARCH/ckpt_00000000.npz``), and ``OUT_DIR/ARCH/reference.json``: each run's loss and the first moment of
@@ -32,8 +32,8 @@ from repro.models import get_model
 from repro.models.sharding import named, param_spec_tree, set_rules
 
 
-def run(arch: str, out: str) -> None:
-    mesh = make_host_mesh(2)
+def run(arch: str, out: str, mp: int = 2) -> None:
+    mesh = make_host_mesh(mp)
     set_rules({})
     shape = ShapeConfig("cli", 16, 8, "train")
     res = {"mesh": dict(mesh.shape)}
@@ -77,4 +77,5 @@ def run(arch: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    run(sys.argv[2], f"{sys.argv[1]}/{sys.argv[2]}")
+    run(sys.argv[2], f"{sys.argv[1]}/{sys.argv[2]}",
+        int(sys.argv[3]) if len(sys.argv) > 3 else 2)

@@ -1,10 +1,11 @@
 """Tensor, expert and data parallel training of the decoder (dense, MoE,
-VLM) over ``torch.distributed`` ranks (``launch/mesh.py``,
-``models/parallel.py``, ``models/sharding.place`` / ``gather``, the split
-layers, attention's head_dim and d_model fallbacks, the MoE layer's
-experts and batch rows, the projector, the pruning's reduced bisection,
-the train step's data rows, the checkpointer, the train launcher under
-``torchrun``), on the CPU over gloo.
+VLM) over ``torch.distributed`` ranks, and the loss of every family there
+(``launch/mesh.py``, ``models/parallel.py``, ``models/sharding.place`` /
+``gather``, the split layers, attention's head_dim and d_model
+fallbacks, the MoE layer's experts and batch rows, the projector, the
+pruning's reduced bisection, the train step's data rows, the
+checkpointer, the train launcher under ``torchrun``), on the CPU over
+gloo.
 
 Pure tests first (the backend rule, rank coordinates, the refusals, the
 identity outside a mesh). Then 2 and 4 ranks run every rank-side check
@@ -14,26 +15,20 @@ results against one process on the same inputs: layers rtol 1e-5 / atol
 1e-4 and params atol 1e-5. Last, the train launcher on 4 ranks resumes
 the reference's own 4-device checkpoint and holds its losses and final
 checkpoint (``tests/test_torch_parallel_bf16.py`` holds the bf16 step
-on 2 ranks to the reference's own sharded one)."""
-import json
+on 2 and 4 ranks to the reference's own sharded one;
+``tests/test_torch_parallel_recurrent.py`` trains xLSTM, Zamba and
+Whisper over ranks)."""
 import re
-import shutil
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
 import _parallel_workers as W
-from _parallel_workers import env as _env
 from _parallel_workers import spawn as _spawn
-from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.checkpoint.checkpointer import named_leaves
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as train_mod
-from repro_torch.core.steps import TrainState
 from repro_torch.launch.mesh import Mesh, backend_for
 from repro_torch.models import get_model, parallel
 from repro_torch.models.sharding import P, named, param_spec_tree, place
@@ -133,13 +128,14 @@ def _moe_params():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("moe", None), ("head_dim_fallback", None), ("mamba2", "20e"),
-    ("xlstm", "20e"), ("fsdp", "20c")])
+    ("moe", None), ("head_dim_fallback", None), ("mamba2", None),
+    ("xlstm", None), ("fsdp", "20c")])
 def test_place_refuses_outside_the_slice(case, item, monkeypatch):
-    """Any data-axis entry (FSDP) and a "model" split of a recurrent leaf
-    (Mamba2's, xLSTM's) raise, naming the ROADMAP item; the MoE leaves
-    (experts on "model") and attention's head_dim fallback (llama's smoke
-    Hkv 2 over 4 model shards) pass the check, every leaf of them."""
+    """Any data-axis entry (FSDP) raises, naming the ROADMAP item; the MoE
+    leaves (experts on "model"), attention's head_dim fallback (llama's
+    smoke Hkv 2 over 4 model shards) and the recurrent leaves (Zamba's
+    Mamba2 and xLSTM's mLSTM / sLSTM leaves, each family's whole state)
+    pass the check, every leaf of them."""
     mesh = _fake_mesh(4 if case == "head_dim_fallback" else 2)
     if case == "moe":
         params = _moe_params()
@@ -154,9 +150,8 @@ def test_place_refuses_outside_the_slice(case, item, monkeypatch):
         arch = "zamba2-2.7b" if case == "mamba2" else "xlstm-1.3b"
         params = get_model(get_smoke_config(arch)).init(0, device=CPU)
         specs = param_spec_tree(params, 2)
-        leaf = next(k for k in params if re.search(
-            r"(mamba|mlstm|slstm)\.", k) and "model" in specs[k])
-        params, specs = {leaf: params[leaf]}, {leaf: specs[leaf]}
+        assert any(re.search(r"(mamba|mlstm|slstm)\.", k)
+                   and "model" in specs[k] for k in params)
     else:
         params = {"layers.mlp.wi.w": torch.ones(2, 4, 8)}
         specs = param_spec_tree(params, 2, fsdp=(("data",), 2))
@@ -178,10 +173,10 @@ def test_place_refuses_outside_the_slice(case, item, monkeypatch):
                                   "xlstm-1.3b", "zamba2-2.7b",
                                   "whisper-tiny"])
 def test_other_families_refuse_a_mesh_of_ranks(ranks, arch):
-    """xLSTM, Zamba and Whisper refuse a mesh of ranks in their loss and
-    prefill (ROADMAP item 20e). The MoE and VLM decoders' loss runs on
-    each rank's blocks at (1, 2) and (1, 4), the one-rank loss at rtol
-    1e-5, and their prefill refuses (item 20f)."""
+    """Every family's loss runs on each rank's blocks at (1, 2) and
+    (1, 4), the one-rank loss at rtol 1e-5: the MoE and VLM decoders,
+    xLSTM, Zamba and Whisper. Their prefill refuses a mesh of ranks
+    (ROADMAP item 20f)."""
     cfg = get_smoke_config(arch)
     model = get_model(cfg)
     params = model.init(0, device=CPU)
@@ -190,23 +185,16 @@ def test_other_families_refuse_a_mesh_of_ranks(ranks, arch):
         batch["patches"] = torch.zeros((2, cfg.num_patches, cfg.d_model))
     if cfg.family == "audio":
         batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
-    if cfg.family in ("moe", "vlm"):
-        one = model.loss_fn(params, W.family_batch(cfg)).item()
-        for world in (2, 4):
-            for res in ranks(world):
-                got = res["families"][arch]
-                np.testing.assert_allclose(got["loss"], one, rtol=1e-5)
-                assert "prefill" in got["prefill"]
-                assert "item 20f" in got["prefill"]
-        with parallel.using(_fake_mesh()):
-            with pytest.raises(NotImplementedError, match="item 20f"):
-                model.prefill(params, batch)
-    else:
-        with parallel.using(_fake_mesh()):
-            with pytest.raises(NotImplementedError, match="item 20e"):
-                model.loss_fn(params, batch)
-            with pytest.raises(NotImplementedError, match="item 20e"):
-                model.prefill(params, batch)
+    one = model.loss_fn(params, W.family_batch(cfg)).item()
+    for world in (2, 4):
+        for res in ranks(world):
+            got = res["families"][arch]
+            np.testing.assert_allclose(got["loss"], one, rtol=1e-5)
+            assert "prefill" in got["prefill"]
+            assert "item 20f" in got["prefill"]
+    with parallel.using(_fake_mesh()):
+        with pytest.raises(NotImplementedError, match="item 20f"):
+            model.prefill(params, batch)
     model.loss_fn(params, batch)            # no mesh: as before
 
 
@@ -385,29 +373,7 @@ def test_adamw_steps_match_one_rank_4(ranks, name, mp):
 
 
 def _check_steps(results, name, mp):
-    """Two AdamW steps of the hetero train step (4 tiers, batch 8 x 16)
-    under the train launcher's schedule on the mesh against one rank:
-    losses rtol 1e-4, params atol 1e-5, Adam's moments (linear in the
-    gradients) rtol 1e-4 / atol 1e-7; every rank the same losses and
-    gathered params. AdamW's update is sign-like: a gradient that is
-    rounding noise in both orders of summation (|g| far below eps) moves
-    its weight by up to +-lr in either, so the params are held under the
-    launcher's warmup, where lr stays small, and the gradients through
-    the moments."""
-    one = _one_rank(name)
-    got = results[0]["steps"][f"{name} {mp}"]
-    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
-    for k, v in one["params"].items():
-        torch.testing.assert_close(got["params"][k], v, rtol=0, atol=1e-5,
-                                   msg=k)
-        for mom in ("m", "v"):
-            torch.testing.assert_close(got[mom][k], one[mom][k], rtol=1e-4,
-                                       atol=1e-7, msg=f"{mom} {k}")
-    for res in results[1:]:
-        r = res["steps"][f"{name} {mp}"]
-        assert r["losses"] == got["losses"]
-        assert all(torch.equal(r["params"][k], got["params"][k])
-                   for k in got["params"])
+    W.check_steps(results, name, mp, _one_rank(name))
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -428,12 +394,6 @@ def test_launcher_mesh_spans_the_world_under_torchrun(ranks, world):
         np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
 
 
-def _npz(path) -> dict:
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__meta__"]).decode())
-        return {m["name"]: (z[k], m["dtype"]) for k, m in meta.items()}
-
-
 def test_checkpoint_crosses_one_rank_and_four(ranks):
     """A one-rank checkpoint restores on 4 ranks as each rank's blocks,
     bitwise, and their save writes the one-rank file's leaves back,
@@ -450,20 +410,14 @@ def test_moe_checkpoint_crosses_one_rank_and_four(ranks):
 def _crosses(ranks, name: str, key: str) -> None:
     assert all(res[key]["same"] and res[key]["step"] == 1
                for res in ranks(4))
-    a = _npz(_DIRS[4] / f"one_rank {name}" / "ckpt_00000001.npz")
-    b = _npz(_DIRS[4] / f"four_ranks {name}" / "ckpt_00000001.npz")
+    a = W.npz(_DIRS[4] / f"one_rank {name}" / "ckpt_00000001.npz")
+    b = W.npz(_DIRS[4] / f"four_ranks {name}" / "ckpt_00000001.npz")
     assert set(a) == set(b)
     for k, (v, dt) in a.items():
         assert b[k][1] == dt and np.array_equal(b[k][0], v), k
 
 
 # ---------------------------------------- against the sharded reference
-
-def _losses(log: str) -> dict:
-    return {int(m["step"]): m["loss"] for m in
-            (json.loads(line) for line in log.splitlines()
-             if re.match(r'^\{"step"', line))}
-
 
 @pytest.mark.parametrize("arch,mp", [
     ("llama3.2-3b", 2), ("granite-moe-1b-a400m", 2),
@@ -479,46 +433,4 @@ def test_launcher_matches_the_sharded_reference(tmp_path, arch, mp):
     mp 4 runs one expert a rank and attention on the head_dim fallback
     (Hkv 2 over 4); on (2, 2) its one 64-token group a tier straddles
     the data ranks."""
-    args = ["--arch", arch, "--smoke", "--steps", "3", "--batch",
-            "8", "--seq", "32", "--model-parallel", str(mp),
-            "--ckpt-every", "1", "--log-every", "1"]
-    mesh = f"mesh={{'data': {4 // mp}, 'model': {mp}}}"
-    ref, port = tmp_path / "ref", tmp_path / "port"
-    env = _env()
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["JAX_PLATFORMS"] = "cpu"
-    r = subprocess.run([sys.executable, "-m", "repro.launch.train", *args,
-                        "--ckpt-dir", str(ref)], env=env, capture_output=True,
-                       text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert mesh in r.stdout
-    ref_losses = _losses(r.stdout)
-    port.mkdir()
-    shutil.copy(ref / "ckpt_00000001.npz", port)
-    p = subprocess.run([sys.executable, "-m", "torch.distributed.run",
-                        "--standalone", "--nproc-per-node", "4",
-                        "-m", "repro_torch.launch.train", *args,
-                        "--ckpt-dir", str(port), "--device", "cpu"],
-                       env=_env(), capture_output=True, text=True,
-                       timeout=300)
-    assert p.returncode == 0, p.stderr[-3000:]
-    assert "restored step 1" in p.stdout
-    assert mesh in p.stdout
-    got = _losses(p.stdout)
-    assert sorted(got) == [2, 3]
-    for step, loss in got.items():
-        np.testing.assert_allclose(loss, ref_losses[step], rtol=1e-4)
-    a, b = _npz(ref / "ckpt_00000003.npz"), _npz(port / "ckpt_00000003.npz")
-    assert set(a) == set(b)
-    for k, (v, dt) in a.items():
-        assert b[k][1] == dt, k
-        np.testing.assert_allclose(b[k][0], v, rtol=0, atol=1e-5, err_msg=k)
-    # the 4-rank file in one process
-    model = get_model(get_smoke_config(arch))
-    template = TrainState.create(model, optim.adamw(1e-3), 0, device=CPU)
-    state, step = Checkpointer(str(port)).restore(template)
-    assert step == 3
-    flat = dict(named_leaves(state))
-    assert set(flat) == set(b)
-    for k, t in flat.items():
-        assert np.array_equal(t.numpy(), b[k][0]), k
+    W.launcher_vs_reference(tmp_path, arch, mp)
