@@ -106,7 +106,7 @@ checkpoint reads faults') needs that one named too.
    the per-leaf route, each timed.
    Phase "examples": the five scripts of ``repro_torch.examples`` through
    their ``main`` (or the functions behind it), each one's launches
-   counted (counters zeroed just before it): quickstart (15 of its 30
+   counted (counters zeroed just before it): quickstart (10 of its 30
    rounds of the six-tier FedAvg fleet, engine scan: losses finite and
    falling);
    hetero_fl_sim at its 60 rounds (the paper's 8-device fleet per client:
@@ -115,16 +115,16 @@ checkpoint reads faults') needs that one named too.
    every line's losses finite and falling and val_acc >= 0.97 on 1000
    held-out samples, but ``async buffer=2 + jitter`` >= 0.955, the
    reference's own value on the port's draw less 0.01; the census lines
-   equal the CPU's; eager == scan to 1e-5; a profiled per-client window;
-   then 2 rounds of the 256-client bench fleet per client against the
+   equal the CPU's; its scan block's eager == scan to 1e-5 at 10 of its
+   60 rounds; then 2 rounds of the 256-client bench fleet per client against the
    cohort runtime, params within 1e-5); paper_mlp_repro (max val_acc >=
    0.95 at n >= 1000, float64 and float32 within 0.01); serve_quantized
    (then the run from the CPU's params and prompt on the card and the
    CPU: compressed params bitwise, payload bits exactly, tokens equal up
    to the CPU's first top-2 logit gap below 1e-4); train_100m at full
-   width (80,753,152 params, 8 x 512 over 4 tiers, 20 of the
+   width (80,753,152 params, 8 x 512 over 4 tiers, 10 of the
    reference's 300 steps; losses finite, the last below the first,
-   s/step, tokens/s and peak memory; a checkpoint at steps 10 and 20,
+   s/step, tokens/s and peak memory; a checkpoint at steps 5 and 10,
    the last restoring bitwise to the live state).
    Phase "async": the 256-client bench fleet and its width twin under
    AsyncBuffered(64, 0.5, jitter 0.2), 20 windows eager and scan
@@ -184,8 +184,9 @@ checkpoint reads faults') needs that one named too.
    embedded (k-means + fp4) through ``repro_torch.launch.serve``: batch
    4, prompt 64, 8 greedy
    tokens; fake_quant must launch 10 times per quantized tier and never
-   for the hub. At 2 layers of full width in f32, the decode replay of the
-   prompt must agree with prefill's last-token logits.
+   for the hub; a profiled window of 8 decode steps on the low tier. At
+   2 layers of full width in f32, the decode replay of the prompt must
+   agree with prefill's last-token logits.
 5. Phase "train": llama3.2-3b at full width cut to 4 layers, bf16,
    ``use_flash``, through ``repro_torch.launch.train``: 4 tiers,
    AdamW(warmup_cosine(3e-4, 2, 5)), global batch 8, seq 1024, 5 steps;
@@ -214,7 +215,7 @@ checkpoint reads faults') needs that one named too.
    f32 step against the CPU path as in 5; then granite-moe whole, bf16,
    flash, 4 tiers, AdamW, 8 x 1024, 5 steps: losses finite, 96
    flash_attention launches per step all on the wgmma kernel (hd 64), 30
-   fake_quant; one step profiled; then llava-next-34b at full width, 1
+   fake_quant; then llava-next-34b at full width, 1
    layer, 4 x 2048 (896 text + 1152 patch positions), 2 steps: losses
    finite, flash on the wgmma kernel at hd 128.
 8. Phase "recurrent serve": xlstm-1.3b whole (48 layers, 3,530,676,560
@@ -231,8 +232,7 @@ checkpoint reads faults') needs that one named too.
    full width: xLSTM at 8 of 48 layers (one superblock), Zamba at 12 of
    54 (two applications) at peak lr 3e-5: losses finite and the mean
    loss falling over the last two steps, fake_quant 54 per step, Zamba's
-   flash 8 per step on the simt kernel (hd 80); one step of Zamba's
-   profiled.
+   flash 8 per step on the simt kernel (hd 80).
 10. Phase "audio serve": whisper-tiny whole (4 encoder + 4 decoder
    layers, 36,463,488 params, 1500 frame positions) with ``use_flash``
    through ``launch.serve`` at hub, low and embedded as in 6 (fake_quant
@@ -290,7 +290,15 @@ checkpoint reads faults') needs that one named too.
    superblock), zamba2-2.7b at 6 (one application of the shared block;
    flash simt at hd 80) and whisper-tiny whole (flash simt on the
    1500-frame encoder, the decoder and the cross-attention), and (d2)'s
-   part with its profiled step for zamba2-2.7b. The f32 parts' bars past
+   part for zamba2-2.7b; (d5) (d1)'s run on (2, 1) with the reference's
+   FSDP train layout (``launch.train(fsdp=True)``: every leaf's largest
+   dim left after the "model" one split over "data" too, each layer's
+   leaves gathered where it runs and its gradients reduce-scattered),
+   in (d1)'s rank processes, against (d1)'s one-rank run with its bars;
+   each rank's placed state plus its batch rows exactly the dry run's
+   argument bytes per device (``launch.specs.train_setup`` on an
+   abstract (2, 1) mesh) and its step's peak below (d1)'s (2, 1) peak;
+   the collectives' seconds a step printed. The f32 parts' bars past
    the losses: AdamW's first moment within 1e-3 of its leaf's largest of
    one rank's, and the params within atol 1e-5; in (d4) alone a param
    whose first moment flips sign at most 1e-3 of its leaf's largest may
@@ -303,8 +311,8 @@ Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
 faults), checkpoint save / restore ms and bytes, val_acc, prefill s,
 decode tokens/s, sec/step and peak memory, a profiled window (a
-device-only trace) of each FL fleet, of the client and async runtimes,
-one serve call, decode steps and train steps, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
+device-only trace) of each FL fleet, of the async runtime, decode steps
+and train steps, then the kernels JSON line (every TPU kernel's row: grad_aggregate and
 structured_scatter both from the grouped kernel; flash_attention,
 masked_matmul and codebook_matmul once per route, each row with its
 device ms and its max_abs_err over its route's cases in the dtype of its
@@ -330,7 +338,7 @@ F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
 FEDAVG_ROUNDS = 5                   # the slice's FedAvg fleet: ~10x a FedSGD round
 CKPT_ROUNDS = 10                    # the FL kill-and-resume runs, cut at half
-QUICKSTART_ROUNDS = 15              # of the script's 30
+QUICKSTART_ROUNDS = 10              # of the script's 30
 LM_ARCH = "llama3.2-3b"
 MOE_ARCH = "granite-moe-1b-a400m"
 XLSTM = "xlstm-1.3b"
@@ -1664,7 +1672,7 @@ def profile_window(label: str, fn, n: int, per: str) -> None:
               f"{name}")
 
 
-def profile_rounds(scenario, device, label: str, rounds: int = 5) -> None:
+def profile_rounds(scenario, device, label: str, rounds: int = 2) -> None:
     """A profiled scan_pallas window of ``rounds`` rounds."""
     import torch
 
@@ -1799,11 +1807,14 @@ EXAMPLE_VAL_ACC_OF = {"async buffer=2 + jitter": 0.965 - 0.01}
 # the reference's default is 300: at 300 one host took 1134 s of command,
 # 1086 s of phases (PERF.md §7). 100 since phase mesh's ranks (d) came
 # (150 took 820 s of phases on an H100 80GB HBM3 host), 50 since its MoE
-# part (d3) came, 20 since its part (d4); a checkpoint every
-# TRAIN_100M_CKPT_EVERY in place of the script's 100, so that two are
-# written and the last is the final step's
-TRAIN_100M_STEPS = 20
-TRAIN_100M_CKPT_EVERY = 10
+# part (d3) came, 20 since its part (d4), 10 since its part (d5); a
+# checkpoint every TRAIN_100M_CKPT_EVERY in place of the script's 100, so
+# that two are written and the last is the final step's
+TRAIN_100M_STEPS = 10
+TRAIN_100M_CKPT_EVERY = 5
+# hetero_fl_sim's scan block (eager against the scan engine, bitwise, and
+# their steady-state rounds/s) at this many rounds of its lines' 60
+HETERO_SCAN_ROUNDS = 10
 SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
@@ -1847,17 +1858,21 @@ def _finite_falling(label: str, losses) -> None:
 
 def _hetero_fl_sim(device, launches: dict) -> None:
     """hetero_fl_sim's ``main`` at its 60 rounds (timed and counted
-    alone): every line's losses finite and falling, val_acc at its bar;
-    the census lines as the CPU computes them; the scan block's eager ==
-    scan to 1e-5 (bitwise printed only when it holds). Then, apart: a
-    profiled window of the per-client runtime, and the 256-client bench
-    fleet per client against the cohort runtime (counted as
-    ``bench256``)."""
+    alone; its scan block at HETERO_SCAN_ROUNDS): every line's losses
+    finite and falling, val_acc at its bar; the census lines as the CPU
+    computes them; the scan block's eager == scan to 1e-5 (bitwise
+    printed only when it holds). Then, apart: the 256-client bench fleet
+    per client against the cohort runtime (counted as ``bench256``)."""
     import torch
     from repro_torch.examples import hetero_fl_sim as H
     from repro_torch.fl import FleetSpec, FLScenario, scenario_census, simulate
-    out = _example("hetero_fl_sim", lambda: H.main(["--device", str(device)]),
-                   launches)
+    block = H.scan_block
+    H.scan_block = lambda rounds, device: block(HETERO_SCAN_ROUNDS, device)
+    try:
+        out = _example("hetero_fl_sim",
+                       lambda: H.main(["--device", str(device)]), launches)
+    finally:
+        H.scan_block = block
     for label, v in out.items():
         if label in ("census", "scan"):
             continue
@@ -1883,12 +1898,8 @@ def _hetero_fl_sim(device, launches: dict) -> None:
               f"== over the card's params")
     s = out["scan"]
     check(s["max_abs_diff"] <= 1e-5,
-          f"hetero_fl_sim: scan params == eager to 1e-5, max_abs_err "
-          f"{s['max_abs_diff']}")
-    srv = out["fedsgd hetero-compressed"]["result"].server
-    profile_window("client fedsgd_hetero", lambda: [srv.round()
-                                                    for _ in range(5)],
-                   5, "round")
+          f"hetero_fl_sim: scan params == eager to 1e-5 after "
+          f"{HETERO_SCAN_ROUNDS} rounds, max_abs_err {s['max_abs_diff']}")
 
     fleet = FleetSpec.cycling(BENCH_TIERS, 256, samples_per_client=16)
     runs = {}
@@ -2786,9 +2797,7 @@ def phase_serve(device) -> int:
               f"serve {tier}: fake_quant launched {n} times "
               f"(10 quantized leaves, 0 for the hub)")
         del res
-    profile_window("serve low", lambda: serve(
-        cfg, "low", batch=batch, prompt_len=prompt, gen=gen, params=params,
-        device=device), 1, "call")
+    _profile_decode(cfg, params, "low", device)
     del params
     torch.cuda.empty_cache()
 
@@ -3065,8 +3074,7 @@ def _full_params(cfg, label: str, device) -> dict:
 
 def _profile_decode(cfg, params, tier: str, device) -> None:
     """A profiled window of DECODE_STEPS decode steps at batch 4 on the
-    tier's compressed params: the device busy share of a MoE decode
-    step."""
+    tier's compressed params: the device busy share of a decode step."""
     import torch
     from repro_torch.core.compression import DEVICE_TIERS
     from repro_torch.core.steps import compress_for_serving, make_serve_step
@@ -3251,7 +3259,6 @@ def phase_moe_train(device) -> dict:
           f"dtype={cfg.dtype} use_flash=True tiers=4 batch=8 seq=1024 "
           f"steps={TRAIN_STEPS}")
     res = run(cfg, MOE_ARCH, TRAIN_STEPS, 8, 1024)
-    _profile_train_step(cfg, res["state"], TRAIN_STEPS, MOE_ARCH, device)
     del res
 
     # llava-next-34b at full width, one layer: 896 text + 1152 patch
@@ -3275,9 +3282,6 @@ RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
 RECURRENT_TRAIN = {XLSTM: 8, ZAMBA: 12}     # one superblock; two applications
 RECURRENT_STEPS = 3
-# the train steps profiled: not xLSTM's since phase mesh (d4) (its sLSTM
-# loop's host cost, 264k device ops a step, is in PERF.md §5)
-RECURRENT_PROFILED = (ZAMBA,)
 # AdamW's peak lr: at 3e-4, the other train phases' lr, Zamba's mean loss
 # on an H100 jumps at step 3 under AdamW's first updates and then swings
 # (15.05, 11.47, 12.16 at steps 3-5), the uncompressed tiers the most; at
@@ -3340,8 +3344,6 @@ def phase_recurrent_train(device) -> dict:
                              f"last two steps: {c[-2]:.4f} -> {c[-1]:.4f}")
         got["fake_quant"] += launches["fake_quant"]
         got["flash_attention_simt"] += launches["simt"]
-        if arch in RECURRENT_PROFILED:
-            _profile_train_step(cfg, res["state"], steps, arch, device, lr)
         del res
     return got
 
@@ -3458,7 +3460,7 @@ MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=3)  # (d2), warmup 2
 # by the triangle inequality through the f32 losses, and one D more for the
 # bf16 rounding of each rank's partial sum of a row-split projection
 MESH_BF16_SLACK = 3.0
-MESH_RANK_TIMEOUT = 420             # seconds the ranks of (d) may take
+MESH_RANK_TIMEOUT = 600             # seconds the ranks of (d) may take
 # (d3) runs the MoE decoder over the same two ranks at (d1)'s and (d2)'s
 # shapes and bars: granite-moe at full width (E 32 top-8, H 16 / 8, vocab
 # 49155, which splits the embedding on d_model). (d4) runs xLSTM, Zamba2
@@ -3618,7 +3620,8 @@ def _mesh_cfg(layers: int | None, dtype: str, arch: str = LM_ARCH):
                                     use_flash=True)
 
 
-def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1):
+def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1,
+                fsdp: bool = False):
     """``launch.train`` of a (d) run, its counters zeroed just before;
     (the run, its launches)."""
     from repro_torch.kernels.fake_quant import fake_quant
@@ -3630,7 +3633,7 @@ def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1):
     fake_quant.launches = 0
     res = train(cfg, steps=run["steps"], batch=run["batch"], seq=run["seq"],
                 n_tiers=4, lr=3e-4, warmup=warmup, seed=0, device=device,
-                log_every=1, model_parallel=model_parallel)
+                log_every=1, model_parallel=model_parallel, fsdp=fsdp)
     return res, {"fake_quant": fake_quant.launches, **routes}
 
 
@@ -3726,14 +3729,17 @@ def _mesh_ranks(device) -> dict:
     with the MoE layer's share of (d3)'s profiled step. (d4) (d1)'s part
     on (1, 2) for xlstm-1.3b (8 layers), zamba2-2.7b (6) and whisper-tiny
     (whole), and (d2)'s for zamba2-2.7b (flash on the simt route, hd 80).
+    (d5) (d1)'s run on (2, 1) with the FSDP layout, held to (d1)'s
+    one-rank run and bars and to its dry-run record (:func:`_check_fsdp`).
     Returns the ranks' launches."""
     import shutil
     import socket
 
     d = Path(_ckpt_dir())
     try:
-        # the one-rank runs, here
+        # the one-rank runs, here, and (d5)'s dry-run record
         parts = [_one_rank_runs(part, device, d) for part in MESH_PARTS]
+        dry = _fsdp_dry_run(_mesh_cfg(None, "float32"))
 
         # the ranks
         with socket.socket() as sk:
@@ -3772,11 +3778,72 @@ def _mesh_ranks(device) -> dict:
     launches = {"fake_quant": 0, "flash_attention_simt": 0,
                 "flash_attention_wgmma": 0}
     for part, one_rank in zip(MESH_PARTS, parts):
-        got = _check_ranks(one_rank, [rk[part[0]] for rk in ranks],
-                           [rk.get(part[1]) for rk in ranks], part[:2])
+        f32s = [rk[part[0]] for rk in ranks]
+        if part[0] == "d1":     # (d5) is held to (d1)'s one-rank run
+            f32s = [{**runs, "(2, 1) fsdp": rk["d5"]}
+                    for runs, rk in zip(f32s, ranks)]
+        got = _check_ranks(one_rank, f32s, [rk.get(part[1]) for rk in ranks],
+                           part[:2])
         for k in launches:
             launches[k] += got[k]
+    _check_fsdp(ranks, dry)
     return launches
+
+
+def _fsdp_dry_run(cfg) -> int:
+    """(d5)'s dry-run record: ``launch.specs.train_setup`` of ``cfg`` at
+    (d1)'s shape over 4 tiers on an abstract (MESH_RANKS, 1) mesh, the
+    reference's FSDP layout (``dryrun.dry_run_step``: fake tensors, flash
+    off, which moves no argument byte); its argument bytes per device."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import dry_run_step
+    from repro_torch.launch.mesh import Mesh
+    slots = np.empty((MESH_RANKS, 1), dtype=object)
+    slots.fill(torch.device("meta"))
+    mesh = Mesh(slots, ("data", "model"))
+    t0 = time.perf_counter()
+    rec = dry_run_step(cfg.replace(use_flash=False),
+                       ShapeConfig("cli", MESH_F32["seq"], MESH_F32["batch"],
+                                   "train"), mesh)
+    arg = rec["memory"]["argument_size_in_bytes"]
+    print(f"mesh (d5): dry run {cfg.name} {cfg.num_layers} layers cli "
+          f"{MESH_F32['batch']} x {MESH_F32['seq']} on an abstract "
+          f"{dict(mesh.shape)} mesh, FSDP: {time.perf_counter() - t0:.1f} s,"
+          f" argument bytes per device {arg}, temp bytes (global) "
+          f"{rec['memory']['temp_size_in_bytes']}")
+    return arg
+
+
+def _check_fsdp(ranks: list, dry: int) -> None:
+    """(d5)'s bars past (d1)'s: each rank's placed state is the dry run's
+    per-device argument bytes less its batch rows, exactly, and its step's
+    peak is below (d1)'s (2, 1) peak on the same rank."""
+    for r, rk in enumerate(ranks):
+        d5, d1 = rk["d5"], rk["d1"][f"({MESH_RANKS}, 1)"]
+        tag = f"mesh (d5) rank {r} mesh ({MESH_RANKS}, 1) fsdp"
+        steps = len(d5["sec_per_step"])
+        coll = (d5["gather_s"] + d5["scatter_s"]) / steps
+        p5, p1 = max(d5["peak_bytes"]), max(d1["peak_bytes"])
+        print(f"{tag}: placed state {d5['bytes'][0]} bytes (FSDP "
+              f"shard_bytes {d5['bytes'][1]}; (d1) (2, 1): "
+              f"{d1['bytes'][0]}), + batch rows {d5['batch_bytes']} = "
+              f"{d5['bytes'][0] + d5['batch_bytes']} (dry run {dry}); step "
+              f"peak max_memory_allocated {d5['peak_bytes']} ((d1) (2, 1): "
+              f"{d1['peak_bytes']}); sec_per_step {d5['sec_per_step']} "
+              f"((d1) (2, 1): {d1['sec_per_step']}); collectives over "
+              f"\"data\" {coll:.3f} s a step ({d5['gathers']} all_gathers "
+              f"{d5['gather_s']:.3f} s, {d5['scatters']} reduce_scatters "
+              f"{d5['scatter_s']:.3f} s in {steps} steps; host clock, a "
+              f"device sync before and after each call); launches a rank "
+              f"fake_quant {d5['launches']['fake_quant']} flash simt "
+              f"{d5['launches']['simt']}")
+        check(d5["bytes"][0] + d5["batch_bytes"] == dry,
+              f"{tag}: the placed state + batch rows "
+              f"{d5['bytes'][0] + d5['batch_bytes']} bytes == the dry run's "
+              f"argument bytes per device {dry}")
+        check(p5 < p1, f"{tag}: the step's peak {p5} < (d1) (2, 1)'s {p1}")
 
 
 def _flash_route(cfg) -> str:
@@ -3798,7 +3865,8 @@ def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
     calls1 = _attn_calls(cfg1) * 4 * MESH_F32["steps"]
     for r, (runs, run2) in enumerate(zip(f32s, bf16s)):
         for mesh, run in runs.items():
-            tag_ = f"mesh ({tags[0]}) rank {r} mesh {mesh}"
+            tag_ = (f"mesh ({'d5' if run['fsdp'] else tags[0]}) rank {r} "
+                    f"mesh {mesh}")
             a = run["losses"] + [x for t in run["tier_losses"] for x in t]
             b = one["losses"] + [x for t in one["tier_losses"] for x in t]
             check(all(math.isclose(x, y, rel_tol=1e-4) for x, y in zip(a, b)),
@@ -3836,6 +3904,14 @@ def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
             check(run["bytes"][0] == run["bytes"][1],
                   f"{tag_}: the placed state's bytes {run['bytes'][0]} == "
                   f"shard_bytes {run['bytes'][1]}")
+            if run["fsdp"]:
+                check(run["gathers"] > 0 and run["scatters"] > 0,
+                      f"{tag_}: the FSDP leaves gathered over \"data\" "
+                      f"({run['gathers']} all_gathers) and their gradients "
+                      f"reduce-scattered ({run['scatters']})")
+                launches["fake_quant"] += run["launches"]["fake_quant"]
+                launches["flash_attention_simt"] += run["launches"]["simt"]
+                continue
             want = (cfg1.num_layers * 4 * MESH_F32["steps"]
                     if cfg1.is_moe and run["data_ranks"] > 1 else 0)
             check(run["gathers"] == want,
@@ -3920,10 +3996,17 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
             run = _mesh_f32_rank(mp, device, Path(directory), cfg)
             out[f32_key][f"({MESH_RANKS // mp}, {mp})"] = run
             torch.cuda.empty_cache()
+        if f32_key == "d1":         # (d5): (d1)'s run, FSDP-placed
+            t5 = time.perf_counter()
+            out["d5"] = _mesh_f32_rank(1, device, Path(directory), cfg,
+                                       fsdp=True)
+            torch.cuda.empty_cache()
+            print(f"rank {rank}: part d5: {time.perf_counter() - t5:.1f} s",
+                  flush=True)
         if bf16_key is not None:
             out[bf16_key] = _mesh_bf16_rank(
                 device, _mesh_cfg(layers, "bfloat16", arch),
-                profiled=arch != LM_ARCH)
+                profiled=arch == MOE_ARCH)
             torch.cuda.empty_cache()
         print(f"rank {rank}: part {f32_key}: {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -3932,16 +4015,25 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
     return 0
 
 
-def _mesh_f32_rank(mp: int, device, directory: Path, cfg) -> dict:
+def _mesh_f32_rank(mp: int, device, directory: Path, cfg,
+                   fsdp: bool = False) -> dict:
+    """A (d) f32 run on the (MESH_RANKS / mp, mp) mesh (``fsdp``: the
+    train state split over "data" too, part (d5)): its losses, s/step,
+    each step's peak, launches, the data axis's collectives, its params
+    and first moment against one rank's; at init the masks of the two
+    pruned tiers against the one-rank masks' blocks, the placed state's
+    bytes beside ``shard_bytes``, and the batch rows this rank takes."""
     import torch
     from repro_torch import optim
+    from repro_torch.configs import ShapeConfig
     from repro_torch.core.compression import compressible, magnitude_masks
-    from repro_torch.core.steps import TrainState
-    from repro_torch.models import get_model
+    from repro_torch.core.steps import TrainState, _data_rows
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.models import get_model, parallel
     from repro_torch.models.sharding import place, shard_bytes
     with _DataGathers() as gathers:
         res, launches = _mesh_train(cfg, MESH_F32, 20, device,
-                                    model_parallel=mp)
+                                    model_parallel=mp, fsdp=fsdp)
     sh = res["shardings"]
     diffs = _against_one_rank(res["state"], sh["params"],
                               directory / f"one_rank_f32_{cfg.name}.pt",
@@ -3963,12 +4055,21 @@ def _mesh_f32_rank(mp: int, device, directory: Path, cfg) -> dict:
             ok &= torch.equal(split[k], sh["params"][k].block(whole[k]))
             n += 1
         del whole, split
+    batch = make_train_batch(cfg, ShapeConfig("cli", MESH_F32["seq"],
+                                              MESH_F32["batch"], "train"),
+                             n_tiers=4, seed=0, index=0)
+    with parallel.using(next(iter(sh["params"].values())).mesh):
+        rows = _data_rows(batch)
     return {"losses": res["losses"], "tier_losses": res["tier_losses"],
-            "sec_per_step": res["sec_per_step"], "launches": launches,
-            "data_ranks": MESH_RANKS // mp, "gathers": gathers.calls,
-            "gather_s": gathers.seconds,
+            "sec_per_step": res["sec_per_step"],
+            "peak_bytes": res["peak_bytes"], "launches": launches,
+            "fsdp": fsdp, "data_ranks": MESH_RANKS // mp,
+            "gathers": gathers.calls, "gather_s": gathers.seconds,
+            "scatters": gathers.scatters, "scatter_s": gathers.scatter_s,
             **diffs, "masks_bitwise": bool(ok), "masks": n,
-            "bytes": [local, shard_bytes(state, sh)]}
+            "bytes": [local, shard_bytes(state, sh)],
+            "batch_bytes": sum(t.numel() * t.element_size()
+                               for t in rows.values())}
 
 
 # (d)'s f32 bars past the losses. AdamW's first moment m is linear in the
@@ -4027,36 +4128,50 @@ def _against_one_rank(state: dict, sh: dict, path: Path, device) -> dict:
 
 
 class _DataGathers:
-    """The calls of ``parallel.all_gather`` over "data" within a window
-    and their seconds on the host clock, each call between two device
-    syncs (the syncs' own cost falls outside): on a data-parallel mesh
-    the MoE layer's gather of its groups' expert choices, the one such
-    gather of a train step."""
+    """The calls of ``parallel.all_gather`` (``calls``, ``seconds``) and
+    of ``parallel.reduce_scatter`` (``scatters``, ``scatter_s``) over
+    "data" within a window and their seconds on the host clock, each call
+    between two device syncs (the syncs' own cost falls outside): on a
+    data-parallel mesh the MoE layer's gather of its groups' expert
+    choices, the one such gather of a train step; with the FSDP layout
+    (d5) every leaf's gathers, forward and backward, and its gradient's
+    reduce-scatter."""
 
     def __enter__(self):
         import torch
         from repro_torch.models import parallel
         self.calls, self.seconds = 0, 0.0
-        inner = parallel.all_gather
+        self.scatters, self.scatter_s = 0, 0.0
+        inner = (parallel.all_gather, parallel.reduce_scatter)
 
-        def timed(x, axis, dim, mesh=None):
-            if axis != "data":
-                return inner(x, axis, dim, mesh)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = inner(x, axis, dim, mesh)
-            torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
+        def timed(fn, counts):
+            def call(x, axis, dim, mesh=None):
+                if axis != "data":
+                    return fn(x, axis, dim, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x, axis, dim, mesh)
+                torch.cuda.synchronize()
+                counts(time.perf_counter() - t0)
+                return out
+            return call
+
+        def gathered(s):
             self.calls += 1
-            return out
+            self.seconds += s
+
+        def scattered(s):
+            self.scatters += 1
+            self.scatter_s += s
 
         self._restore = (parallel, inner)
-        parallel.all_gather = timed
+        parallel.all_gather = timed(inner[0], gathered)
+        parallel.reduce_scatter = timed(inner[1], scattered)
         return self
 
     def __exit__(self, *exc):
         parallel, inner = self._restore
-        parallel.all_gather = inner
+        parallel.all_gather, parallel.reduce_scatter = inner
 
 
 class _MoeSpans:

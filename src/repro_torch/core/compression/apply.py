@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.compression.clustering import cluster_ste
 from repro_torch.core.compression.plan import CompressionPlan
 from repro_torch.core.compression.pruning import (magnitude_masks,
-                                                   split_over_model)
+                                                   split_axes)
 from repro_torch.core.compression.quantization import fake_quant_ste
 from repro_torch.core.compression.structured import (compressible,
                                                      expand_masks, slice_tree,
@@ -33,15 +33,18 @@ __all__ = ["compressible", "compress_with_masks", "compress_params",
 
 
 def _int_scale(x: torch.Tensor, bits: int, sharding):
-    """int-k's step for this rank's block ``x`` of a leaf split over
-    "model": the whole leaf's max / qmax (None for any other leaf: its
-    own max)."""
-    if not split_over_model(sharding):
+    """int-k's step for this rank's block ``x`` of a leaf split over ranks
+    ("model", the data axes, or both): the whole leaf's max / qmax, the
+    max all-reduced over every axis that splits it (None for any other
+    leaf: its own max)."""
+    axes = split_axes(sharding)
+    if not axes:
         return None
     from repro_torch.models import parallel    # the models import this
-    amax = parallel.all_reduce(x.detach().to(torch.float32).abs().max(),
-                               "model", torch.distributed.ReduceOp.MAX,
-                               mesh=sharding.mesh)
+    amax = x.detach().to(torch.float32).abs().max()
+    for a in axes:
+        amax = parallel.all_reduce(amax, a, torch.distributed.ReduceOp.MAX,
+                                   mesh=sharding.mesh)
     return amax / (2.0 ** (bits - 1) - 1.0)
 
 
@@ -55,9 +58,9 @@ def compress_with_masks(params: dict, density: float, e_bits: int,
     anyway; the cast's backward returns f32 gradients. The plan is
     static, so (0, 0) bits launch nothing. ``shardings`` (name ->
     NamedSharding): on a mesh of several ranks the params are this
-    rank's blocks, and a leaf split over "model" is pruned (and int-k
-    scaled) as its whole leaf; (e, m) rounding is elementwise, one
-    fake_quant launch per block."""
+    rank's blocks, and a leaf split over "model" or the data axes is
+    pruned (and int-k scaled) as its whole leaf; (e, m) rounding is
+    elementwise, one fake_quant launch per block."""
     cparams, masks = {}, {}
     shardings = shardings or {}
     pruned = magnitude_masks({name: w.detach() for name, w in params.items()

@@ -15,11 +15,12 @@ bound by the host's launches, most of them this loop's. Every element
 sees the operations of :func:`magnitude_mask`, so the masks are its
 bits, on the CPU as on the card.
 
-On a mesh of several ranks (``shardings=``) a leaf split over "model" is
-one block on each rank: its largest magnitude and each halving's count
-are all-reduced over the model ranks (MAX, SUM), so each rank's mask is
-the one-rank mask's block wherever the one-rank count is exact (f32
-sums of 0/1 are exact while every partial sum stays below 2^24).
+On a mesh of several ranks (``shardings=``) a leaf split over "model",
+over the data axes (FSDP) or both is one block on each rank: its largest
+magnitude and each halving's count are all-reduced over the axes that
+split it (MAX, SUM), so each rank's mask is the one-rank mask's block
+wherever the one-rank count is exact (f32 sums of 0/1 are exact while
+every partial sum stays below 2^24).
 """
 from __future__ import annotations
 
@@ -104,17 +105,28 @@ def _shared_thresholds(aws: list, density: float, batch: int) -> list:
             for t, aw in zip(thr.split(1, dim=batch), aws)]
 
 
-def _split_thresholds(aws: list, sizes: list, density: float,
+def _split_thresholds(aws: list, sizes: list, splits: list, density: float,
                       mesh) -> list:
     """``_threshold`` of each whole leaf of which ``aws`` holds this rank's
-    blocks (``sizes``: the whole leaves' element counts), the bisections
-    run in lockstep: one all-reduce over the mesh's "model" ranks for the
-    maxima and one per halving for the counts."""
+    blocks (``sizes``: the whole leaves' element counts; ``splits``: the
+    mesh axes each leaf is split over), the bisections run in lockstep:
+    one all-reduce over each splitting axis for the maxima and one for
+    the counts of each halving. A leaf replicated along one of those axes
+    counts on the ranks of coordinate 0 there alone, so each sum counts
+    each element once."""
     # imported here: the models package imports this one
     from repro_torch.models import parallel
 
+    axes = sorted({a for sp in splits for a in sp})
+    coords = mesh.coords()
+    own = torch.tensor([float(all(coords[a] == 0 for a in axes
+                                  if a not in sp)) for sp in splits],
+                       dtype=torch.float32, device=aws[0].device)
+
     def reduce(x, op):
-        return parallel.all_reduce(x, "model", op, mesh=mesh)
+        for a in axes:
+            x = parallel.all_reduce(x, a, op, mesh=mesh)
+        return x
 
     amax = reduce(torch.stack([torch.amax(aw) for aw in aws]),
                   dist.ReduceOp.MAX) + 1e-30
@@ -125,18 +137,22 @@ def _split_thresholds(aws: list, sizes: list, density: float,
         thr = _flush(torch.exp(mid))
         count = reduce(torch.stack([
             torch.sum((aw >= t).to(torch.float32))
-            for aw, t in zip(aws, thr.unbind())]), dist.ReduceOp.SUM)
+            for aw, t in zip(aws, thr.unbind())]) * own, dist.ReduceOp.SUM)
         kept = torch.stack([c / n for c, n in zip(count.unbind(), sizes)])
         up = kept > density
         lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
     return list(_flush(torch.exp(lo)).unbind())
 
 
-def split_over_model(s) -> bool:
-    """Whether the NamedSharding ``s`` splits its leaf over the "model"
-    ranks of a mesh of several ranks."""
-    return (s is not None and s.mesh.is_distributed
-            and s.mesh.shape.get("model", 1) > 1 and "model" in s.spec)
+def split_axes(s) -> tuple:
+    """The mesh axes of several ranks over which the NamedSharding ``s``
+    splits its leaf ("model", and the data axes of an FSDP entry), on a
+    mesh of several ranks; () for any other leaf."""
+    if s is None or not s.mesh.is_distributed:
+        return ()
+    return tuple(a for e in s.spec if e is not None
+                 for a in ((e,) if isinstance(e, str) else e)
+                 if s.mesh.shape[a] > 1)
 
 
 @torch.no_grad()
@@ -146,13 +162,14 @@ def magnitude_masks(ws: dict, density: float, batch: int = 0,
     leading ``batch`` axes) at one density, bitwise. f32 leaves of at
     most SMALL elements a row share one bisection; the others take their
     own. ``shardings`` (name -> NamedSharding or None): on a mesh of
-    several ranks, the leaves it splits over "model" are this rank's
-    blocks of whole leaves, and their thresholds are the whole leaves'
-    (:func:`_split_thresholds`); the rest are pruned as above."""
+    several ranks, the leaves it splits (over "model", over the data axes
+    of an FSDP entry, or both) are this rank's blocks of whole leaves,
+    and their thresholds are the whole leaves' (:func:`_split_thresholds`);
+    the rest are pruned as above."""
     if density >= 1.0:
         return {k: torch.ones_like(w) for k, w in ws.items()}
-    split = [k for k in ws if shardings is not None
-             and split_over_model(shardings.get(k))]
+    splits = {k: split_axes((shardings or {}).get(k)) for k in ws}
+    split = [k for k in ws if splits[k]]
     if split:
         if batch:
             raise ValueError("a leaf split over ranks takes no batch axes")
@@ -160,10 +177,11 @@ def magnitude_masks(ws: dict, density: float, batch: int = 0,
         rest = magnitude_masks({k: w for k, w in ws.items()
                                 if k not in split}, density)
         aws = [ws[k].abs() for k in split]
-        sizes = [float(math.prod(aw.shape) * mesh.shape["model"])
-                 for aw in aws]
-        for k, aw, t in zip(split, aws,
-                            _split_thresholds(aws, sizes, density, mesh)):
+        sizes = [float(aw.numel() * math.prod(mesh.shape[a]
+                                              for a in splits[k]))
+                 for k, aw in zip(split, aws)]
+        for k, aw, t in zip(split, aws, _split_thresholds(
+                aws, sizes, [splits[k] for k in split], density, mesh)):
             rest[k] = (aw >= t).to(ws[k].dtype)
         return {k: rest[k] for k in ws}
     shared = [k for k, w in ws.items()

@@ -44,7 +44,8 @@ from repro_torch.core.aggregation import (accumulate_cohort, f32, finalize,
 from repro_torch.core.compression import (CompressionPlan, compress_params,
                                           compress_with_masks, plan_arrays)
 from repro_torch.models import parallel
-from repro_torch.models.sharding import place
+from repro_torch.models.layers import Blocks
+from repro_torch.models.sharding import data_splits, place
 
 
 class TrainState:
@@ -99,7 +100,19 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
     and so are the loss and the tier losses. The reference replicates
     the batch over "data" and lets GSPMD split the work: the same
     arithmetic in another order (each rank's mean over its rows, then
-    the mean over the ranks)."""
+    the mean over the ranks).
+
+    A leaf that ``shardings`` split over the data axes too (the FSDP train
+    state, ``param_spec_tree(state, M, fsdp=...)``) is this rank's block
+    of it: it is pruned and quantized as the whole leaf
+    (``compress_with_masks``), cast to the compute dtype, and the model
+    reads it through ``layers.Blocks``, which gathers it whole where a
+    layer uses it; the backward gathers a layer's leaves again where it
+    needs them (``parallel.regathering``; the leaves outside the layer
+    stacks stay whole) and reduce-scatters each gradient, already summed
+    over "data". Its numerator is then divided by the data ranks
+    alone; the leaves with no data entry (the norms) are all-reduced
+    over "data" as above. No gradient is summed twice."""
     arrs = plan_arrays(plans)
     wsum = float(sum(p.weight for p in plans))
     # compressed weights live in the model's compute dtype
@@ -116,11 +129,13 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
+        split = {}
         if parallel.multi_rank():
             if shardings is None and parallel.size("model") > 1:
                 raise ValueError("a step on a mesh that splits leaves over "
                                  "\"model\" needs the params' shardings=")
             batch = _data_rows(batch)
+            split = data_splits(shardings or {})
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         num, den = zeros_like_acc(params)
         acc = (constrain(num), constrain(den))
@@ -131,8 +146,13 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
             cp, masks = compress_with_masks(
                 leaves, arrs["density"][t], arrs["e_bits"][t],
                 arrs["m_bits"][t], out_dtype=cdt, shardings=shardings)
-            loss = model.loss_fn(cp, {k: v[t] for k, v in batch.items()},
-                                 num_groups=num_groups)
+            tier_batch = {k: v[t] for k, v in batch.items()}
+            if split:
+                with parallel.regathering():
+                    loss = model.loss_fn(Blocks(cp, split), tier_batch,
+                                         num_groups=num_groups)
+            else:
+                loss = model.loss_fn(cp, tier_batch, num_groups=num_groups)
             grads = constrain(_grads(loss, leaves))
             num, den = accumulate_cohort(acc, grads, masks,
                                          arrs["weight"][t], 1.0)
@@ -142,9 +162,9 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
             del cp, masks, loss, grads      # one tier's buffers at a time
         losses = torch.cat([(loss_sum / wsum)[None], torch.stack(tier_loss)])
         dp = parallel.size("data")
-        if dp > 1:
-            acc = ({k: parallel.all_reduce(v, "data") / dp
-                    for k, v in acc[0].items()}, acc[1])
+        if dp > 1:       # an FSDP leaf's gradients are summed already
+            acc = ({k: (v if k in split else parallel.all_reduce(v, "data"))
+                    / dp for k, v in acc[0].items()}, acc[1])
             losses = parallel.all_reduce(losses, "data") / dp
         grads = finalize(acc)
         del acc, num, den

@@ -5,10 +5,11 @@ device's tensors, and at what rate: two ranks on one device (the way
   PYTHONPATH=src python -m repro_torch.launch.probe_collectives --device cuda
 
 Rank 0 prints, per dtype, whether all_reduce (SUM, MAX), broadcast,
-all_gather, all_gather_into_tensor and reduce_scatter ran, then the
-mean time of a one-element f32 all_reduce (200 calls) and of an f32
-all_reduce of 805 MB (3 calls), each after a warm-up. The ranks meet on
-a free port of 127.0.0.1.
+all_gather, all_gather_into_tensor, reduce_scatter and
+reduce_scatter_tensor ran, then the mean time of a one-element f32
+all_reduce (200 calls) and of an f32 all_reduce, all_gather_into_tensor
+and reduce_scatter_tensor of 805 MB (the whole tensor; 3 calls each),
+each after a warm-up. The ranks meet on a free port of 127.0.0.1.
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ def _collectives(world: int) -> dict:
                         device=x.device), x),
         "reduce_scatter": lambda x: dist.reduce_scatter(
             torch.empty_like(x), [x.clone() for _ in range(world)]),
+        "reduce_scatter_tensor": lambda x: dist.reduce_scatter_tensor(
+            torch.empty((x.numel() // world,), dtype=x.dtype,
+                        device=x.device), x),
     }
 
 
@@ -73,9 +77,17 @@ def _rank(rank: int, world: int, port: int, device: str) -> None:
         lines.append(f"one-element f32 all_reduce "
                      f"{_ms_per_call(lambda: dist.all_reduce(one), d, 200):.3f}"
                      f" ms")
-        ms = _ms_per_call(lambda: dist.all_reduce(big), d, 3)
-        lines.append(f"{big.numel() * 4 / 1e6:.0f} MB f32 all_reduce "
-                     f"{ms:.1f} ms ({big.numel() * 4 / ms / 1e6:.3f} GB/s)")
+        part = torch.ones((big.numel() // world,), device=d)
+        for name, fn in (
+                ("all_reduce", lambda: dist.all_reduce(big)),
+                ("all_gather_into_tensor",
+                 lambda: dist.all_gather_into_tensor(big.view(-1), part)),
+                ("reduce_scatter_tensor",
+                 lambda: dist.reduce_scatter_tensor(part, big.view(-1)))):
+            ms = _ms_per_call(fn, d, 3)
+            lines.append(f"{big.numel() * 4 / 1e6:.0f} MB f32 {name} "
+                         f"{ms:.1f} ms ({big.numel() * 4 / ms / 1e6:.3f} "
+                         f"GB/s)")
         if rank == 0:
             print("\n".join(lines), flush=True)
         dist.barrier()

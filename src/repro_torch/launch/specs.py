@@ -166,9 +166,13 @@ def train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     # FSDP). GSPMD re-gathers weights per layer inside the scan.
     fsdp = (batch_axes(mesh), num_batch_shards(mesh))
     state_sh = named(mesh, param_spec_tree(state, _msize(mesh), fsdp))
+    # shardings=: over a mesh of ranks the step runs this layout (each
+    # rank's blocks, the FSDP leaves gathered where a layer uses them); on
+    # the abstract meshes it traces as without
     step = make_hetero_train_step(model, opt, default_tier_plans(n_tiers),
                                   num_groups=ng,
-                                  acc_shardings=state_sh["params"])
+                                  acc_shardings=state_sh["params"],
+                                  shardings=state_sh["params"])
     bspec = _batch_spec(mesh, per_tier)
     batch_sh = _batch_shardings(batch, mesh, bspec, tiered=True)
     out_sh = (state_sh, {"loss": NamedSharding(mesh, P()),

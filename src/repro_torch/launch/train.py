@@ -33,9 +33,12 @@ gathered where their column blocks do not line up; the vocabulary or
 d_model), each "data" rank its rows of the batch (Whisper's frames
 too). Rank 0 prints the lines; checkpoints hold whole leaves. Every
 family trains so (``--arch xlstm-1.3b``, ``zamba2-2.7b``,
-``whisper-tiny`` as the decoders); ``models/sharding.place`` refuses a
-data-axis (FSDP) entry (ROADMAP item 20c), and serving over ranks is
-item 20f.
+``whisper-tiny`` as the decoders). ``--fsdp`` places the state as the
+reference's dry run lays out its train state (``launch/specs.py``'s
+``train_setup``): ``param_spec_tree(state, M, fsdp=(("data",), world /
+M))``, each leaf's largest dim left after the "model" one split over
+"data" too, every leaf gathered where a layer uses it and its gradient
+reduce-scattered (``layers.Blocks``). Serving over ranks is item 20f.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import json
 import os
 import time
 
+import torch
 import torch.distributed as dist
 
 from repro_torch import optim
@@ -54,8 +58,8 @@ from repro_torch.core.compression import default_tier_plans
 from repro_torch.core.scenario import resolve_device
 from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
-from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
-                                     num_batch_shards)
+from repro_torch.launch.mesh import (batch_axes, init_distributed,
+                                     make_host_mesh, num_batch_shards)
 from repro_torch.models import get_model, parallel
 from repro_torch.models.sharding import (named, param_spec_tree, place,
                                          set_rules)
@@ -65,7 +69,7 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
           n_tiers: int = 4, lr: float = 3e-4, warmup: int = 20,
           seed: int = 0, device=None, log_every: int = 10,
           ckpt_dir: str = "", ckpt_every: int = 50,
-          model_parallel: int = 1) -> dict:
+          model_parallel: int = 1, fsdp: bool = False) -> dict:
     """``steps`` hetero train steps from a random init, or from the
     newest checkpoint in ``ckpt_dir`` (which then gets one every
     ``ckpt_every`` steps and one at the end). Batch ``i`` is a pure
@@ -73,10 +77,13 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     uninterrupted one. In one process the mesh is the host's
     (``model_parallel`` model shards a row) over ``device`` alone; with
     ``WORLD_SIZE > 1`` in the environment (``torchrun``) it is the mesh
-    of the world's ranks (module docstring). Returns the losses of the
-    steps run here (the mean over the tiers, and each tier's in plan
-    order), wall seconds (each step ends in a device sync), the first
-    step run, the final state (this rank's blocks) and its shardings."""
+    of the world's ranks (module docstring); ``fsdp`` splits the state
+    over the data axes too. Returns the losses of the steps run here
+    (the mean over the tiers, and each tier's in plan order), wall
+    seconds (each step ends in a device sync), on a card each step's
+    ``max_memory_allocated`` (its peak statistics reset just before the
+    step), the first step run, the final state (this rank's blocks) and
+    its shardings."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         device = init_distributed(device)
     else:
@@ -91,8 +98,11 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     n_params = sum(x.numel() for x in state["params"].values())
     if lead:
         print(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
-              f"device={device} tiers={n_tiers} use_flash={cfg.use_flash}")
-    state_sh = named(mesh, param_spec_tree(state, mesh.shape["model"]))
+              f"device={device} tiers={n_tiers} use_flash={cfg.use_flash}"
+              + (" fsdp" if fsdp else ""))
+    state_sh = named(mesh, param_spec_tree(
+        state, mesh.shape["model"],
+        (batch_axes(mesh), num_batch_shards(mesh)) if fsdp else None))
     state = place(state, state_sh)
     # over ranks the compression and the checkpoints need the layouts
     ranks_sh = state_sh if mesh.is_distributed else None
@@ -106,16 +116,21 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
         state, start = ckpt.restore(state, shardings=ranks_sh)
         if lead:
             print(f"restored step {start}")
-    losses, tier_losses, secs = [], [], []
+    losses, tier_losses, secs, peaks = [], [], [], []
+    card = torch.device(device).type == "cuda"
     with parallel.using(mesh):
         for i in range(start, steps):
             b = make_train_batch(cfg, shape, n_tiers=n_tiers, seed=seed,
                                  index=i)
             b = {k: v.to(device) for k, v in b.items()}
+            if card:
+                torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, b)
             loss = float(metrics["loss"])            # syncs the device
             secs.append(time.perf_counter() - t0)
+            if card:
+                peaks.append(torch.cuda.max_memory_allocated(device))
             losses.append(loss)
             tier_losses.append(metrics["tier_loss"].tolist())
             if lead and ((i + 1) % log_every == 0 or i == start):
@@ -129,8 +144,8 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     if ckpt is not None and ckpt.latest_step() != steps:
         ckpt.save(state, steps, shardings=ranks_sh)
     return {"losses": losses, "tier_losses": tier_losses,
-            "sec_per_step": secs, "start": start, "state": state,
-            "shardings": state_sh}
+            "sec_per_step": secs, "peak_bytes": peaks, "start": start,
+            "state": state, "shardings": state_sh}
 
 
 def main(argv=None) -> dict:
@@ -145,6 +160,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="split the train state over the data axes too")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -162,7 +179,7 @@ def main(argv=None) -> dict:
                 n_tiers=args.n_tiers, lr=args.lr, warmup=args.warmup,
                 seed=args.seed, device=args.device, log_every=args.log_every,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                model_parallel=args.model_parallel)
+                model_parallel=args.model_parallel, fsdp=args.fsdp)
     if not dist.is_initialized() or dist.get_rank() == 0:
         print("done")
     if dist.is_initialized():

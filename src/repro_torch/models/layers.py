@@ -11,6 +11,7 @@ client of a cohort, the written-out client axis of the cohort runtime.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
@@ -628,16 +629,99 @@ def linspace_f32(start: float, stop: float, n: int, device=None):
     return torch.cat([a * (1 - step) + b * step, b[None]])
 
 
+class _Wholes:
+    """The whole leaves gathered for the views of one params tree, each by
+    its block's id: the tree's top's (scope None), kept while the tree
+    is and for the backward, and the layer's read last, which a read in
+    another scope drops and the backward gathers again."""
+
+    def __init__(self):
+        self.scope, self.top, self.layer = None, {}, {}
+
+    def get(self, scope, blk: torch.Tensor, dim: int, axes: tuple):
+        if scope != self.scope:
+            self.scope, self.layer = scope, {}
+        leaves = self.top if scope is None else self.layer
+        if id(blk) not in leaves:
+            leaves[id(blk)] = parallel.gather_blocks(
+                blk, dim, axes, regather=scope is not None)
+        return leaves[id(blk)]
+
+
+class Blocks(Mapping):
+    """A params dict of which the leaves named in ``split`` are this rank's
+    blocks of FSDP leaves: ``split[name] = (dim, axes)``, the leaf split
+    along ``dim`` over the data ``axes`` (``sharding.data_splits``; its
+    "model" block, where it has one, stays a block). Reading such a leaf
+    gives it whole (``parallel.gather_blocks``), gathered at its first
+    read. The scope of a view from :func:`unstack` is its layer: a
+    family's loop gathers layer l's leaves when it reaches layer l and
+    lets them go at the next read elsewhere; under
+    ``parallel.regathering`` the backward gathers them again, so no
+    layer is kept whole from the forward to the backward. A leaf outside
+    the layer stacks (the embedding, a head, the final norm, a projector,
+    Zamba's shared block) is gathered where it is first read and kept
+    whole through the backward, as FSDP keeps its root module's: the
+    tied embedding is read at both ends of the network and its backward
+    starts at once, so one gather and one reduce-scatter serve both
+    reads. :func:`subtree`, :func:`nest` and :func:`unstack` keep the
+    blocks and carry the splits along."""
+
+    def __init__(self, leaves: dict, split: dict, wholes=None, scope=None):
+        self._leaves = dict(leaves)
+        self.split = {k: s for k, s in split.items() if k in self._leaves}
+        self._wholes = _Wholes() if wholes is None else wholes
+        self._scope = scope
+
+    def __getitem__(self, k):
+        x = self._leaves[k]
+        s = self.split.get(k)
+        return x if s is None else self._wholes.get(self._scope, x, *s)
+
+    def __iter__(self):
+        return iter(self._leaves)
+
+    def __len__(self) -> int:
+        return len(self._leaves)
+
+    def __contains__(self, k) -> bool:
+        return k in self._leaves
+
+    def view(self, leaves: dict, split: dict, scope=None) -> "Blocks":
+        """Blocks of the same tree (its gathered leaves shared)."""
+        return Blocks(leaves, split, self._wholes,
+                      self._scope if scope is None else scope)
+
+
 def subtree(params: dict, prefix: str) -> dict:
     """The leaves under ``prefix`` (a dotted path ending in "."), named
-    from there on."""
+    from there on (:class:`Blocks` stay blocks)."""
+    if isinstance(params, Blocks):
+        n = len(prefix)
+        return params.view(
+            {k[n:]: v for k, v in params._leaves.items()
+             if k.startswith(prefix)},
+            {k[n:]: s for k, s in params.split.items()
+             if k.startswith(prefix)})
     return {k[len(prefix):]: v for k, v in params.items()
             if k.startswith(prefix)}
 
 
 def nest(flat: dict) -> dict:
     """One level of nesting by the first name segment: ``{"ln1": a,
-    "attn.wq.w": b}`` -> ``{"ln1": a, "attn": {"wq.w": b}}``."""
+    "attn.wq.w": b}`` -> ``{"ln1": a, "attn": {"wq.w": b}}`` (of
+    :class:`Blocks`, Blocks)."""
+    if isinstance(flat, Blocks):
+        top, split = {}, {}
+        for k, v in flat._leaves.items():
+            head, _, rest = k.partition(".")
+            if not rest:
+                top[k] = v
+                if k in flat.split:
+                    split[k] = flat.split[k]
+            elif head not in top:
+                top[head] = subtree(flat, head + ".")
+        return flat.view(top, split)
     out: dict = {}
     for k, v in flat.items():
         head, _, rest = k.partition(".")
@@ -651,13 +735,28 @@ def nest(flat: dict) -> dict:
 def unstack(leaves: dict) -> list[dict]:
     """Per-index views of leaves stacked along a leading axis (``unbind``,
     whose backward stacks the per-index gradients back into the stacked
-    leaf)."""
-    n = next(iter(leaves.values())).shape[0]
-    out = [{} for _ in range(n)]
-    for k, v in leaves.items():
-        for d, x in zip(out, v.unbind(0)):
-            d[k] = x
-    return out
+    leaf). Of :class:`Blocks`, Blocks each in a scope of its own, the
+    split dims moved down by one; a leaf split along the stacked axis
+    itself (each rank holds some of the layers) is gathered whole here."""
+    if not isinstance(leaves, Blocks):
+        n = next(iter(leaves.values())).shape[0]
+        out = [{} for _ in range(n)]
+        for k, v in leaves.items():
+            for d, x in zip(out, v.unbind(0)):
+                d[k] = x
+        return out
+    parts, split = {}, {}
+    for k, v in leaves._leaves.items():
+        s = leaves.split.get(k)
+        if s is not None and s[0] == 0:
+            v, s = leaves[k], None
+        parts[k] = v.unbind(0)
+        if s is not None:
+            split[k] = (s[0] - 1, s[1])
+    token = object()
+    n = len(next(iter(parts.values())))
+    return [leaves.view({k: p[i] for k, p in parts.items()}, split,
+                        (leaves._scope, token, i)) for i in range(n)]
 
 
 def stack_layers(n: int, init_fn) -> dict:

@@ -5,7 +5,8 @@ The reference places each leaf by its PartitionSpec and lets the
 partitioner insert the communication; here every rank holds its own
 block of each leaf as a plain tensor (``models.sharding.place``) and the
 model calls these functions where a layer's layout changes: Megatron's
-column- then row-parallel pairs on the "model" axis.
+column- then row-parallel pairs on the "model" axis, and the FSDP
+gathers of leaves split over the data axes too.
 
 - :func:`copy_to_model`: identity forward, all-reduce backward (the
   replicated input of a column-split projection);
@@ -18,16 +19,22 @@ column- then row-parallel pairs on the "model" axis.
   part, as attention's kv heads under the head_dim fallback);
 - :func:`mean_over_data`: the mean over "data" forward, the gradient
   passed through whole (the MoE layer's expert load over a batch split
-  by rows, whose step averages the gradients over "data" after).
+  by rows, whose step averages the gradients over "data" after);
+- :func:`gather_blocks`: all-gather over the data axes forward,
+  reduce-scatter backward (the sum over those ranks, this rank's block):
+  a leaf of the FSDP train state made whole where a layer uses it; under
+  :func:`regathering` the backward gathers a layer's leaf again where it
+  needs it, so no whole layer is kept for the backward.
 
 :func:`using` is the counterpart of the reference's ``with mesh:``: it
 holds the current mesh, as ``sharding.set_rules`` holds the hints.
 Outside it, or on a mesh of one process, or along an axis of size 1,
 every function returns its input itself, so the one-process path runs
-exactly the operations it ran before. Only ``all_reduce`` and
-``all_gather`` are used: gloo takes both on CUDA tensors (checked on the
-H100 host with torch 2.11), so ranks that share one card need no host
-copy here.
+exactly the operations it ran before. ``all_reduce``, ``all_gather``
+and ``reduce_scatter_tensor`` are used: gloo takes all three on CUDA
+tensors (checked on the H100 host with torch 2.11,
+``launch/probe_collectives.py``), so ranks that share one card need no
+host copy here.
 """
 from __future__ import annotations
 
@@ -129,6 +136,26 @@ def all_gather(x: torch.Tensor, axis: str, dim: int,
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, x, group=g)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
+                   mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axis``'s
+    ranks (``x`` split evenly there, as :func:`block` cuts it), a new
+    tensor; ``x`` itself where there is nothing to reduce. A bf16 or f16
+    ``x`` is summed in f32 over three ranks or more and rounded once, as
+    :func:`sum_over` sums."""
+    g = group(axis, mesh)
+    if g is None:
+        return x
+    n = dist.get_world_size(g)
+    wide = x.dtype in (torch.bfloat16, torch.float16) and n > 2
+    src = x.detach().movedim(dim, 0)
+    src = (src.to(torch.float32) if wide else src).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=g)
+    return out.to(x.dtype).movedim(0, dim).contiguous()
 
 
 def block(x: torch.Tensor, axis: str, dim: int, mesh=None) -> torch.Tensor:
@@ -236,3 +263,80 @@ def mean_over_data(x: torch.Tensor) -> torch.Tensor:
     every rank whole: the step averages the ranks' gradients over "data"
     (``core.steps``), which then sums each rank's share once."""
     return x if group("data") is None else _DataMean.apply(x)
+
+
+# ------------------------------------------------------------------- FSDP
+
+class _Regather:
+    """How the backward makes a gathered leaf whole again: its block, the
+    dim and axes it is split along, the mesh; the whole leaf once made,
+    kept while a saved use of it is alive (every such use holds this
+    object, so the leaf goes with the last of them)."""
+
+    def __init__(self, blk: torch.Tensor, dim: int, axes: tuple, mesh):
+        self.block, self.dim, self.axes, self.mesh = blk, dim, axes, mesh
+        self.whole = None
+
+    def get(self) -> torch.Tensor:
+        if self.whole is None:
+            x = self.block
+            for a in reversed(self.axes):
+                x = all_gather(x, a, self.dim, self.mesh)
+            self.whole = x
+        return self.whole
+
+
+class _BlockGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, _MESH
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.dim, ctx.mesh), None, None
+
+
+def gather_blocks(x: torch.Tensor, dim: int, axes: tuple,
+                  regather: bool = True) -> torch.Tensor:
+    """``x``, this rank's block of a leaf split along ``dim`` over the mesh
+    ``axes`` (row-major, the last innermost: a data entry of its
+    PartitionSpec), gathered whole; its gradient is reduce-scattered, the
+    sum over those ranks of their gradients of the whole leaf, this
+    rank's block kept. With ``regather`` the whole leaf carries the
+    recipe that :func:`regathering` saves in its place; without, autograd
+    keeps it for the backward. ``x`` itself where no axis has several
+    ranks."""
+    axes = tuple(a for a in axes if group(a) is not None)
+    if not axes:
+        return x
+    whole = x
+    for a in reversed(axes):
+        whole = _BlockGather.apply(whole, a, dim)
+    if regather:
+        whole._regather = _Regather(x.detach(), dim, axes, _MESH)
+    return whole
+
+
+def _pack(t: torch.Tensor):
+    base = t if t._base is None else t._base
+    recipe = getattr(base, "_regather", None)
+    if recipe is None or t.dtype != base.dtype:
+        return t
+    return recipe, t.size(), t.stride(), t.storage_offset()
+
+
+def _unpack(packed):
+    if isinstance(packed, torch.Tensor):
+        return packed
+    recipe, size, stride, offset = packed
+    return recipe.get().as_strided(size, stride, offset)
+
+
+def regathering():
+    """A context under which a tensor that autograd saves for the backward
+    and that is (a view of) a leaf made whole by :func:`gather_blocks` is
+    saved as its recipe, and gathered again when the backward reads it:
+    the whole leaves of every layer are not kept alive from the forward
+    to the backward. Other saved tensors are kept as they are."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)

@@ -14,7 +14,10 @@ shardings)``. On a mesh over the ranks of a process group
 (``launch.mesh.make_host_mesh`` under ``torchrun``) each rank keeps its
 own block of each leaf, found from the spec and the rank's mesh
 coordinates, and :func:`gather` makes the leaves whole again; the
-collectives of the step are ``models/parallel.py``'s. Within one process
+collectives of the step are ``models/parallel.py``'s. A data-axis entry
+(the FSDP train state of ``param_spec_tree(..., fsdp=)``) is a block
+too: the step gathers such a leaf where a layer uses it
+(``layers.Blocks``). Within one process
 a mesh whose slots are one device (the one card, or the CPU repeated in
 tests) moves each leaf there, and a mesh of several distinct devices
 raises (one process drives one device). The reference's activation
@@ -293,16 +296,6 @@ def _is_sharding(x) -> bool:
     return x is None or isinstance(x, NamedSharding)
 
 
-def _refusal(path: str, spec) -> str | None:
-    """Why the leaf at ``path`` cannot be split by ``spec`` over ranks, or
-    None: a data-axis entry is FSDP (ROADMAP item 20c). Every "model"
-    layout of ``param_spec_tree`` runs in the train step of its family."""
-    if any(e not in (None, "model") for e in spec):
-        return (f"{path} split over {spec!r}: data-axis (FSDP) placement "
-                f"is ROADMAP queue 1, item 20c")
-    return None
-
-
 def place(tree, shardings):
     """``tree`` with each tensor leaf on its sharding's device (the
     counterpart of ``jax.device_put(tree, shardings)``). ``shardings``
@@ -311,18 +304,13 @@ def place(tree, shardings):
     meshes) or a fake tensor (the dry run's stand-ins, which hold no
     storage) leaves the tensor where it is. On a mesh over several ranks
     each leaf becomes this rank's block, a tensor of its own on the
-    rank's device, for every family's leaves; FSDP raises
-    ``NotImplementedError`` (:func:`_refusal`, item 20c). Within one
-    process a mesh of several distinct devices raises
-    ``NotImplementedError``."""
+    rank's device, for every family's leaves: its block along each split
+    dim, over "model" and over the data axes (the FSDP layout of
+    ``param_spec_tree(state, M, fsdp=...)``; an entry that names several
+    axes takes the slot of the rank's coordinates row-major, as
+    :meth:`NamedSharding.block` cuts). Within one process a mesh of
+    several distinct devices raises ``NotImplementedError``."""
     from torch._subclasses.fake_tensor import is_fake
-
-    def check(path, x, s):
-        if s is not None and s.mesh.is_distributed:
-            why = _refusal(path, s.spec)
-            if why is not None:
-                raise NotImplementedError(why)
-        return x
 
     def put(path, x, s):
         if s is None or is_fake(x):
@@ -344,9 +332,7 @@ def place(tree, shardings):
         return x.to(devices[0])
 
     if _is_sharding(shardings):
-        map_named(lambda path, x: check(path, x, shardings), tree)
         return map_named(lambda path, x: put(path, x, shardings), tree)
-    _zip_map(check, tree, shardings)         # every leaf, before any block
     return _zip_map(put, tree, shardings)
 
 
@@ -360,15 +346,37 @@ def gather(tree, shardings):
                 or not s.mesh.is_distributed:
             return x
         for dim, entry in enumerate(s.spec):
-            if entry is None:
-                continue
-            for a in reversed((entry,) if isinstance(entry, str) else entry):
+            for a in reversed(_axes(entry)):
                 x = parallel.all_gather(x, a, dim, mesh=s.mesh)
         return x
 
     if _is_sharding(shardings):
         return map_named(lambda path, x: whole(path, x, shardings), tree)
     return _zip_map(whole, tree, shardings)
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def data_splits(shardings: dict) -> dict:
+    """name -> (dim, axes) of each leaf that ``shardings`` (a flat name ->
+    NamedSharding dict) split over mesh axes other than "model" on a mesh
+    of several ranks: the FSDP leaves, and the data axes of their entry
+    that have several ranks (``layers.Blocks`` gathers them there). A
+    leaf split over "model" alone, or on a mesh of one process, is not
+    named."""
+    out = {}
+    for k, s in shardings.items():
+        if s is None or not s.mesh.is_distributed:
+            continue
+        for dim, entry in enumerate(s.spec):
+            axes = tuple(a for a in _axes(entry)
+                         if a != "model" and s.mesh.shape[a] > 1)
+            if axes:
+                out[k] = (dim, axes)
+    return out
 
 
 def shard_bytes(tree, shardings) -> int:

@@ -12,12 +12,14 @@ never collide.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -28,23 +30,27 @@ from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.checkpoint.checkpointer import named_leaves
 from repro_torch.configs import ShapeConfig, get_smoke_config
-from repro_torch.core.compression import (compress_with_masks,
+from repro_torch.core import steps as steps_mod
+from repro_torch.core.compression import (compress_with_masks, compressible,
                                           default_tier_plans,
                                           magnitude_masks)
 from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
+from repro_torch.launch import specs as specs_mod
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import decoder as TD
 from repro_torch.models import get_model, parallel
 from repro_torch.models import layers as L
 from repro_torch.models import moe as TM
-from repro_torch.models.sharding import (P, NamedSharding, gather, named,
-                                         param_spec_tree, place, shard_bytes)
+from repro_torch.models.sharding import (P, NamedSharding, data_splits,
+                                         gather, named, param_spec_tree,
+                                         place, shard_bytes)
 
 CPU = torch.device("cpu")
 HERE = Path(__file__).resolve().parent
 RANK_TIMEOUT = 240                # seconds a rank process may take
+FSDP_RANK_TIMEOUT = 480           # the FSDP files' ranks: every family
 DENSE = ("llama3.2-3b", "granite-3-2b", "qwen2.5-32b", "deepseek-7b")
 MOE = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
 # the MoE, VLM and attention-fallback configs placed and gathered back,
@@ -642,6 +648,248 @@ def run_recurrent(world: int, extra: dict) -> dict:
                       for name, mp in extra["steps"]}}
 
 
+# ------------------------------------------------- FSDP (data-axis blocks)
+
+FSDP_FAMILIES = ("llama3.2-3b", "granite-moe-1b-a400m", "llava-next-34b",
+                 "whisper-tiny", "zamba2-2.7b", "xlstm-1.3b")
+FSDP_STEPS = 3
+FSDP_SHAPE = ShapeConfig("fsdp", 16, 8, "train")
+
+
+def fsdp_specs(tree, mesh, fsdp: bool = True) -> dict:
+    """``param_spec_tree(tree, M, fsdp=(("data",), D))`` on ``mesh``'s
+    (D, M), as the reference's dry run lays out its train state; without
+    ``fsdp`` the "model" layout alone."""
+    return named(mesh, param_spec_tree(
+        tree, mesh.shape["model"],
+        (("data",), mesh.shape["data"]) if fsdp else None))
+
+
+def fsdp_meshes(world: int) -> list[int]:
+    """The model-parallel widths of the FSDP meshes at ``world`` ranks:
+    (2, 1) at 2; (4, 1) and (2, 2) at 4."""
+    return [1] if world == 2 else [1, 2]
+
+
+def fsdp_step_mesh(world: int) -> int:
+    """The model-parallel width of the mesh the steps run on at ``world``
+    ranks: (2, 1) at 2, (2, 2) at 4 (at (4, 1) the 2 rows a tier of
+    :data:`FSDP_SHAPE` do not split over the data ranks)."""
+    return 1 if world == 2 else 2
+
+
+def _fsdp_round_trips(world: int) -> dict:
+    """Each family's train state placed FSDP on each mesh and gathered
+    back: whether every placed leaf is the block of the whole one, the
+    state gathers back bitwise, the placed bytes == ``shard_bytes``, and
+    how many params leaves have a data-axis entry."""
+    out = {}
+    for mp in fsdp_meshes(world):
+        mesh = make_host_mesh(mp, devices=[CPU])
+        for name in FSDP_FAMILIES:
+            state = TrainState.create(get_model(config(name)), adamw(), 0,
+                                      device=CPU)
+            sh = fsdp_specs(state, mesh)
+            placed = place(state, sh)
+            back = gather(placed, sh)
+            whole, local = _tensors(state), _tensors(placed)
+            out[f"{name} {mp}"] = {
+                "blocks": all(torch.equal(placed["params"][k],
+                                          sh["params"][k].block(v))
+                              for k, v in state["params"].items()),
+                "gathered": all(torch.equal(a, b) for a, b in
+                                zip(_tensors(back), whole)),
+                "bytes": (sum(t.numel() * t.element_size() for t in local),
+                          shard_bytes(state, sh)),
+                "data_split": sum("data" in s.spec
+                                  for s in sh["params"].values())}
+    return out
+
+
+def _fsdp_gathers(world: int) -> dict:
+    """``parallel.gather_blocks`` of a seeded tensor's blocks along each
+    dim over "data" at mesh (world, 1), f32 and bf16: its output, and the
+    gradient of its block when each rank's gradient of the whole is
+    drawn from the rank's seed; with every rank's gradients, for the test
+    to sum. And the same product with and without ``regathering``: the
+    gradients, and whether the whole leaf is still alive after the
+    forward."""
+    mesh = make_host_mesh(1, devices=[CPU])
+    rank = dist.get_rank()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((8, 12, 4), generator=torch.Generator().manual_seed(
+            1)).to(dtype)
+        for dim in range(3):
+            gs = [torch.randn(x.shape, generator=torch.Generator()
+                              .manual_seed(50 + r)).to(dtype)
+                  for r in range(world)]
+            with parallel.using(mesh):
+                blk = parallel.block(x, "data", dim).clone().requires_grad_()
+                whole = parallel.gather_blocks(blk, dim, ("data",))
+                whole.backward(gs[rank])
+            out[f"{dtype} {dim}"] = {"x": x, "whole": whole.detach(),
+                                     "grad": blk.grad, "gs": gs, "dim": dim}
+    w = torch.randn((8, 6), generator=torch.Generator().manual_seed(2))
+    a = torch.randn((3, 8), generator=torch.Generator().manual_seed(3 + rank))
+    for hooks in (False, True):
+        ag = a.clone().requires_grad_()
+        with parallel.using(mesh):
+            leaf = parallel.block(w, "data", 0).clone().requires_grad_()
+            with parallel.regathering() if hooks else contextlib.nullcontext():
+                whole = parallel.gather_blocks(leaf, 0, ("data",))
+                alive = weakref.ref(whole)
+                y = torch.tanh(ag @ whole)
+            del whole
+            kept = alive() is not None
+            y.sum().backward()
+        out[f"regather {hooks}"] = {"kept": kept, "grad": leaf.grad,
+                                    "agrad": ag.grad}
+    return out
+
+
+def _fsdp_masks(world: int) -> dict:
+    """``magnitude_masks`` at densities 0.5 and 0.25 and
+    ``compress_with_masks`` (0.25, then int8 at the whole leaf's scale)
+    of each family's params on each rank's FSDP blocks against the
+    one-rank results' blocks, on each mesh: whether every leaf is bitwise
+    the block, and how many leaves were held."""
+    out = {}
+    for mp in fsdp_meshes(world):
+        mesh = make_host_mesh(mp, devices=[CPU])
+        for name in FSDP_FAMILIES:
+            params = get_model(config(name)).init(0, device=CPU)
+            sh = fsdp_specs(params, mesh)
+            placed = place(params, sh)
+            ws = {k: w for k, w in params.items() if compressible(k, w)}
+            ok, n = True, 0
+            for density in (0.5, 0.25):
+                whole = magnitude_masks(ws, density)
+                local = magnitude_masks({k: placed[k] for k in ws}, density,
+                                        shardings=sh)
+                ok &= all(torch.equal(local[k], sh[k].block(whole[k]))
+                          for k in ws)
+                n += len(ws)
+            cp, m = compress_with_masks(params, 0.25, 0, 8)
+            with parallel.using(mesh):
+                lcp, lm = compress_with_masks(placed, 0.25, 0, 8,
+                                              shardings=sh)
+            ok &= all(torch.equal(lcp[k], sh[k].block(cp[k]))
+                      and torch.equal(lm[k], sh[k].block(m[k])
+                                      if m[k].dim() else m[k]) for k in cp)
+            out[f"{name} {mp}"] = {"bitwise": bool(ok), "masks": n}
+    return out
+
+
+def fsdp_one_rank(name: str) -> dict:
+    """:data:`FSDP_STEPS` AdamW steps of the hetero train step in one
+    process at :data:`FSDP_SHAPE`: the losses and the final params and
+    moments."""
+    cfg = config(name)
+    model, opt = get_model(cfg), adamw()
+    state = TrainState.create(model, opt, 0, device=CPU)
+    step = make_hetero_train_step(model, opt, default_tier_plans(4))
+    losses = []
+    for i in range(FSDP_STEPS):
+        state, m = step(state, make_train_batch(cfg, FSDP_SHAPE, n_tiers=4,
+                                                seed=3, index=i))
+        losses.append(m["loss"].item())
+    return {"losses": losses, "params": state["params"],
+            "m": state["opt"]["m"], "v": state["opt"]["v"]}
+
+
+def _fsdp_steps(name: str, mp: int, fsdp: bool, ckpt: str | None) -> dict:
+    """:func:`fsdp_one_rank`'s steps on the (world / mp, mp) mesh of ranks,
+    FSDP-placed or on "model" alone: the losses, the params and moments
+    gathered whole, how many params leaves were split over "data", and
+    with ``ckpt`` the final state saved there (every rank calls)."""
+    cfg = config(name)
+    model, opt = get_model(cfg), adamw()
+    mesh = make_host_mesh(mp, devices=[CPU])
+    state = TrainState.create(model, opt, 0, device=CPU)
+    sh = fsdp_specs(state, mesh, fsdp)
+    state = place(state, sh)
+    step = make_hetero_train_step(model, opt, default_tier_plans(4),
+                                  shardings=sh["params"])
+    losses = []
+    with parallel.using(mesh):
+        for i in range(FSDP_STEPS):
+            state, m = step(state, make_train_batch(
+                cfg, FSDP_SHAPE, n_tiers=4, seed=3, index=i))
+            losses.append(m["loss"].item())
+    if ckpt is not None:
+        Checkpointer(ckpt).save(state, FSDP_STEPS, shardings=sh)
+    return {"losses": losses,
+            "data_split": len(data_splits(sh["params"])),
+            **{k: gather(v, sh["params"]) for k, v in (
+                ("params", state["params"]), ("m", state["opt"]["m"]),
+                ("v", state["opt"]["v"]))}}
+
+
+def _fsdp_arg_bytes(mp: int) -> dict:
+    """A rank's placed FSDP train state of llama3.2-3b's smoke config on
+    the (world / mp, mp) mesh, plus the batch rows the step takes on it
+    (:data:`FSDP_SHAPE`, 4 tiers): their bytes."""
+    cfg = config("llama3.2-3b")
+    mesh = make_host_mesh(mp, devices=[CPU])
+    state = TrainState.create(get_model(cfg), adamw(), 0, device=CPU)
+    placed = place(state, fsdp_specs(state, mesh))
+    batch = make_train_batch(cfg, FSDP_SHAPE, n_tiers=4, seed=3, index=0)
+    with parallel.using(mesh):
+        rows = steps_mod._data_rows(batch)
+    return {"state": sum(t.numel() * t.element_size()
+                         for t in _tensors(placed)),
+            "batch": sum(t.numel() * t.element_size()
+                         for t in rows.values())}
+
+
+def reference_fsdp(arch: str, ref_dir: str, out_dir: str) -> dict:
+    """The port's ``launch.specs.train_setup`` step of ``arch``'s smoke
+    config at :data:`FSDP_SHAPE` on the (world / 2, 2) mesh of ranks,
+    FSDP-placed by its own shardings, from the reference's init
+    checkpoint in ``ref_dir`` (``tests/_reference_fsdp_step.py``), over
+    the reference's three batches: the losses; the final state saved to
+    ``out_dir`` (whole leaves, as the reference's)."""
+    cfg = get_smoke_config(arch)
+    mesh = make_host_mesh(2, devices=[CPU])
+    step, _, (state_sh, _), _ = specs_mod.train_setup(cfg, FSDP_SHAPE, mesh)
+    model = get_model(cfg)
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 100, 10_000))
+    state = place(TrainState.create(model, opt, 0, device=CPU), state_sh)
+    state, _ = Checkpointer(ref_dir).restore(state, 0, shardings=state_sh)
+    losses = []
+    with parallel.using(mesh):
+        for i in range(FSDP_STEPS):
+            state, m = step(state, make_train_batch(cfg, FSDP_SHAPE,
+                                                    n_tiers=4, seed=0,
+                                                    index=i))
+            losses.append(m["loss"].item())
+    Checkpointer(out_dir).save(state, FSDP_STEPS, shardings=state_sh)
+    return {"losses": losses, "mesh": dict(mesh.shape),
+            "data_split": len(data_splits(state_sh["params"]))}
+
+
+def run_fsdp(world: int, extra: dict) -> dict:
+    """Every rank-side check of ``tests/test_torch_fsdp*.py`` for ``world``
+    ranks that ``extra`` asks for."""
+    if "reference" in extra:
+        return {arch: reference_fsdp(arch, *dirs)
+                for arch, dirs in extra["reference"].items()}
+    mp = fsdp_step_mesh(world)
+    out = {"round_trips": _fsdp_round_trips(world),
+           "gathers": _fsdp_gathers(world),
+           "masks": _fsdp_masks(world),
+           "arg_bytes": {mp: _fsdp_arg_bytes(mp)},
+           "steps": {}}
+    for name in FSDP_FAMILIES:
+        for fsdp in (True, False):
+            ckpt = (os.path.join(extra["ckpt"], f"{name} {mp}") if fsdp
+                    else None)
+            out["steps"][f"{name} {mp} {fsdp}"] = _fsdp_steps(
+                name, mp, fsdp, ckpt)
+    return out
+
+
 # -------------------------------------------------------------- launcher
 
 def _launcher(world: int, mp: int) -> dict:
@@ -801,10 +1049,11 @@ def env() -> dict:
     return out
 
 
-def spawn(world: int, out: Path, extra: dict) -> list[dict]:
+def spawn(world: int, out: Path, extra: dict,
+          timeout: int = RANK_TIMEOUT) -> list[dict]:
     """Runs this file's rank checks in ``world`` processes (the test
-    side); each rank's results. A rank that fails or hangs fails the
-    caller."""
+    side); each rank's results. A rank that fails or outlasts
+    ``timeout`` seconds fails the caller."""
     procs = [subprocess.Popen(
         [sys.executable, str(HERE / "_parallel_workers.py"), str(world),
          str(r), str(out / "store"), str(out), json.dumps(extra)],
@@ -813,7 +1062,7 @@ def spawn(world: int, out: Path, extra: dict) -> list[dict]:
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             p.kill()
@@ -831,6 +1080,11 @@ def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
                             rank=rank, world_size=world)
     if "recurrent" in extra:    # xLSTM, Zamba and Whisper alone
         torch.save(run_recurrent(world, extra["recurrent"]),
+                   os.path.join(out, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return
+    if "fsdp" in extra:         # the FSDP layout alone
+        torch.save(run_fsdp(world, extra["fsdp"]),
                    os.path.join(out, f"rank{rank}.pt"))
         dist.destroy_process_group()
         return

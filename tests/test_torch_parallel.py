@@ -129,13 +129,15 @@ def _moe_params():
 
 @pytest.mark.parametrize("case,item", [
     ("moe", None), ("head_dim_fallback", None), ("mamba2", None),
-    ("xlstm", None), ("fsdp", "20c")])
+    ("xlstm", None), pytest.param("fsdp", None, id="fsdp-20c")])
 def test_place_refuses_outside_the_slice(case, item, monkeypatch):
-    """Any data-axis entry (FSDP) raises, naming the ROADMAP item; the MoE
-    leaves (experts on "model"), attention's head_dim fallback (llama's
-    smoke Hkv 2 over 4 model shards) and the recurrent leaves (Zamba's
-    Mamba2 and xLSTM's mLSTM / sLSTM leaves, each family's whole state)
-    pass the check, every leaf of them."""
+    """Every layout of ``param_spec_tree`` is placed, each rank its blocks:
+    the MoE leaves (experts on "model"), attention's head_dim fallback
+    (llama's smoke Hkv 2 over 4 model shards), the recurrent leaves
+    (Zamba's Mamba2 and xLSTM's mLSTM / sLSTM leaves, each family's
+    whole state) and a data-axis entry (FSDP, ROADMAP item 20c), every
+    leaf of them. No family is left to refuse (``tests/test_torch_fsdp.py``
+    trains each one FSDP-placed)."""
     mesh = _fake_mesh(4 if case == "head_dim_fallback" else 2)
     if case == "moe":
         params = _moe_params()
