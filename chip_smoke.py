@@ -106,7 +106,7 @@ checkpoint reads faults') needs that one named too.
    the per-leaf route, each timed.
    Phase "examples": the five scripts of ``repro_torch.examples`` through
    their ``main`` (or the functions behind it), each one's launches
-   counted (counters zeroed just before it): quickstart (10 of its 30
+   counted (counters zeroed just before it): quickstart (5 of its 30
    rounds of the six-tier FedAvg fleet, engine scan: losses finite and
    falling);
    hetero_fl_sim at its 60 rounds (the paper's 8-device fleet per client:
@@ -115,7 +115,7 @@ checkpoint reads faults') needs that one named too.
    every line's losses finite and falling and val_acc >= 0.97 on 1000
    held-out samples, but ``async buffer=2 + jitter`` >= 0.955, the
    reference's own value on the port's draw less 0.01; the census lines
-   equal the CPU's; its scan block's eager == scan to 1e-5 at 10 of its
+   equal the CPU's; its scan block's eager == scan to 1e-5 at 5 of its
    60 rounds; then 2 rounds of the 256-client bench fleet per client against the
    cohort runtime, params within 1e-5); paper_mlp_repro (max val_acc >=
    0.95 at n >= 1000, float64 and float32 within 0.01); serve_quantized
@@ -298,14 +298,20 @@ checkpoint reads faults') needs that one named too.
    each rank's placed state plus its batch rows exactly the dry run's
    argument bytes per device (``launch.specs.train_setup`` on an
    abstract (2, 1) mesh) and its step's peak below (d1)'s (2, 1) peak;
-   the collectives' seconds a step printed. The f32 parts' bars past
+   the collectives' seconds a step printed. Each rank of (d2) and (d5)
+   counts the collectives of every step it takes
+   (``models.parallel.counting``), and each step's count is exactly the
+   dry run's per-device census of the same config and mesh (rank 0's
+   trace on fake tensors, ``launch.specs.rank_traced``, flash off), op
+   by op in count and bytes; the dry run's argument + per-device temp
+   bytes are within 25% of each rank's step peak
+   (``max_memory_allocated``), with the share of the gap that the plain
+   attention's saved scores account for printed. The f32 parts' bars past
    the losses: AdamW's first moment within 1e-3 of its leaf's largest of
    one rank's, and the params within atol 1e-5; in (d4) alone a param
    whose first moment flips sign at most 1e-3 of its leaf's largest may
    pass it by up to 2 lr (a gradient at f32 noise, whose sign AdamW's
-   step turns into +-lr; counted and printed). And
-   llama3.2-3b's dry-run argument bytes per device on a (1, 4) mesh,
-   whole and at 4 layers (computed).
+   step turns into +-lr; counted and printed).
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -338,7 +344,7 @@ F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
 ROUNDS = 20
 FEDAVG_ROUNDS = 5                   # the slice's FedAvg fleet: ~10x a FedSGD round
 CKPT_ROUNDS = 10                    # the FL kill-and-resume runs, cut at half
-QUICKSTART_ROUNDS = 10              # of the script's 30
+QUICKSTART_ROUNDS = 5               # of the script's 30
 LM_ARCH = "llama3.2-3b"
 MOE_ARCH = "granite-moe-1b-a400m"
 XLSTM = "xlstm-1.3b"
@@ -1814,7 +1820,7 @@ TRAIN_100M_STEPS = 10
 TRAIN_100M_CKPT_EVERY = 5
 # hetero_fl_sim's scan block (eager against the scan engine, bitwise, and
 # their steady-state rounds/s) at this many rounds of its lines' 60
-HETERO_SCAN_ROUNDS = 10
+HETERO_SCAN_ROUNDS = 5
 SERVE_TIE = 1e-4                    # top-2 logit gap where decodes may part
 
 
@@ -3580,34 +3586,9 @@ def phase_mesh(device) -> dict:
                                f"16x16 is ok")
 
     # (d) every family trained over two ranks sharing the card
-    _state_bytes_per_card()
     for k, v in _mesh_ranks(device).items():
         got[k] = got.get(k, 0) + v
     return got
-
-
-def _state_bytes_per_card() -> None:
-    """The dry run's argument bytes per device (``specs.setup_for`` on
-    fake tensors, no trace) of llama3.2-3b's train step at 8 x 1024 over
-    4 tiers, whole (28 layers) and at phase train's 4, on an abstract
-    (1, 4) mesh: computed, not measured."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.specs import setup_for
-    from repro_torch.models.sharding import shard_bytes
-    slots = np.empty((1, 4), dtype=object)
-    slots.fill(torch.device("meta"))
-    mesh = Mesh(slots, ("data", "model"))
-    for layers in (get_config(LM_ARCH).num_layers, TRAIN_LAYERS):
-        cfg = get_config(LM_ARCH).replace(num_layers=layers)
-        _, args, in_sh, _ = setup_for(cfg, ShapeConfig("cli", 1024, 8,
-                                                       "train"), mesh)
-        print(f"mesh: dry-run argument bytes per device of {LM_ARCH} at "
-              f"{layers} layers, 8 x 1024, on a (1, 4) mesh (computed): "
-              f"{shard_bytes(args, in_sh)}, of which the train state "
-              f"{shard_bytes(args[0], in_sh[0])}")
 
 
 def _mesh_cfg(layers: int | None, dtype: str, arch: str = LM_ARCH):
@@ -3623,7 +3604,7 @@ def _mesh_cfg(layers: int | None, dtype: str, arch: str = LM_ARCH):
 def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1,
                 fsdp: bool = False):
     """``launch.train`` of a (d) run, its counters zeroed just before;
-    (the run, its launches)."""
+    (the run, with ``census``: each step's collectives, its launches)."""
     from repro_torch.kernels.fake_quant import fake_quant
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.train import train
@@ -3631,10 +3612,43 @@ def _mesh_train(cfg, run: dict, warmup: int, device, model_parallel=1,
     for r in routes:
         routes[r] = 0
     fake_quant.launches = 0
-    res = train(cfg, steps=run["steps"], batch=run["batch"], seq=run["seq"],
-                n_tiers=4, lr=3e-4, warmup=warmup, seed=0, device=device,
-                log_every=1, model_parallel=model_parallel, fsdp=fsdp)
+    with _StepCensus() as census:
+        res = train(cfg, steps=run["steps"], batch=run["batch"],
+                    seq=run["seq"], n_tiers=4, lr=3e-4, warmup=warmup,
+                    seed=0, device=device, log_every=1,
+                    model_parallel=model_parallel, fsdp=fsdp)
+    res["census"] = census.records
     return res, {"fake_quant": fake_quant.launches, **routes}
+
+
+class _StepCensus:
+    """The collectives of each train step that ``launch.train`` takes
+    within the window (``parallel.counting`` around each call of the
+    step it builds): ``records``, one census record a step."""
+
+    def __enter__(self):
+        from repro_torch.launch import train as train_mod
+        from repro_torch.models import parallel
+        inner, records = train_mod.make_hetero_train_step, []
+        self.records = records
+
+        def make(*a, **k):
+            step = inner(*a, **k)
+
+            def counted(*args):
+                with parallel.counting() as c:
+                    out = step(*args)
+                records.append(c.record())
+                return out
+            return counted
+
+        self._restore = (train_mod, inner)
+        train_mod.make_hetero_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        train_mod, inner = self._restore
+        train_mod.make_hetero_train_step = inner
 
 
 def _count_exactness(params: dict, densities) -> dict:
@@ -3731,15 +3745,17 @@ def _mesh_ranks(device) -> dict:
     (whole), and (d2)'s for zamba2-2.7b (flash on the simt route, hd 80).
     (d5) (d1)'s run on (2, 1) with the FSDP layout, held to (d1)'s
     one-rank run and bars and to its dry-run record (:func:`_check_fsdp`).
-    Returns the ranks' launches."""
+    (d2)'s and (d5)'s counted collectives and step peaks against the dry
+    run's per-device census and bytes (:func:`_check_census`). Returns
+    the ranks' launches."""
     import shutil
     import socket
 
     d = Path(_ckpt_dir())
     try:
-        # the one-rank runs, here, and (d5)'s dry-run record
+        # the one-rank runs, here, and (d2)'s and (d5)'s dry-run records
         parts = [_one_rank_runs(part, device, d) for part in MESH_PARTS]
-        dry = _fsdp_dry_run(_mesh_cfg(None, "float32"))
+        dry = _rank_dry_runs()
 
         # the ranks
         with socket.socket() as sk:
@@ -3786,34 +3802,47 @@ def _mesh_ranks(device) -> dict:
                            part[:2])
         for k in launches:
             launches[k] += got[k]
-    _check_fsdp(ranks, dry)
+    _check_fsdp(ranks, dry["d5"]["argument_size_in_bytes"])
+    _check_census(ranks, dry)
     return launches
 
 
-def _fsdp_dry_run(cfg) -> int:
-    """(d5)'s dry-run record: ``launch.specs.train_setup`` of ``cfg`` at
-    (d1)'s shape over 4 tiers on an abstract (MESH_RANKS, 1) mesh, the
-    reference's FSDP layout (``dryrun.dry_run_step``: fake tensors, flash
-    off, which moves no argument byte); its argument bytes per device."""
+def _rank_dry_runs() -> dict:
+    """The dry run's per-device figures (``launch.specs``: fake tensors,
+    flash off, which moves no argument byte and no collective) of (d2)'s
+    config and shape on an abstract (1, MESH_RANKS) mesh and of (d5)'s,
+    the reference's FSDP layout, on (MESH_RANKS, 1): a train record's
+    argument bytes (``train_setup``'s shardings) and rank 0's trace of
+    the sharded step (``rank_traced``: its temp bytes and collectives).
+    The global trace, which neither check reads, is not run."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
-    from repro_torch.launch.dryrun import dry_run_step
     from repro_torch.launch.mesh import Mesh
-    slots = np.empty((MESH_RANKS, 1), dtype=object)
-    slots.fill(torch.device("meta"))
-    mesh = Mesh(slots, ("data", "model"))
-    t0 = time.perf_counter()
-    rec = dry_run_step(cfg.replace(use_flash=False),
-                       ShapeConfig("cli", MESH_F32["seq"], MESH_F32["batch"],
-                                   "train"), mesh)
-    arg = rec["memory"]["argument_size_in_bytes"]
-    print(f"mesh (d5): dry run {cfg.name} {cfg.num_layers} layers cli "
-          f"{MESH_F32['batch']} x {MESH_F32['seq']} on an abstract "
-          f"{dict(mesh.shape)} mesh, FSDP: {time.perf_counter() - t0:.1f} s,"
-          f" argument bytes per device {arg}, temp bytes (global) "
-          f"{rec['memory']['temp_size_in_bytes']}")
-    return arg
+    from repro_torch.launch.specs import rank_traced, setup_for
+    from repro_torch.models.sharding import shard_bytes
+    out = {}
+    for tag, dtype, run, mesh_shape in (
+            ("d2", "bfloat16", MESH_BF16, (1, MESH_RANKS)),
+            ("d5", "float32", MESH_F32, (MESH_RANKS, 1))):
+        cfg = _mesh_cfg(None, dtype).replace(use_flash=False)
+        slots = np.empty(mesh_shape, dtype=object)
+        slots.fill(torch.device("meta"))
+        mesh = Mesh(slots, ("data", "model"))
+        shape = ShapeConfig("cli", run["seq"], run["batch"], "train")
+        t0 = time.perf_counter()
+        _, args, in_sh, _ = setup_for(cfg, shape, mesh)
+        counts, _, rank_s = rank_traced(cfg, shape, mesh)
+        rec = out[tag] = {"argument_size_in_bytes": shard_bytes(args, in_sh),
+                          "temp_size_in_bytes": counts["temp_bytes"],
+                          "collectives": counts["collectives"]}
+        print(f"mesh ({tag}): dry run {cfg.name} {cfg.num_layers} layers "
+              f"{cfg.dtype} cli {run['batch']} x {run['seq']} on an "
+              f"abstract {dict(mesh.shape)} mesh"
+              f"{', FSDP' if tag == 'd5' else ''}: "
+              f"{time.perf_counter() - t0:.1f} s (rank_trace_s {rank_s}), "
+              f"per device: {json.dumps(rec)}")
+    return out
 
 
 def _check_fsdp(ranks: list, dry: int) -> None:
@@ -3844,6 +3873,59 @@ def _check_fsdp(ranks: list, dry: int) -> None:
               f"{d5['bytes'][0] + d5['batch_bytes']} bytes == the dry run's "
               f"argument bytes per device {dry}")
         check(p5 < p1, f"{tag}: the step's peak {p5} < (d1) (2, 1)'s {p1}")
+
+
+def _scores_bytes(cfg, run: dict, mesh_shape: tuple) -> int:
+    """The bytes that the plain attention (the dry run's, flash off) keeps
+    for the backward of one tier's step on a rank of ``mesh_shape``: per
+    layer the softmax's f32 output and the probabilities in the compute
+    dtype, (rows a rank, local heads, T, T) each; the flash kernel keeps
+    neither."""
+    import torch
+    dp, mp = mesh_shape
+    rows = run["batch"] // 4 // dp
+    item = 4 + getattr(torch, cfg.dtype).itemsize
+    return (cfg.num_layers * rows * (cfg.num_heads // mp) * run["seq"] ** 2
+            * item)
+
+
+def _check_census(ranks: list, dry: dict) -> None:
+    """(d2)'s and (d5)'s ranks against the dry run's per-device records of
+    the same config and mesh: every step's counted collectives exactly
+    the census (op by op, count and bytes), and argument + temp bytes
+    within ``MESH_MEMORY_RTOL`` of the step's peak, the plain attention's
+    saved scores beside the gap."""
+    for tag, run, mesh_shape in (("d2", MESH_BF16, (1, MESH_RANKS)),
+                                 ("d5", MESH_F32, (MESH_RANKS, 1))):
+        rec = dry[tag]
+        want = rec["collectives"]
+        est = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        scores = _scores_bytes(_mesh_cfg(None, "bfloat16" if tag == "d2"
+                                         else "float32"), run, mesh_shape)
+        for r, rk in enumerate(ranks):
+            got = rk[tag]
+            peaks = got["step_peaks"] if tag == "d2" else got["peak_bytes"]
+            peak = max(peaks, default=0)
+            name = f"mesh ({tag}) rank {r} mesh {mesh_shape}"
+            print(f"{name}: collectives counted a step "
+                  f"{json.dumps(got['census'])}; the dry run's census "
+                  f"{json.dumps(want)}")
+            check(len(got["census"]) == run["steps"]
+                  and all(c == want for c in got["census"]),
+                  f"{name}: each of the {run['steps']} steps' collectives "
+                  f"== the dry run's per-device census, op by op in count "
+                  f"and bytes")
+            gap = est - peak
+            print(f"{name}: dry-run argument + temp bytes per device {est} "
+                  f"against the step peaks {peaks} "
+                  f"({est / max(peak, 1):.4f} of the largest); the plain "
+                  f"attention's saved scores, which the flash run keeps "
+                  f"none of, {scores} bytes, {scores / (gap or 1):.4f} of "
+                  f"the gap {gap}")
+            check(abs(est - peak) <= MESH_MEMORY_RTOL * peak,
+                  f"{name}: dry-run argument + per-device temp bytes {est} "
+                  f"within {MESH_MEMORY_RTOL:.0%} of the rank's step peak "
+                  f"max_memory_allocated {peak}")
 
 
 def _flash_route(cfg) -> str:
@@ -4063,6 +4145,7 @@ def _mesh_f32_rank(mp: int, device, directory: Path, cfg,
     return {"losses": res["losses"], "tier_losses": res["tier_losses"],
             "sec_per_step": res["sec_per_step"],
             "peak_bytes": res["peak_bytes"], "launches": launches,
+            "census": res["census"],
             "fsdp": fsdp, "data_ranks": MESH_RANKS // mp,
             "gathers": gathers.calls, "gather_s": gathers.seconds,
             "scatters": gathers.scatters, "scatter_s": gathers.scatter_s,
@@ -4130,7 +4213,7 @@ def _against_one_rank(state: dict, sh: dict, path: Path, device) -> dict:
 class _DataGathers:
     """The calls of ``parallel.all_gather`` (``calls``, ``seconds``) and
     of ``parallel.reduce_scatter`` (``scatters``, ``scatter_s``) over
-    "data" within a window and their seconds on the host clock, each call
+    "data" (alone or among the data axes) within a window and their seconds on the host clock, each call
     between two device syncs (the syncs' own cost falls outside): on a
     data-parallel mesh the MoE layer's gather of its groups' expert
     choices, the one such gather of a train step; with the FSDP layout
@@ -4146,7 +4229,8 @@ class _DataGathers:
 
         def timed(fn, counts):
             def call(x, axis, dim, mesh=None):
-                if axis != "data":
+                if "data" not in ((axis,) if isinstance(axis, str)
+                                  else axis):
                     return fn(x, axis, dim, mesh)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4244,7 +4328,8 @@ def _mesh_bf16_rank(device, cfg, profiled: bool) -> dict:
                                 model_parallel=MESH_RANKS)
     peak = torch.cuda.max_memory_allocated()
     out = {"losses": res["losses"], "sec_per_step": res["sec_per_step"],
-           "launches": launches, "peak_bytes": peak}
+           "launches": launches, "peak_bytes": peak,
+           "step_peaks": res["peak_bytes"], "census": res["census"]}
     if not profiled:
         return out
     # one more step, profiled (not counted on the main path)

@@ -67,9 +67,10 @@ def _grads(loss: torch.Tensor, leaves: dict) -> dict:
 
 
 def _data_rows(batch: dict) -> dict:
-    """This "data" rank's rows of each tier's batch (the tier axis first,
-    the rows second)."""
-    n, d = parallel.size("data"), parallel.rank("data")
+    """This data rank's rows of each tier's batch (the tier axis first,
+    the rows second): its slot over the data axes (``parallel.DATA``),
+    row-major."""
+    n, d = parallel.size(parallel.DATA), parallel.rank(parallel.DATA)
     out = {}
     for k, v in batch.items():
         rows = v.shape[1]
@@ -161,11 +162,12 @@ def make_hetero_train_step(model, optimizer, plans: list[CompressionPlan],
             tier_loss.append(loss.detach())
             del cp, masks, loss, grads      # one tier's buffers at a time
         losses = torch.cat([(loss_sum / wsum)[None], torch.stack(tier_loss)])
-        dp = parallel.size("data")
+        dp = parallel.size(parallel.DATA)
         if dp > 1:       # an FSDP leaf's gradients are summed already
-            acc = ({k: (v if k in split else parallel.all_reduce(v, "data"))
+            acc = ({k: (v if k in split
+                        else parallel.all_reduce(v, parallel.DATA))
                     / dp for k, v in acc[0].items()}, acc[1])
-            losses = parallel.all_reduce(losses, "data") / dp
+            losses = parallel.all_reduce(losses, parallel.DATA) / dp
         grads = finalize(acc)
         del acc, num, den
         new_params, new_opt = optimizer.update(grads, state["opt"], params,

@@ -35,6 +35,12 @@ released when the last tensor on them dies (weakref callbacks), so the
 peak beyond the step's arguments is the trace's temp bytes. Under a
 scan's multiplier the loop's memory is that of its two traced steps, so
 the peak is then a lower bound (``scans_repeated``).
+
+It also counts the step's collectives (``models.parallel.Census``), a
+scan's times its multiplier. A step traced inside ``parallel.using`` a
+census mesh (``launch.mesh.census_mesh``) on one rank's arguments is
+that rank's program: its collectives are the rank's, and so are its
+live bytes and their peak; its flops and traffic are the rank's share.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map_only
+
+from repro_torch.models import parallel
 
 
 def _tensors(tree, out=None) -> list:
@@ -116,17 +124,19 @@ class StepCounter(TorchDispatchMode):
         self._allocs: dict[int, _Alloc] = {}
         self._refs: dict[int, tuple] = {}
         self._args = {_storage_key(t) for t in _tensors(args)}
+        self.census = parallel.Census()
 
     @contextlib.contextmanager
     def scaled(self, n: int):
-        """Counts inside scaled by ``n`` (0: uncounted)."""
+        """Counts inside scaled by ``n`` (0: uncounted), the collectives'
+        too."""
         prev = self.mult
-        self.mult = prev * n
+        self.mult = self.census.mult = prev * n
         self.scans_repeated |= n > 1
         try:
             yield self
         finally:
-            self.mult = prev
+            self.mult = self.census.mult = prev
 
     def _release(self, ref) -> None:
         key = self._refs.pop(id(ref))[1]
@@ -193,19 +203,21 @@ def trace_step(step, *args,
                repeats_scans: bool = True) -> tuple[dict, object]:
     """Runs ``step(*args)`` on fake tensors under a :class:`StepCounter`.
     Returns ({"flops", "traffic_bytes", "matmul_traffic_bytes",
-    "temp_bytes", "temp_exact"}, the step's fake outputs):
+    "temp_bytes", "temp_exact", "collectives"}, the step's fake outputs):
     ``matmul_traffic_bytes`` is the matmul and convolution term of the
     traffic, ``temp_exact`` False when a scan was counted by its
-    multiplier."""
+    multiplier, ``collectives`` the census's record (``bytes_by_op``,
+    ``count_by_op``, ``total_bytes``; empty off a mesh of ranks)."""
     args, mode = fake_inputs(args)
     counter = StepCounter(args, repeats_scans)
-    with mode, counter:
+    with mode, counter, parallel.counting(counter.census):
         out = step(*args)
     return {"flops": float(counter.flops),
             "traffic_bytes": float(counter.traffic),
             "matmul_traffic_bytes": float(counter.matmul_traffic),
             "temp_bytes": int(counter.peak),
-            "temp_exact": not counter.scans_repeated}, out
+            "temp_exact": not counter.scans_repeated,
+            "collectives": counter.census.record()}, out
 
 
 def analyze_step(step, *args) -> dict[str, float]:

@@ -13,35 +13,55 @@ reference's ``launch/dryrun.py``.
 
 The LM dry run writes one JSON per (arch, shape, mesh) under ``--out``
 (default experiments/dryrun/), named as the reference names it. Its step
-runs once on fake tensors (``launch/specs.py``, ``launch/analysis.py``):
-no tensor storage is allocated and no GPU is touched, so full-scale
-configs run on a host. A record keeps the reference's keys where the
-port has a counterpart:
+runs on fake tensors (``launch/specs.py``, ``launch/analysis.py``): no
+tensor storage is allocated and no GPU is touched, so full-scale configs
+run on a host. It is the reference's proof that the distribution config
+is coherent: a train record traces one rank's step of the port's own
+sharded program at the production mesh's size (256 or 512 ranks), so a
+layout mismatch or an unsupported split fails the record. A record keeps
+the reference's keys where the port has a counterpart:
 
   - ``status``, ``error`` / ``traceback``, ``wall_s``, ``params``,
     ``tokens_per_step``;
   - ``flops`` and ``traffic_bytes`` (GLOBAL, by the reference's rule:
-    ``launch/analysis.py``), and ``matmul_traffic_bytes``, the traffic's
-    matmul and convolution term, which the reference's record lacks: it
-    is the term the two programs count alike (the rest counts ATen ops,
-    not jaxpr equations);
+    ``launch/analysis.py``, from the whole step's trace), and
+    ``matmul_traffic_bytes``, the traffic's matmul and convolution term,
+    which the reference's record lacks: it is the term the two programs
+    count alike (the rest counts ATen ops, not jaxpr equations);
   - ``memory``: ``argument_size_in_bytes`` and ``output_size_in_bytes``
     per device (every leaf cut to its sharding's ``shard_shape``), and
-    ``temp_size_in_bytes``, the trace's peak of live bytes beyond the
-    arguments. That one is marked ``temp_scope: "global"`` (the trace is
-    one program, not a device's share) and ``temp_exact``: False when a
-    scan (the sLSTM's loop over time, the mLSTM's and Mamba2's chunk
-    loops) was counted by its multiplier, whose two traced steps hold
-    what the loop's N would, so the peak is then a lower bound;
-  - ``trace_s`` where the reference has ``lower_s``;
-  - ``collectives``: ``{"measured": false}``. The reference reads them
-    from XLA's compiled HLO; the port runs on one card, which has none.
+    ``temp_size_in_bytes``, a trace's peak of live bytes beyond the
+    arguments, with ``temp_exact`` False when a scan (the sLSTM's loop
+    over time, the mLSTM's and Mamba2's chunk loops) was counted by its
+    multiplier, whose two traced steps hold what the loop's N would, so
+    the peak is then a lower bound. A train record's is PER DEVICE
+    (``temp_scope: "device"``): the peak of rank 0's trace
+    (``launch.specs.rank_traced``: its blocks of the FSDP train state,
+    its rows of the batch, the FSDP leaves gathered where a layer uses
+    them and gathered again in the backward);
+  - ``trace_s`` where the reference has ``lower_s`` (the global trace),
+    and in a train record ``rank_trace_s``, the rank's trace;
+  - ``collectives`` of a train record: the reference's
+    ``collective_bytes`` keys, ``bytes_by_op``, ``count_by_op`` and
+    ``total_bytes``, PER DEVICE: every collective rank 0's step runs
+    (``models/parallel.py``'s, counted where it runs, op names in the
+    reference's vocabulary: ``all-reduce``, ``all-gather``,
+    ``reduce-scatter``), its bytes those of the rank's result, and a
+    collective inside a scan counted times the scan's length, as the
+    reference counts a while body times its trip count. The reference
+    reads its census from the HLO that GSPMD partitioned; the port's
+    collectives are its own layers', so the two differ op by op.
 
-Left out, with no counterpart: ``compile_s``,
+Prefill and decode records keep ``temp_scope: "global"`` and
+``collectives: {"measured": false}``: the reference's dry run shards
+them, but the port's prefill and decode do not run over ranks yet
+(ROADMAP item 20f), so there is no rank program to trace. Left out,
+with no counterpart: ``compile_s``,
 ``memory.generated_code_size_in_bytes``, ``xla_flops_raw`` and
-``xla_bytes_raw`` (XLA's compiler and its cost analysis). A step is
-traced once per (arch, shape, num_groups as the step uses it), and the
-trace serves both meshes where those agree (``launch.specs.traced``).
+``xla_bytes_raw`` (XLA's compiler and its cost analysis). The global
+step is traced once per (arch, shape, num_groups as the step uses it),
+and the trace serves both meshes where those agree
+(``launch.specs.traced``); a rank's trace is one per mesh.
 
 The census CLI (``--fl-census``, ``--fl-async``) writes the reference's
 file names and contents. Both are shapes and host arithmetic: the paper
@@ -105,25 +125,35 @@ def tokens_per_step(cfg, shape) -> int:
 def dry_run_step(cfg, shape, mesh, setup_kw: dict | None = None) -> dict:
     """The measured fields of a record: ``cfg``'s step at ``shape`` on
     ``mesh`` (``launch.specs.setup_for``), traced on fake tensors once
-    for every mesh that shares the trace (``launch.specs.traced``)."""
-    from repro_torch.launch.specs import setup_for, traced
+    for every mesh that shares the trace (``launch.specs.traced``); a
+    train record's temp bytes and collectives per device, from rank 0's
+    trace of the sharded step (``launch.specs.rank_traced``)."""
+    from repro_torch.launch.specs import rank_traced, setup_for, traced
     from repro_torch.models.sharding import shard_bytes
     setup_kw = setup_kw or {}
     step, args, in_sh, out_sh = setup_for(cfg, shape, mesh, **setup_kw)
     counts, out, trace_s = traced(cfg, shape, mesh, step, args, setup_kw)
-    return {"trace_s": trace_s,
-            "memory": {
-                "argument_size_in_bytes": shard_bytes(args, in_sh),
-                "output_size_in_bytes": shard_bytes(out, out_sh),
-                "temp_size_in_bytes": counts["temp_bytes"],
-                # one program's peak, not a device's; a lower bound when
-                # a scan was counted by its multiplier
-                "temp_scope": "global",
-                "temp_exact": counts["temp_exact"]},
-            "flops": counts["flops"],                   # global
-            "traffic_bytes": counts["traffic_bytes"],   # global, estimate
-            "matmul_traffic_bytes": counts["matmul_traffic_bytes"],
-            "collectives": {"measured": False}}
+    rec = {"trace_s": trace_s,
+           "memory": {
+               "argument_size_in_bytes": shard_bytes(args, in_sh),
+               "output_size_in_bytes": shard_bytes(out, out_sh),
+               "temp_size_in_bytes": counts["temp_bytes"],
+               # one program's peak, not a device's; a lower bound when
+               # a scan was counted by its multiplier
+               "temp_scope": "global",
+               "temp_exact": counts["temp_exact"]},
+           "flops": counts["flops"],                   # global
+           "traffic_bytes": counts["traffic_bytes"],   # global, estimate
+           "matmul_traffic_bytes": counts["matmul_traffic_bytes"],
+           "collectives": {"measured": False}}
+    if shape.mode == "train":       # one rank's sharded program
+        dev, _, rank_s = rank_traced(cfg, shape, mesh, setup_kw)
+        rec["rank_trace_s"] = rank_s
+        rec["memory"].update(temp_size_in_bytes=dev["temp_bytes"],
+                             temp_scope="device",
+                             temp_exact=dev["temp_exact"])
+        rec["collectives"] = dev["collectives"]
+    return rec
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
@@ -166,10 +196,13 @@ def run_sweep(archs, shapes, meshes, out_dir: str,
                         continue
                 r = run_one(arch, sh, mp, out_dir)
                 flag = "OK " if r["status"] == "ok" else "ERR"
+                coll = r.get("collectives", {}).get("total_bytes")
                 print(f"{flag} {arch:24s} {sh:12s} {mesh_name:8s} "
                       f"wall={r['wall_s']}s "
                       + (r.get("error", "")[:120] if flag == "ERR" else
-                         f"flops/dev={r['flops']:.3g} coll=n/a"),
+                         f"flops/dev={r['flops']:.3g} "
+                         + ("coll=n/a" if coll is None
+                            else f"coll={coll:.3g}B")),
                       flush=True)
                 results.append(r)
     n_ok = sum(1 for r in results if r["status"] == "ok")

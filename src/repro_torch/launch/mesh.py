@@ -7,7 +7,10 @@ abstract ``meta`` slots: the dry run shards shapes over them and places
 nothing. The host mesh covers the devices that exist; under an
 initialized ``torch.distributed`` process group it covers the world, one
 slot per rank (:func:`init_distributed`, then :func:`make_host_mesh`),
-and keeps each axis's process group for ``models/parallel.py``.
+and keeps each axis's process group for ``models/parallel.py``. A census
+mesh (:func:`census_mesh`) has a mesh's shape and ranks but no process
+group behind it: one rank's step runs on it with every collective counted
+and none sent (the LM dry run's per-device census).
 
 Defined as functions, so importing this module touches no device.
 """
@@ -21,17 +24,27 @@ import torch
 import torch.distributed as dist
 
 
+class CensusGroup:
+    """The stand-in process group of one axis of a census mesh: its size,
+    and no ranks behind it."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis, self.size = axis, size
+
+
 class Mesh:
     """``devices``: an object array of ``torch.device``; ``axis_names``:
     one name per axis of it. A mesh over the ranks of a process group
     also has ``ranks`` (the global rank of each slot, ``devices`` holding
     each rank's device) and ``groups`` (axis name -> the process group of
     this rank's line along that axis); a mesh of one process has
-    neither."""
+    neither. A census mesh also has ``census_rank``, the rank it answers
+    for, and a :class:`CensusGroup` per axis."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...],
                  ranks: np.ndarray | None = None,
-                 groups: dict | None = None):
+                 groups: dict | None = None,
+                 census_rank: int | None = None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-D devices for axes {axis_names}")
@@ -39,6 +52,13 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.ranks = None if ranks is None else np.asarray(ranks)
         self.groups = dict(groups or {})
+        self.census_rank = census_rank
+
+    @property
+    def is_census(self) -> bool:
+        """True for a mesh with no process group behind it, whose
+        collectives are counted and not sent (:func:`census_mesh`)."""
+        return self.census_rank is not None
 
     @property
     def is_distributed(self) -> bool:
@@ -47,10 +67,12 @@ class Mesh:
 
     def coords(self, rank: int | None = None) -> dict[str, int]:
         """Axis name -> the slot index of ``rank`` (default: this
-        process's rank) along it; all zeros on a mesh of one process."""
+        process's rank, or a census mesh's ``census_rank``) along it; all
+        zeros on a mesh of one process."""
         if self.ranks is None:
             return {a: 0 for a in self.axis_names}
-        rank = dist.get_rank() if rank is None else rank
+        if rank is None:
+            rank = self.census_rank if self.is_census else dist.get_rank()
         at = np.argwhere(self.ranks == rank)
         if len(at) != 1:
             raise ValueError(f"rank {rank} is not on mesh {dict(self.shape)}")
@@ -88,6 +110,21 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     slots = np.empty(shape, dtype=object)
     slots.fill(torch.device("meta"))
     return Mesh(slots, axes)
+
+
+def census_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
+    """``mesh``'s shape and slots as a mesh over ranks with no process
+    group behind it: slot i (row-major) is rank i, each axis has a
+    :class:`CensusGroup` of its size, and ``coords()`` answers for
+    ``rank``. Inside ``models.parallel.using`` it the layers take their
+    sharded path, and ``models/parallel.py``'s collectives count and
+    return tensors of their results' shapes without calling
+    ``torch.distributed``: one rank's step, traced on fake tensors at a
+    production mesh's size (``launch.specs.rank_traced``)."""
+    ranks = np.arange(mesh.size).reshape(mesh.devices.shape)
+    groups = {a: CensusGroup(a, n) for a, n in mesh.shape.items()}
+    return Mesh(mesh.devices, mesh.axis_names, ranks=ranks, groups=groups,
+                census_rank=rank)
 
 
 def backend_for(devices) -> str:

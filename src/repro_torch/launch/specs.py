@@ -6,6 +6,12 @@ No tensor storage is ever allocated here: states, params, caches and
 batches are fake tensors of :func:`fake_mode` (the counterpart of the
 reference's ``jax.eval_shape`` and ``ShapeDtypeStruct``), so full-scale
 (34B-param) configs set up on a laptop-class host.
+
+A step is traced twice for a train record: once whole (:func:`traced`,
+the global flops and traffic, shared across meshes) and once as one
+rank of the mesh runs it (:func:`rank_traced`): the sharded program of
+``models/parallel.py`` on a census mesh of the mesh's shape, from that
+rank's blocks of the train state, its collectives counted and none sent.
 """
 from __future__ import annotations
 
@@ -19,9 +25,10 @@ from repro_torch.core.compression import compressible, default_tier_plans
 from repro_torch.core.steps import (TrainState, make_hetero_train_step,
                                     make_prefill_step, make_serve_step)
 from repro_torch.launch.analysis import trace_step
-from repro_torch.launch.mesh import batch_axes, num_batch_shards
-from repro_torch.models import get_model
-from repro_torch.models.sharding import (P, NamedSharding, cache_spec_tree,
+from repro_torch.launch.mesh import batch_axes, census_mesh, num_batch_shards
+from repro_torch.models import get_model, parallel
+from repro_torch.models.sharding import (P, NamedSharding, blocks,
+                                         cache_spec_tree,
                                          make_activation_rules, named,
                                          param_spec_tree, set_rules)
 
@@ -31,6 +38,9 @@ _FAKE = None
 # trace's counts, fake outputs, seconds), shared by the meshes where
 # these agree
 _TRACES: dict = {}
+# (cfg, shape, mesh shape, rank, setup keywords) -> a rank's trace, as
+# _TRACES holds the global ones
+_RANK_TRACES: dict = {}
 
 
 def fake_mode():
@@ -57,6 +67,37 @@ def traced(cfg: ModelConfig, shape: ShapeConfig, mesh, step, args,
         counts, out = trace_step(step, *args)
         _TRACES[key] = counts, out, round(time.time() - t0, 1)
     return _TRACES[key]
+
+
+def rank_traced(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                setup_kw: dict | None = None,
+                rank: int = 0) -> tuple[dict, object, float]:
+    """(counts, fake outputs, seconds) of ``rank``'s train step on
+    ``mesh``'s shape (:func:`train_setup` over
+    ``launch.mesh.census_mesh(mesh, rank)``), traced on fake tensors
+    inside ``parallel.using`` that mesh: the rank's blocks of the FSDP
+    train state (``sharding.blocks``) and the batch, of which the step
+    reads the rank's rows, as every rank of a real mesh does. Its counts'
+    ``collectives`` and ``temp_bytes`` are the rank's; its flops and
+    traffic are the rank's share, not the reference's global ones. Traced
+    once per key of ``_RANK_TRACES``; on a mesh of one device the rank's
+    trace is the global one."""
+    assert shape.mode == "train"
+    key = (cfg, shape, tuple(mesh.shape.items()), rank,
+           tuple(sorted((setup_kw or {}).items())))
+    if key not in _RANK_TRACES:
+        census = census_mesh(mesh, rank)
+        step, (state, batch), (state_sh, _), _ = train_setup(
+            cfg, shape, census, **(setup_kw or {}))
+        if not census.is_distributed:
+            return traced(cfg, shape, mesh, step, (state, batch), setup_kw)
+        with fake_mode():
+            state = blocks(state, state_sh)
+        t0 = time.time()
+        with parallel.using(census):
+            counts, out = trace_step(step, state, batch)
+        _RANK_TRACES[key] = counts, out, round(time.time() - t0, 1)
+    return _RANK_TRACES[key]
 
 
 def window_for(cfg: ModelConfig, shape: ShapeConfig) -> int:

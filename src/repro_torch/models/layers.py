@@ -840,7 +840,9 @@ def scan(cell, carry: tuple, xs: tuple, consts: tuple = ()):
     ``xs``, not closed over. Under a step counter that repeats scans
     (:func:`_scan_counter`) step 0 runs as itself (its carry may need no
     gradient) and step 1 stands for steps 1..N-1, its counts scaled by
-    N - 1: the whole loop's flops, forward and backward."""
+    N - 1: the whole loop's flops, forward and backward, and its
+    collectives (``parallel.Census``), each counted N times as the
+    reference counts a while body's by its trip count."""
     n = xs[0].shape[1]
     counter = _scan_counter()
     if counter is None or n <= 2:

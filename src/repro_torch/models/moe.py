@@ -24,15 +24,16 @@ whose range check reads the device).
 
 Over a mesh of ranks (``models/parallel.py``) the experts may be split
 over "model" (expert parallelism: ``we_*`` hold this rank's ``E / M``
-experts, ``rank("model") * E / M`` the first) and the batch over "data"
-(each rank its rows). The router is replicated: routing, the aux loss
+experts, ``rank("model") * E / M`` the first) and the batch over the
+data axes (``parallel.DATA``: "data", and "pod" where the mesh has one;
+each rank its rows). The router is replicated: routing, the aux loss
 and the capacity positions run on every model rank as on one. Each rank
 gathers and runs only the slots of its experts; each token's f32 sum of
 its local choices' ``gate * out`` is summed over "model" and rounded to
 the compute dtype once. The groups, capacity and positions are those of
 the whole batch: each choice's position comes from its whole group's
-expert choices, gathered over "data", and the expert load (``me``,
-``ce``) is averaged over "data" before its product.
+expert choices, gathered over the data axes, and the expert load
+(``me``, ``ce``) is averaged over them before its product.
 """
 from __future__ import annotations
 
@@ -138,12 +139,12 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1, *,
     """x: (B, T, D) -> (out (B, T, D), aux_loss scalar f32). ``p`` holds
     one layer's ``router.w``, ``we_g``, ``we_i`` and ``we_o``; ``split``:
     its ``we_*`` are this rank's block of the experts over "model". On a
-    mesh whose "data" axis has several ranks, ``x`` is this rank's rows
+    mesh whose data axes have several ranks, ``x`` is this rank's rows
     of the batch (``core.steps``), in rank order."""
     b, t, d = x.shape
     n = b * t
     e, k = cfg.num_experts, cfg.experts_per_token
-    dp = parallel.size("data")
+    dp = parallel.size(parallel.DATA)
     g = _num_groups(n * dp, num_groups)       # of the whole batch
     ng = n * dp // g
     dt = getattr(torch, cfg.dtype)
@@ -165,14 +166,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1, *,
                     dim=(0, 1)) / k
     if dp > 1:          # the whole batch's load, before the product
         me = parallel.mean_over_data(me)
-        ce = parallel.all_reduce(ce, "data") / dp
+        ce = parallel.all_reduce(ce, parallel.DATA) / dp
     aux = cfg.router_aux_weight * e * torch.sum(me * ce)
 
     cap = capacity(ng, cfg)
 
     # --- position of each choice within its expert (token-major) ---
     if dp > 1:          # every group whole: the data ranks' choices
-        whole = parallel.all_gather(top_idx.reshape(n, k), "data", 0)
+        whole = parallel.all_gather(top_idx.reshape(n, k),
+                                    parallel.DATA, 0)
         whole = whole.view(g, ng * k)
         one_hot = whole[..., None] == experts
     else:
@@ -182,7 +184,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, num_groups: int = 1, *,
     pie = before.gather(-1, whole[..., None])[..., 0] - 1     # (g, ng*k)
     keep = pie < cap
     if dp > 1:          # this rank's choices (its rows'), in gl groups
-        c0 = parallel.rank("data") * n * k                    # first choice
+        c0 = parallel.rank(parallel.DATA) * n * k     # first choice
         g0 = c0 // (ng * k)
         gl = (c0 + n * k - 1) // (ng * k) + 1 - g0
         flat = top_idx.reshape(n * k)

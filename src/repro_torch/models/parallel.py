@@ -17,9 +17,10 @@ gathers of leaves split over the data axes too.
 - :func:`gather_to_ranks`: all-gather forward, all-reduce then this
   rank's block backward (a whole tensor of which each rank uses its own
   part, as attention's kv heads under the head_dim fallback);
-- :func:`mean_over_data`: the mean over "data" forward, the gradient
-  passed through whole (the MoE layer's expert load over a batch split
-  by rows, whose step averages the gradients over "data" after);
+- :func:`mean_over_data`: the mean over the data axes (:data:`DATA`)
+  forward, the gradient passed through whole (the MoE layer's expert
+  load over a batch split by rows, whose step averages the gradients
+  over those axes after);
 - :func:`gather_blocks`: all-gather over the data axes forward,
   reduce-scatter backward (the sum over those ranks, this rank's block):
   a leaf of the FSDP train state made whole where a layer uses it; under
@@ -30,7 +31,17 @@ gathers of leaves split over the data axes too.
 holds the current mesh, as ``sharding.set_rules`` holds the hints.
 Outside it, or on a mesh of one process, or along an axis of size 1,
 every function returns its input itself, so the one-process path runs
-exactly the operations it ran before. ``all_reduce``, ``all_gather``
+exactly the operations it ran before.
+
+Every collective passes through one place that counts it into the
+active :class:`Census` (:func:`counting`), with the bytes of its result
+on this rank, beside the real collective on a mesh of ranks. On a census
+mesh (``launch.mesh.census_mesh``: a mesh's shape with no process group
+behind it) the collectives are counted and make their results' shapes
+without calling ``torch.distributed``, so one rank's step of a
+production mesh traces on fake tensors in one process
+(``launch.specs.rank_traced``). With no census active the collectives
+run exactly as without one. ``all_reduce``, ``all_gather``
 and ``reduce_scatter_tensor`` are used: gloo takes all three on CUDA
 tensors (checked on the H100 host with torch 2.11,
 ``launch/probe_collectives.py``), so ranks that share one card need no
@@ -39,11 +50,15 @@ host copy here.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.distributed as dist
 
 _MESH = None
+# the axes a batch is split over by rows, row-major (the multi-pod mesh's
+# "pod" outermost); a mesh without "pod" has "data" alone
+DATA = ("pod", "data")
 
 
 @contextlib.contextmanager
@@ -87,28 +102,111 @@ def group(axis: str, mesh=None):
     return mesh.groups[axis]
 
 
-def size(axis: str) -> int:
-    """The current mesh's size along ``axis``: its ranks there, 1 outside
-    a mesh of several ranks."""
-    return _MESH.shape.get(axis, 1) if multi_rank() else 1
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def rank(axis: str) -> int:
-    return 0 if not multi_rank() else _MESH.coords()[axis]
+def size(axis) -> int:
+    """The current mesh's size along ``axis`` (a name, or a tuple of
+    names: their sizes' product): its ranks there, 1 outside a mesh of
+    several ranks."""
+    if not multi_rank():
+        return 1
+    return math.prod(_MESH.shape.get(a, 1) for a in _axes(axis))
+
+
+def rank(axis) -> int:
+    """This rank's slot along ``axis`` (over a tuple of names, row-major,
+    the last innermost), 0 outside a mesh of several ranks."""
+    if not multi_rank():
+        return 0
+    coords, idx = _MESH.coords(), 0
+    for a in _axes(axis):
+        if a in coords:
+            idx = idx * _MESH.shape[a] + coords[a]
+    return idx
+
+
+# ------------------------------------------------------------- the census
+
+class Census:
+    """The collectives run while it is counting (:func:`counting`): op (the
+    reference's names: ``all-reduce``, ``all-gather``,
+    ``reduce-scatter``) -> how many, and -> the bytes of their results on
+    this rank (a gather's whole tensor, a reduce-scatter's block), each
+    times ``mult``: a scan traced by its multiplier
+    (``launch.analysis.StepCounter.scaled``) counts its body's
+    collectives times its length, as the reference counts a while body
+    times its trip count."""
+
+    def __init__(self):
+        self.count_by_op: dict[str, int] = {}
+        self.bytes_by_op: dict[str, int] = {}
+        self.mult = 1
+
+    def add(self, op: str, nbytes: int) -> None:
+        if self.mult:
+            self.count_by_op[op] = self.count_by_op.get(op, 0) + self.mult
+            self.bytes_by_op[op] = self.bytes_by_op.get(op, 0) \
+                + self.mult * nbytes
+
+    def record(self) -> dict:
+        """The reference's ``collective_bytes`` keys: ``bytes_by_op``,
+        ``count_by_op`` and ``total_bytes``."""
+        return {"bytes_by_op": dict(sorted(self.bytes_by_op.items())),
+                "count_by_op": dict(sorted(self.count_by_op.items())),
+                "total_bytes": sum(self.bytes_by_op.values())}
+
+
+_CENSUS: Census | None = None
+
+
+@contextlib.contextmanager
+def counting(census: Census | None = None):
+    """Counts every collective of the block into ``census`` (a new
+    :class:`Census` by default), which it yields. Outside it nothing is
+    counted."""
+    global _CENSUS
+    census = Census() if census is None else census
+    before, _CENSUS = _CENSUS, census
+    try:
+        yield census
+    finally:
+        _CENSUS = before
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _sent(op: str, nbytes: int, mesh) -> bool:
+    """Counts ``op``, whose result on this rank has ``nbytes``; True where
+    it is to be sent (not on a census mesh, which has no process
+    group)."""
+    if _CENSUS is not None:
+        _CENSUS.add(op, nbytes)
+    return not mesh.is_census
 
 
 # ------------------------------------------- plain (untracked) collectives
+# On a census mesh each makes its result as the real one does, a tensor
+# of its shape and dtype, and calls nothing in ``torch.distributed``.
 
-def all_reduce(x: torch.Tensor, axis: str, op=dist.ReduceOp.SUM,
+def all_reduce(x: torch.Tensor, axis, op=dist.ReduceOp.SUM,
                mesh=None):
     """The all-reduce of ``x`` over ``axis`` of ``mesh`` (default: the
     current one), a new tensor; ``x`` itself where there is nothing to
-    reduce."""
-    g = group(axis, mesh)
-    if g is None:
-        return x
-    out = x.detach().clone()
-    dist.all_reduce(out, op=op, group=g)
+    reduce. Over a tuple of axes, one all-reduce along each in turn."""
+    mesh = _MESH if mesh is None else mesh
+    out = x
+    for a in _axes(axis):
+        g = group(a, mesh)
+        if g is None:
+            continue
+        if out is x:
+            out = x.detach().clone()
+        if _sent("all-reduce", _nbytes(out), mesh):
+            dist.all_reduce(out, op=op, group=g)
     return out
 
 
@@ -118,24 +216,31 @@ def sum_over(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
     rounded once to its dtype. Over two ranks gloo's sum in ``x``'s dtype
     gives the same bits (one addition, rounded once) and moves half the
     bytes, so the cast is made over three ranks or more only."""
-    g = group(axis, mesh)
-    if g is not None and x.dtype in (torch.bfloat16, torch.float16) \
-            and dist.get_world_size(g) > 2:
+    mesh = _MESH if mesh is None else mesh
+    if group(axis, mesh) is not None \
+            and x.dtype in (torch.bfloat16, torch.float16) \
+            and mesh.shape[axis] > 2:
         return all_reduce(x.to(torch.float32), axis, mesh=mesh).to(x.dtype)
     return all_reduce(x, axis, mesh=mesh)
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int,
+def all_gather(x: torch.Tensor, axis, dim: int,
                mesh=None) -> torch.Tensor:
     """The blocks of ``axis``'s ranks concatenated along ``dim``, in rank
-    order; ``x`` itself where there is nothing to gather."""
-    g = group(axis, mesh)
-    if g is None:
-        return x
-    x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-    dist.all_gather(parts, x, group=g)
-    return torch.cat(parts, dim=dim)
+    order; ``x`` itself where there is nothing to gather. Over a tuple of
+    axes (row-major, the last innermost) the innermost is gathered
+    first."""
+    mesh = _MESH if mesh is None else mesh
+    for a in reversed(_axes(axis)):
+        g = group(a, mesh)
+        if g is None:
+            continue
+        x = x.detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.shape[a])]
+        if _sent("all-gather", _nbytes(x) * len(parts), mesh):
+            dist.all_gather(parts, x, group=g)
+        x = torch.cat(parts, dim=dim)
+    return x
 
 
 def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
@@ -145,16 +250,18 @@ def reduce_scatter(x: torch.Tensor, axis: str, dim: int,
     tensor; ``x`` itself where there is nothing to reduce. A bf16 or f16
     ``x`` is summed in f32 over three ranks or more and rounded once, as
     :func:`sum_over` sums."""
+    mesh = _MESH if mesh is None else mesh
     g = group(axis, mesh)
     if g is None:
         return x
-    n = dist.get_world_size(g)
+    n = mesh.shape[axis]
     wide = x.dtype in (torch.bfloat16, torch.float16) and n > 2
     src = x.detach().movedim(dim, 0)
     src = (src.to(torch.float32) if wide else src).contiguous()
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=g)
+    if _sent("reduce-scatter", _nbytes(out), mesh):
+        dist.reduce_scatter_tensor(out, src, group=g)
     return out.to(x.dtype).movedim(0, dim).contiguous()
 
 
@@ -251,7 +358,7 @@ def gather_to_ranks(x: torch.Tensor, dim: int) -> torch.Tensor:
 class _DataMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return all_reduce(x, "data") / size("data")
+        return all_reduce(x, DATA) / size(DATA)
 
     @staticmethod
     def backward(ctx, g):
@@ -259,10 +366,12 @@ class _DataMean(torch.autograd.Function):
 
 
 def mean_over_data(x: torch.Tensor) -> torch.Tensor:
-    """The mean over "data" of each rank's ``x``, its gradient passed to
-    every rank whole: the step averages the ranks' gradients over "data"
-    (``core.steps``), which then sums each rank's share once."""
-    return x if group("data") is None else _DataMean.apply(x)
+    """The mean over the data axes of each rank's ``x``, its gradient
+    passed to every rank whole: the step averages the ranks' gradients
+    over those axes (``core.steps``), which then sums each rank's share
+    once."""
+    return (_DataMean.apply(x) if any(group(a) is not None for a in DATA)
+            else x)
 
 
 # ------------------------------------------------------------------- FSDP

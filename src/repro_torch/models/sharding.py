@@ -336,6 +336,19 @@ def place(tree, shardings):
     return _zip_map(put, tree, shardings)
 
 
+def blocks(tree, shardings):
+    """Each tensor leaf of ``tree`` cut to its block by its sharding
+    (:meth:`NamedSharding.block`, the slots of the mesh's rank), a tensor
+    of its own; fake tensors too, which :func:`place` leaves whole. A
+    None sharding keeps the leaf."""
+    def cut(path, x, s):
+        if s is None or not isinstance(x, torch.Tensor):
+            return x
+        return s.block(x).clone()
+
+    return _zip_map(cut, tree, shardings)
+
+
 def gather(tree, shardings):
     """The inverse of :func:`place` on a mesh over several ranks: each
     leaf whole again on this rank's device (its blocks all-gathered

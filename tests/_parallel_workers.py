@@ -38,7 +38,7 @@ from repro_torch.core.steps import TrainState, make_hetero_train_step
 from repro_torch.data.synthetic import make_train_batch
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch import train as train_mod
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models import decoder as TD
 from repro_torch.models import get_model, parallel
 from repro_torch.models import layers as L
@@ -123,6 +123,9 @@ def one_rank_steps(name: str) -> dict:
 
 
 def _mesh_steps(name: str, mp: int) -> dict:
+    """:func:`one_rank_steps` on the (world / mp, mp) mesh of ranks: the
+    losses, the collectives the last step counted
+    (``parallel.counting``), and the params and moments gathered."""
     cfg = config(name)
     model, opt = get_model(cfg), adamw()
     mesh = make_host_mesh(mp, devices=[CPU])
@@ -134,10 +137,11 @@ def _mesh_steps(name: str, mp: int) -> dict:
     losses = []
     with parallel.using(mesh):
         for i in range(STEPS):
-            state, m = step(state, make_train_batch(cfg, SHAPE, n_tiers=4,
-                                                    seed=3, index=i))
+            with parallel.counting() as census:
+                state, m = step(state, make_train_batch(
+                    cfg, SHAPE, n_tiers=4, seed=3, index=i))
             losses.append(m["loss"].item())
-    return {"losses": losses,
+    return {"losses": losses, "census": census.record(),
             **{k: gather(v, sh["params"]) for k, v in (
                 ("params", state["params"]), ("m", state["opt"]["m"]),
                 ("v", state["opt"]["v"]))}}
@@ -800,7 +804,8 @@ def fsdp_one_rank(name: str) -> dict:
 
 def _fsdp_steps(name: str, mp: int, fsdp: bool, ckpt: str | None) -> dict:
     """:func:`fsdp_one_rank`'s steps on the (world / mp, mp) mesh of ranks,
-    FSDP-placed or on "model" alone: the losses, the params and moments
+    FSDP-placed or on "model" alone: the losses, the collectives the last
+    step counted (``parallel.counting``), the params and moments
     gathered whole, how many params leaves were split over "data", and
     with ``ckpt`` the final state saved there (every rank calls)."""
     cfg = config(name)
@@ -814,16 +819,28 @@ def _fsdp_steps(name: str, mp: int, fsdp: bool, ckpt: str | None) -> dict:
     losses = []
     with parallel.using(mesh):
         for i in range(FSDP_STEPS):
-            state, m = step(state, make_train_batch(
-                cfg, FSDP_SHAPE, n_tiers=4, seed=3, index=i))
+            with parallel.counting() as census:
+                state, m = step(state, make_train_batch(
+                    cfg, FSDP_SHAPE, n_tiers=4, seed=3, index=i))
             losses.append(m["loss"].item())
     if ckpt is not None:
         Checkpointer(ckpt).save(state, FSDP_STEPS, shardings=sh)
-    return {"losses": losses,
+    return {"losses": losses, "census": census.record(),
             "data_split": len(data_splits(sh["params"])),
             **{k: gather(v, sh["params"]) for k, v in (
                 ("params", state["params"]), ("m", state["opt"]["m"]),
                 ("v", state["opt"]["v"]))}}
+
+
+def dry_run_census(name: str, shape, dp: int, mp: int) -> dict:
+    """The LM dry run's collective census of ``name``'s train step at
+    ``shape`` on an abstract (dp, mp) mesh: rank 0's trace on fake tensors
+    (``launch.specs.rank_traced``), no process group behind it."""
+    devices = np.empty((dp, mp), dtype=object)
+    devices.fill(torch.device("meta"))
+    counts, _, _ = specs_mod.rank_traced(config(name), shape,
+                                         Mesh(devices, ("data", "model")))
+    return counts["collectives"]
 
 
 def _fsdp_arg_bytes(mp: int) -> dict:
@@ -848,8 +865,9 @@ def reference_fsdp(arch: str, ref_dir: str, out_dir: str) -> dict:
     config at :data:`FSDP_SHAPE` on the (world / 2, 2) mesh of ranks,
     FSDP-placed by its own shardings, from the reference's init
     checkpoint in ``ref_dir`` (``tests/_reference_fsdp_step.py``), over
-    the reference's three batches: the losses; the final state saved to
-    ``out_dir`` (whole leaves, as the reference's)."""
+    the reference's three batches: the losses, the collectives the last
+    step counted; the final state saved to ``out_dir`` (whole leaves, as
+    the reference's)."""
     cfg = get_smoke_config(arch)
     mesh = make_host_mesh(2, devices=[CPU])
     step, _, (state_sh, _), _ = specs_mod.train_setup(cfg, FSDP_SHAPE, mesh)
@@ -860,12 +878,14 @@ def reference_fsdp(arch: str, ref_dir: str, out_dir: str) -> dict:
     losses = []
     with parallel.using(mesh):
         for i in range(FSDP_STEPS):
-            state, m = step(state, make_train_batch(cfg, FSDP_SHAPE,
-                                                    n_tiers=4, seed=0,
-                                                    index=i))
+            with parallel.counting() as census:
+                state, m = step(state, make_train_batch(cfg, FSDP_SHAPE,
+                                                        n_tiers=4, seed=0,
+                                                        index=i))
             losses.append(m["loss"].item())
     Checkpointer(out_dir).save(state, FSDP_STEPS, shardings=state_sh)
     return {"losses": losses, "mesh": dict(mesh.shape),
+            "census": census.record(),
             "data_split": len(data_splits(state_sh["params"]))}
 
 

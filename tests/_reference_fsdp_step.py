@@ -8,9 +8,12 @@ forces), three steps from its own init; run in a process of its own:
 
 writes the init state as a checkpoint (``OUT_DIR/ARCH/ckpt_00000000.npz``),
 the state after the three steps (``ckpt_00000003.npz``), and
-``OUT_DIR/ARCH/reference.json``: the mesh, the losses and how many
-params leaves the shardings split over "data"."""
+``OUT_DIR/ARCH/reference.json``: the mesh, the losses, how many
+params leaves the shardings split over "data", and the compiled step's
+per-device collective census (the reference dry run's
+``collective_bytes`` of its HLO)."""
 import json
+import os
 import sys
 
 import jax
@@ -47,13 +50,20 @@ def run(arch: str, out: str) -> None:
             batch = make_train_batch(cfg, SHAPE, n_tiers=4, seed=0, index=i)
             state, metrics = jstep(state, batch)
             losses.append(float(metrics["loss"]))
+        hlo = jstep.lower(state, batch).compile().as_text()
     ckpt.save(state, STEPS)
+    # the dry run's module sets XLA_FLAGS when imported; JAX has its 4
+    # devices already, so only the environment is put back
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch.dryrun import collective_bytes
+    os.environ["XLA_FLAGS"] = flags
     split = sum("data" in tuple(s.spec) for s in jax.tree_util.tree_leaves(
         state_sh["params"],
         is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding)))
     with open(f"{out}/reference.json", "w") as f:
         json.dump({"mesh": dict(mesh.shape), "losses": losses,
-                   "data_split": split}, f)
+                   "data_split": split,
+                   "collectives": collective_bytes(hlo)}, f)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,13 @@ tensor's, masks bitwise, three AdamW steps' losses rtol 1e-4 and params
 atol 1e-5 (moments rtol 1e-4 / atol 1e-7) against one rank and against
 the same mesh without FSDP, each gradient summed once, the run's
 checkpoint restored bitwise in one process, and a rank's placed state
-and batch rows against the dry run's argument bytes per device."""
+and batch rows against the dry run's argument bytes per device. Every
+rank counts the collectives of its steps (``parallel.counting``); the
+dry run's census of the same step (one rank's trace on fake tensors, no
+process group) equals each rank's count exactly, and llama's gathers
+and reduce-scatters equal a figure computed from its specs."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -267,6 +273,42 @@ def check_arg_bytes(ranks, world: int, mp: int) -> None:
         assert got["state"] + got["batch"] == want
 
 
+def check_census(ranks, name: str, mp: int, world: int) -> None:
+    """The dry run's census of the FSDP step (rank 0's trace on a census
+    mesh of the same shape) is, op by op, in count and bytes, exactly
+    what every rank counted while it ran the step."""
+    want = W.dry_run_census(name, W.FSDP_SHAPE, world // mp, mp)
+    assert want["count_by_op"]["all-gather"] > 0
+    assert want["count_by_op"]["reduce-scatter"] > 0
+    for res in ranks:
+        assert res["steps"][f"{name} {mp} True"]["census"] == want
+
+
+def check_census_bytes(ranks, world: int, mp: int) -> None:
+    """llama's FSDP collectives from its specs: each of the 4 tiers
+    gathers every data-split leaf's "model" block whole over "data" (in
+    the compute dtype), once for a leaf outside the layer stacks (kept
+    through the backward) and twice for a layer's (once again in the
+    backward, under ``regathering``), and reduce-scatters its gradient
+    once, to this rank's block. Every all-gather and reduce-scatter of
+    the step is one of these."""
+    cfg = W.config("llama3.2-3b")
+    state = TrainState.create(get_model(cfg), W.adamw(), 0, device=CPU)
+    sh = W.fsdp_specs(state, _fake_mesh(world // mp, mp))["params"]
+    item = getattr(torch, cfg.dtype).itemsize
+    gathered = scattered = 0
+    for k, (dim, _) in data_splits(sh).items():
+        blk = math.prod(sh[k].shard_shape(state["params"][k].shape)) * item
+        stacked = k.startswith("layers.")
+        assert not (stacked and dim == 0), k
+        gathered += blk * (world // mp) * (2 if stacked else 1)
+        scattered += blk
+    for res in ranks:
+        got = res["steps"][f"llama3.2-3b {mp} True"]["census"]["bytes_by_op"]
+        assert got["all-gather"] == 4 * gathered
+        assert got["reduce-scatter"] == 4 * scattered
+
+
 @pytest.mark.parametrize("name", W.FSDP_FAMILIES)
 def test_fsdp_state_places_and_gathers_back(ranks, name):
     """Each family's train state FSDP-placed on (2, 1): every leaf this
@@ -330,3 +372,12 @@ def test_data_split_specs(ranks):
     assert isinstance(sh["params"]["embed"], NamedSharding)
     assert ranks[0]["round_trips"]["llama3.2-3b 1"]["data_split"] == len(
         data_splits(sh["params"]))
+
+
+@pytest.mark.parametrize("name", W.FSDP_FAMILIES)
+def test_census_equals_every_fsdp_rank(ranks, name):
+    check_census(ranks, name, 1, WORLD)
+
+
+def test_fsdp_census_bytes_follow_the_specs(ranks):
+    check_census_bytes(ranks, WORLD, 1)

@@ -1,14 +1,17 @@
 """``tests/test_torch_fsdp.py``'s checks on 4 gloo ranks: the FSDP train
 state placed on (4, 1) and (2, 2), its gather's forward and backward
 over 4 data ranks, its masks there, and every family's three AdamW
-steps on (2, 2) against one rank and against (2, 2) without FSDP."""
+steps on (2, 2) against one rank and against (2, 2) without FSDP, and
+the dry run's census of that step against every rank's count."""
 import pytest
 import torch
 
 import _parallel_workers as W
-from test_torch_fsdp import (check_arg_bytes, check_checkpoint, check_gather,
-                             check_masks, check_once, check_regather,
-                             check_round_trip, check_steps, ranks_of)
+from test_torch_fsdp import (check_arg_bytes, check_census,
+                             check_census_bytes, check_checkpoint,
+                             check_gather, check_masks, check_once,
+                             check_regather, check_round_trip, check_steps,
+                             ranks_of)
 
 WORLD = 4
 
@@ -73,3 +76,14 @@ def test_fsdp_checkpoint_restores_in_one_process_4(ranks, out_dir, name):
 
 def test_dry_run_bytes_equal_a_fsdp_rank_4(ranks):
     check_arg_bytes(ranks, WORLD, W.fsdp_step_mesh(WORLD))
+
+
+@pytest.mark.parametrize("name", W.FSDP_FAMILIES)
+def test_census_equals_every_fsdp_rank_4(ranks, name):
+    """On (2, 2) the census counts the "model" axis's collectives beside
+    the FSDP gathers, each as every rank ran it."""
+    check_census(ranks, name, W.fsdp_step_mesh(WORLD), WORLD)
+
+
+def test_fsdp_census_bytes_follow_the_specs_4(ranks):
+    check_census_bytes(ranks, WORLD, W.fsdp_step_mesh(WORLD))

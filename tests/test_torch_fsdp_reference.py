@@ -6,7 +6,10 @@ steps from its own init; the port's ``launch.specs.train_setup`` step on
 4 gloo ranks on (2, 2), placed by its own FSDP shardings from the
 reference's init checkpoint (``tests/_parallel_workers.py``'s
 ``reference_fsdp``): losses rtol 1e-4, every leaf of the final state
-within 1e-5 (names and dtypes equal)."""
+within 1e-5 (names and dtypes equal). The collectives beside each
+other: the port's ranks count exactly the dry run's census of the same
+step; the reference's census of its compiled step has the same keys
+and differs op by op (GSPMD picks its own collectives)."""
 import json
 import subprocess
 import sys
@@ -66,3 +69,22 @@ def test_fsdp_step_matches_the_reference(runs, arch):
         assert port_state[k][1] == dt, k
         np.testing.assert_allclose(port_state[k][0], v, rtol=0, atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_collective_census_beside_the_reference(runs, arch):
+    """On (2, 2) each rank of the port's ``train_setup`` step counts
+    exactly what the dry run's census of it says (rank 0's trace on fake
+    tensors); the reference's census of its compiled step (its dry run's
+    ``collective_bytes`` of the HLO) has the same keys. Both gather the
+    data-split leaves; the reference's partitioner also picks all-to-all
+    and collective-permute, and sums gradients by all-reduce where the
+    port reduce-scatters them, so the two are not held equal."""
+    ref, _, port, _ = runs[arch]
+    want = W.dry_run_census(arch, W.FSDP_SHAPE, 2, 2)
+    assert port["census"] == want
+    theirs = ref["collectives"]
+    assert set(theirs) == set(want) == {"bytes_by_op", "count_by_op",
+                                        "total_bytes"}
+    assert want["count_by_op"]["all-gather"] > 0 \
+        and theirs["count_by_op"]["all-gather"] > 0

@@ -436,3 +436,22 @@ def test_launcher_matches_the_sharded_reference(tmp_path, arch, mp):
     (Hkv 2 over 4); on (2, 2) its one 64-token group a tier straddles
     the data ranks."""
     W.launcher_vs_reference(tmp_path, arch, mp)
+
+
+# (world, name, M) of the steps above run on a (1, M) mesh: there the dry
+# run's FSDP layout splits nothing over its one data rank, so its step
+# is the ranks' step
+CENSUS = [(w, n, m) for w in (2, 4) for n, m in STEPS[w] if m == w]
+
+
+@pytest.mark.parametrize("world,name,mp", CENSUS)
+def test_census_equals_every_rank(ranks, world, name, mp):
+    """The dry run's census of the step (rank 0's trace on fake tensors,
+    no process group: ``launch.specs.rank_traced``) is, op by op, in
+    count and bytes, exactly what every rank counted while it ran it
+    (``parallel.counting``): the dense, MoE and VLM decoders over
+    "model", the vocabulary's and attention's fallbacks included."""
+    want = W.dry_run_census(name, W.SHAPE, world // mp, mp)
+    assert want["count_by_op"]["all-reduce"] > 0
+    for res in ranks(world):
+        assert res["steps"][f"{name} {mp}"]["census"] == want

@@ -182,3 +182,16 @@ def test_recurrent_launcher_matches_the_sharded_reference(tmp_path, arch,
     process. At mp 4 whisper's and Zamba's attention take the head_dim
     fallback (2 kv heads over 4) and xLSTM runs one head a rank."""
     W.launcher_vs_reference(tmp_path, arch, mp)
+
+
+@pytest.mark.parametrize("world,name", [(w, n) for w in (2, 4)
+                                        for n in W.RECURRENT])
+def test_census_equals_every_rank(ranks, world, name):
+    """The dry run's census of each family's step on (1, world) (rank 0's
+    trace on fake tensors, the scans by their multipliers) is, op by op,
+    in count and bytes, exactly what every rank counted while it ran the
+    step, its loops step by step."""
+    want = W.dry_run_census(name, W.SHAPE, 1, world)
+    assert want["count_by_op"]["all-reduce"] > 0
+    for res in ranks(world):
+        assert res["steps"][f"{name} {world}"]["census"] == want
