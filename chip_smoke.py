@@ -3011,7 +3011,8 @@ def phase_train(device) -> dict:
 
 QWEN_MOE = "qwen3-moe-30b-a3b"
 LLAVA = "llava-next-34b"
-WIDE_LAYERS = 4     # qwen3-moe (of 48) and llava (of 60) serve at full width
+WIDE_LAYERS = 2     # qwen3-moe (of 48) and llava (of 60) at full width (4
+                    # until phase mesh (d6) came: phase budget)
 DECODE_STEPS = 8    # the profiled MoE decode window
 HUB_GEN = 2         # tokens of the MoE, VLM and Zamba hubs' checked serve
 
@@ -3281,10 +3282,10 @@ def phase_moe_train(device) -> dict:
 
 # ------------------------------------------------ recurrent families
 
-# xLSTM at its quantized tiers only (the warm-up call serves the hub), the
-# embedded tier's k-means over the 2.11e9-element qkv among them; Zamba at
-# low, and at the hub over HUB_GEN tokens since phase mesh (d3) came
-RECURRENT_SERVE = {XLSTM: ("low", "embedded"), ZAMBA: ("hub", "low")}
+# xLSTM and Zamba at the low tier (the warm-up call serves the hub); the
+# embedded tier's k-means runs in phase serve, and Zamba's hub left since
+# phase mesh (d6) came (phase budget)
+RECURRENT_SERVE = {XLSTM: ("low",), ZAMBA: ("low",)}
 RECURRENT_REPLAY = {XLSTM: 8, ZAMBA: 6}     # one superblock; one application
 RECURRENT_TRAIN = {XLSTM: 8, ZAMBA: 12}     # one superblock; two applications
 RECURRENT_STEPS = 3
@@ -3461,7 +3462,7 @@ MESH_STEPS = 2                      # (a)'s steps (phase budget)
 MESH_MEMORY_RTOL = 0.25             # dry-run bytes vs the card's peak
 MESH_RANKS = 2                      # (d): two ranks share the card over gloo
 MESH_F32 = dict(layers=2, batch=8, seq=256, steps=2)    # (d1), warmup 20
-MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=3)  # (d2), warmup 2
+MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=2)  # (d2), warmup 2
 # (d2): its losses within this x the one rank's bf16-vs-f32 distance D: 2 D
 # by the triangle inequality through the f32 losses, and one D more for the
 # bf16 rounding of each rank's partial sum of a row-split projection
@@ -3487,9 +3488,11 @@ def phase_mesh(device) -> dict:
     --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on a
     one-card host) and at 1: losses and final params bitwise; (b) the LM
     dry run of the same config and shape on that host mesh against the
-    real state, batch and step on the card; (c) one production record;
-    (d) the dense and MoE decoders, xLSTM, Zamba2 and Whisper over two
-    ranks (:func:`_mesh_ranks`). Returns the launches of (a) and (d)."""
+    real state, batch and step on the card; (c) one production record,
+    its collectives and temp per device; (d) the dense and MoE decoders,
+    xLSTM, Zamba2 and Whisper trained over two ranks, and prefill and
+    decode served over them (:func:`_mesh_ranks`). Returns the launches
+    of (a) and (d)."""
     import shutil
 
     import torch
@@ -3576,11 +3579,14 @@ def phase_mesh(device) -> dict:
         r = run_one(LM_ARCH, "decode_32k", False, d)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    mem = r.get("memory", {})
     print(f"mesh: dry run {LM_ARCH} decode_32k 16x16: status={r['status']} "
-          f"wall_s={r['wall_s']} trace_s={r.get('trace_s')} flops="
-          f"{r.get('flops')} traffic_bytes={r.get('traffic_bytes')} "
-          f"argument_bytes_per_device="
-          f"{r.get('memory', {}).get('argument_size_in_bytes')} "
+          f"wall_s={r['wall_s']} trace_s={r.get('trace_s')} rank_trace_s="
+          f"{r.get('rank_trace_s')} flops={r.get('flops')} traffic_bytes="
+          f"{r.get('traffic_bytes')} per device: argument_bytes="
+          f"{mem.get('argument_size_in_bytes')} temp_bytes="
+          f"{mem.get('temp_size_in_bytes')} ({mem.get('temp_scope')}) "
+          f"collectives={json.dumps(r.get('collectives'))} "
           f"{r.get('error', '')}")
     check(r["status"] == "ok", f"mesh: the {LM_ARCH} decode_32k record on "
                                f"16x16 is ok")
@@ -3746,8 +3752,10 @@ def _mesh_ranks(device) -> dict:
     (d5) (d1)'s run on (2, 1) with the FSDP layout, held to (d1)'s
     one-rank run and bars and to its dry-run record (:func:`_check_fsdp`).
     (d2)'s and (d5)'s counted collectives and step peaks against the dry
-    run's per-device census and bytes (:func:`_check_census`). Returns
-    the ranks' launches."""
+    run's per-device census and bytes (:func:`_check_census`). (d6)
+    prefill and decode on (1, 2) of ``MESH_SERVE``'s runs, each rank its
+    blocks of the deployed params and of the cache, against one rank and
+    the dry run (:func:`_check_serve`). Returns the ranks' launches."""
     import shutil
     import socket
 
@@ -3755,7 +3763,9 @@ def _mesh_ranks(device) -> dict:
     try:
         # the one-rank runs, here, and (d2)'s and (d5)'s dry-run records
         parts = [_one_rank_runs(part, device, d) for part in MESH_PARTS]
+        serve_one = _serve_one_rank(device, d)
         dry = _rank_dry_runs()
+        serve_dry = _serve_dry_runs()
 
         # the ranks
         with socket.socket() as sk:
@@ -3804,6 +3814,9 @@ def _mesh_ranks(device) -> dict:
             launches[k] += got[k]
     _check_fsdp(ranks, dry["d5"]["argument_size_in_bytes"])
     _check_census(ranks, dry)
+    _check_serve(ranks, serve_one, serve_dry)
+    launches["fake_quant"] += sum(rk["d6"][tag]["launches"] for rk in ranks
+                                  for tag, *_ in MESH_SERVE)
     return launches
 
 
@@ -4058,7 +4071,8 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
     """One rank of phase mesh's (d), in a process of its own: joins the
     gloo group of ``MESH_RANKS`` on ``port``, runs each part of
     :data:`MESH_PARTS` through ``launch.train`` (its f32 part on its
-    meshes, its bf16 part on (1, 2)), and writes its results to
+    meshes, its bf16 part on (1, 2)), then (d6)
+    (:func:`_mesh_serve_rank`), and writes its results to
     ``directory/rank{rank}.json``."""
     import torch
     import torch.distributed as dist
@@ -4092,6 +4106,7 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
             torch.cuda.empty_cache()
         print(f"rank {rank}: part {f32_key}: {time.perf_counter() - t0:.1f} s",
               flush=True)
+    out["d6"] = _mesh_serve_rank(device, Path(directory))
     (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
@@ -4358,6 +4373,343 @@ def _mesh_bf16_rank(device, cfg, profiled: bool) -> dict:
     if cfg.is_moe:
         out["moe_ms"] = spans.ms()
     return out
+
+
+# (d6): prefill and decode over the same two ranks on (1, 2), each rank
+# its blocks of the deployed params (the tier's compression of the whole
+# params, then placed) and of the cache as cache_spec_tree places it:
+# (tag, arch, layers (None: whole), dtype, the f32 runs' atol against one
+# rank, beside rtol MESH_SERVE_RTOL). Zamba's is the recurrent families'
+# bar of the CPU tests: six Mamba2 layers carry f32 noise of that size
+# (on an H100 80GB HBM3 at 700 W its ranks read 1.58e-5 from one rank in
+# the logits and 1.79e-5 in the shared block's k; at smoke width on the
+# CPU one rank's own f32 k sits 9.1e-6 from its f64 twin)
+MESH_SERVE = (("d6 llama", LM_ARCH, 2, "float32", 1e-5),
+              ("d6 zamba", ZAMBA, 6, "float32", 5e-5),  # one application
+              ("d6 llama whole", LM_ARCH, None, "bfloat16", None))
+MESH_SERVE_TIER = "mid"
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT = 4, 64
+MESH_SERVE_GEN = 8                  # decode steps after the prefill
+MESH_SERVE_RTOL = 1e-4
+
+
+def _serve_cfg(arch: str, layers, dtype: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(dtype=dtype)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def _serve_shapes():
+    from repro_torch.configs import ShapeConfig
+    return (ShapeConfig("p", MESH_SERVE_PROMPT, MESH_SERVE_BATCH, "prefill"),
+            ShapeConfig("d", MESH_SERVE_PROMPT, MESH_SERVE_BATCH, "decode"))
+
+
+def _deploy(cfg, device) -> tuple[dict, int]:
+    """``cfg``'s params from seed 0 on ``device``, compressed for
+    ``MESH_SERVE_TIER`` on the whole leaves (``compress_for_serving``),
+    the compressible leaves then held in the compute dtype, as the dry
+    run's ``_deployed_params`` holds them; and the fake_quant launches
+    the compression made."""
+    import torch
+    from repro_torch.core.compression import DEVICE_TIERS, compressible
+    from repro_torch.core.steps import compress_for_serving
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.models import get_model
+    params = get_model(cfg).init(0, device=device)
+    fake_quant.launches = 0
+    cp = compress_for_serving(params, DEVICE_TIERS[MESH_SERVE_TIER])
+    launches = fake_quant.launches
+    del params
+    dt = getattr(torch, cfg.dtype)
+    return {k: v.to(dt) if compressible(k, v) else v
+            for k, v in cp.items()}, launches
+
+
+def _serve_run(cfg, params, device, mesh=None) -> dict:
+    """``launch.specs``' prefill step on a seeded 4 x 64 prompt, then
+    ``MESH_SERVE_GEN`` decode steps on seeded tokens (positions 64...:
+    the ring of 64 slots wraps), on one device, or with ``mesh`` on this
+    rank's blocks (``params`` placed already), each call's collectives
+    counted: the logits, the cache after the last step (on the host),
+    the censuses, the prefill's seconds and peak, the decode's tokens/s
+    and the run's peak."""
+    import torch
+    from repro_torch.core.steps import make_prefill_step, make_serve_step
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import get_model, parallel
+    b, t = MESH_SERVE_BATCH, MESH_SERVE_PROMPT
+    model = get_model(cfg)
+    prompt = TokenStream(cfg.vocab_size, b, t, seed=0).batch_at(0)[
+        "tokens"][:, :t].to(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = [torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                          device=device, dtype=torch.int32)
+            for _ in range(MESH_SERVE_GEN)]
+    prefill, decode = make_prefill_step(model), make_serve_step(model)
+    out = {"logits": [], "census": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_bytes"] = torch.cuda.memory_allocated()
+    with parallel.using(mesh):
+        t0 = time.perf_counter()
+        with parallel.counting() as c:
+            logits, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["logits"].append(logits.float().cpu())
+        out["census"].append(c.record())
+        t0 = time.perf_counter()
+        for i, tok in enumerate(toks):
+            with parallel.counting() as c:
+                logits, cache = decode(params, cache, tok, t + i)
+            out["logits"].append(logits.float().cpu())
+            out["census"].append(c.record())
+        torch.cuda.synchronize()
+    out["decode_tokens_per_s"] = MESH_SERVE_GEN * b / (time.perf_counter()
+                                                       - t0)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["cache"] = _to_host(cache)
+    return out
+
+
+def _to_host(tree):
+    return ({k: _to_host(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.cpu())
+
+
+def _digests(tree: dict) -> dict:
+    """name -> the sum of each leaf's bit patterns as integers (int64): a
+    placed block against the one-rank deployed leaf's block."""
+    import torch
+    out = {}
+    for k, v in tree.items():
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[v.element_size()]
+        out[k] = int(v.contiguous().view(ints).to(torch.int64).sum())
+    return out
+
+
+def _serve_one_rank(device, d: Path) -> dict:
+    """(d6)'s one-rank runs, here, before the ranks start: each run of
+    ``MESH_SERVE`` deployed and served on the card (its logits and cache
+    saved to ``d`` for the ranks), the deployed leaves' blocks' digests
+    for each rank of (1, MESH_RANKS), its fake_quant launches; for the
+    bf16 run also its f32 twin, whose logits give the bar."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh, census_mesh
+    from repro_torch.models.sharding import named, param_spec_tree
+    slots = np.empty((1, MESH_RANKS), dtype=object)
+    slots.fill(torch.device("meta"))
+    out = {}
+    for tag, arch, layers, dtype, atol in MESH_SERVE:
+        t0 = time.perf_counter()
+        cfg = _serve_cfg(arch, layers, dtype)
+        params, launches = _deploy(cfg, device)
+        specs = param_spec_tree(params, MESH_RANKS)
+        digests = []
+        for r in range(MESH_RANKS):
+            sh = named(census_mesh(Mesh(slots, ("data", "model")), r), specs)
+            digests.append(_digests({k: sh[k].block(v)
+                                     for k, v in params.items()}))
+        run = _serve_run(cfg, params, device)
+        del params
+        torch.cuda.empty_cache()
+        rec = {"launches": launches, "digests": digests,
+               "prefill_s": run["prefill_s"],
+               "decode_tokens_per_s": run["decode_tokens_per_s"],
+               "peak_bytes": run["peak_bytes"]}
+        if dtype == "bfloat16":
+            twin, _ = _deploy(cfg.replace(dtype="float32"), device)
+            f32 = _serve_run(cfg.replace(dtype="float32"), twin, device)
+            del twin
+            torch.cuda.empty_cache()
+            rec["bf16_f32"] = max((a - b).abs().max().item() for a, b in
+                                  zip(run["logits"], f32["logits"]))
+        torch.save({"logits": run["logits"], "cache": run["cache"]},
+                   d / f"serve_{tag.replace(' ', '_')}.pt")
+        out[tag] = rec
+        print(f"mesh ({tag}): one rank: {cfg.name} {cfg.num_layers} layers "
+              f"{dtype} tier {MESH_SERVE_TIER} prefill {MESH_SERVE_BATCH} x "
+              f"{MESH_SERVE_PROMPT} + {MESH_SERVE_GEN} decode steps: "
+              f"prefill_s {run['prefill_s']:.6f} decode_tokens_per_s "
+              f"{run['decode_tokens_per_s']:.3f} peak_bytes "
+              f"{run['peak_bytes']} fake_quant {launches}"
+              + (f" bf16-vs-f32 logits {rec['bf16_f32']:.6g}"
+                 if "bf16_f32" in rec else "")
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _serve_dry_runs() -> dict:
+    """The dry run's per-device figures of each (d6) run's prefill and
+    decode step on an abstract (1, MESH_RANKS) mesh: argument bytes
+    (the setups' shardings) and rank 0's trace (its temp bytes and
+    collectives)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import rank_traced, setup_for
+    from repro_torch.models.sharding import shard_bytes
+    slots = np.empty((1, MESH_RANKS), dtype=object)
+    slots.fill(torch.device("meta"))
+    mesh = Mesh(slots, ("data", "model"))
+    out = {}
+    for tag, arch, layers, dtype, atol in MESH_SERVE:
+        cfg = _serve_cfg(arch, layers, dtype)
+        t0 = time.perf_counter()
+        for shape in _serve_shapes():
+            _, args, in_sh, _ = setup_for(cfg, shape, mesh)
+            counts, _, rank_s = rank_traced(cfg, shape, mesh)
+            rec = out[f"{tag} {shape.mode}"] = {
+                "argument_size_in_bytes": shard_bytes(args, in_sh),
+                "temp_size_in_bytes": counts["temp_bytes"],
+                "collectives": counts["collectives"]}
+            print(f"mesh ({tag}): dry run {cfg.name} {cfg.num_layers} "
+                  f"layers {dtype} {shape.mode} {shape.global_batch} x "
+                  f"{shape.seq_len} on an abstract {dict(mesh.shape)} "
+                  f"mesh (rank_trace_s {rank_s}), per device: "
+                  f"{json.dumps(rec)}")
+        print(f"mesh ({tag}): dry runs {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _mesh_serve_rank(device, directory: Path) -> dict:
+    """(d6) on this rank, (1, MESH_RANKS): each run of ``MESH_SERVE``
+    deployed (the whole params compressed, then placed; the ranks in
+    turns, so that one rank's whole params are on the card at a time),
+    served on the
+    rank's blocks, and held against the one-rank run's logits and its
+    cache's blocks (``cache_spec_tree``) saved in ``directory``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import named_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import _batch_spec
+    from repro_torch.models.sharding import (cache_spec_tree, named,
+                                             param_spec_tree, place)
+    mesh = make_host_mesh(MESH_RANKS, devices=[device])
+    out = {}
+    for tag, arch, layers, dtype, atol in MESH_SERVE:
+        t0 = time.perf_counter()
+        cfg = _serve_cfg(arch, layers, dtype)
+        for r in range(MESH_RANKS):     # in turns: the whole params of
+            if dist.get_rank() == r:    # two ranks do not fit one card
+                whole, launches = _deploy(cfg, device)
+                params = place(whole, named(mesh, param_spec_tree(
+                    whole, MESH_RANKS)))
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        digests = _digests(params)
+        run = _serve_run(cfg, params, device, mesh)
+        del params
+        torch.cuda.empty_cache()
+        one = torch.load(directory / f"serve_{tag.replace(' ', '_')}.pt")
+        csh = named(mesh, cache_spec_tree(
+            one["cache"], _batch_spec(mesh, MESH_SERVE_BATCH), MESH_RANKS))
+        logit_err = [(a - b).abs().max().item()
+                     for a, b in zip(run["logits"], one["logits"])]
+        atol = atol or 0.0
+        logits_close = all(torch.allclose(a, b, rtol=MESH_SERVE_RTOL,
+                                          atol=atol)
+                           for a, b in zip(run["logits"], one["logits"]))
+        cache_err, cache_close, slots_exact = {}, True, True
+        for (name, x), (_, sh), (_, w) in zip(
+                named_leaves(run["cache"]), named_leaves(csh),
+                named_leaves(one["cache"])):
+            w = sh.block(w)
+            if name.endswith("slot_pos"):
+                slots_exact &= torch.equal(x, w)
+                continue
+            x, w = x.float(), w.float()
+            cache_err[name] = [(x - w).abs().max().item(),
+                               w.abs().max().item()]
+            cache_close &= torch.allclose(x, w, rtol=MESH_SERVE_RTOL,
+                                          atol=atol)
+        out[tag] = {"launches": launches, "digests": digests,
+                    "census": run["census"], "logit_err": logit_err,
+                    "logits_close": logits_close, "cache_err": cache_err,
+                    "cache_close": bool(cache_close),
+                    "slots_exact": bool(slots_exact),
+                    "cache_shapes": [list(x.shape) for _, x in
+                                     named_leaves(run["cache"])],
+                    **{k: run[k] for k in (
+                        "prefill_s", "decode_tokens_per_s", "peak_bytes",
+                        "prefill_peak_bytes", "allocated_bytes")}}
+        print(f"part {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _check_serve(ranks: list, one_rank: dict, dry: dict) -> None:
+    """(d6)'s bars: each rank's deployed blocks bitwise the one-rank
+    deployed leaves' blocks (digests), its fake_quant launches the
+    one-rank count; the f32 runs' logits within ``MESH_SERVE_RTOL`` and
+    the run's atol of one rank's and its cache of the one-rank cache's
+    block, ``slot_pos``
+    exact; the bf16 run's logits within ``MESH_BF16_SLACK`` x the
+    one-rank bf16-vs-f32 distance; every call's collectives the dry
+    run's census exactly; argument + temp bytes of the prefill within
+    ``MESH_MEMORY_RTOL`` of the rank's peak over it."""
+    for tag, arch, layers, dtype, atol in MESH_SERVE:
+        one = one_rank[tag]
+        for r, rk in enumerate(ranks):
+            got = rk["d6"][tag]
+            name = f"mesh ({tag}) rank {r} mesh (1, {MESH_RANKS})"
+            print(f"{name}: prefill_s {got['prefill_s']:.6f} decode_tokens_"
+                  f"per_s {got['decode_tokens_per_s']:.3f} peak_bytes "
+                  f"{got['peak_bytes']} (one rank: prefill_s "
+                  f"{one['prefill_s']:.6f} decode_tokens_per_s "
+                  f"{one['decode_tokens_per_s']:.3f} peak_bytes "
+                  f"{one['peak_bytes']}); logits max_abs_err "
+                  f"{max(got['logit_err']):.6g}; the cache's blocks "
+                  f"{got['cache_shapes']}, (max_abs_err, max|one rank|) "
+                  f"per leaf {json.dumps(got['cache_err'])}")
+            check(got["digests"] == one["digests"][r],
+                  f"{name}: the placed params are bitwise the one-rank "
+                  f"deployed leaves' blocks ({len(got['digests'])} leaves)")
+            check(got["launches"] == one["launches"],
+                  f"{name}: fake_quant launched {got['launches']} times "
+                  f"deploying the tier, the one-rank count "
+                  f"{one['launches']}")
+            if dtype == "float32":
+                check(got["logits_close"],
+                      f"{name}: the prefill's and {MESH_SERVE_GEN} decode "
+                      f"steps' logits within rtol {MESH_SERVE_RTOL} / atol "
+                      f"{atol} of one rank's (max "
+                      f"{max(got['logit_err']):.3g})")
+                check(got["cache_close"] and got["slots_exact"],
+                      f"{name}: the cache after the last step within the "
+                      f"same bar of the one-rank cache's block (max "
+                      f"{max(e for e, _ in got['cache_err'].values()):.3g})"
+                      f", slot_pos exact")
+            else:
+                bar = MESH_BF16_SLACK * one["bf16_f32"]
+                check(max(got["logit_err"]) <= bar and got["slots_exact"],
+                      f"{name}: logits within {MESH_BF16_SLACK} x the "
+                      f"one-rank bf16-vs-f32 distance {one['bf16_f32']:.6g} "
+                      f"(max {max(got['logit_err']):.6g}), slot_pos exact")
+            want = [dry[f"{tag} prefill"]["collectives"]] + [
+                dry[f"{tag} decode"]["collectives"]] * MESH_SERVE_GEN
+            print(f"{name}: collectives counted, prefill "
+                  f"{json.dumps(got['census'][0])}, a decode step "
+                  f"{json.dumps(got['census'][1])}")
+            check(got["census"] == want,
+                  f"{name}: the prefill's and each decode step's collectives "
+                  f"== the dry run's per-device census, op by op in count "
+                  f"and bytes")
+            rec = dry[f"{tag} prefill"]
+            est = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+            peak = got["prefill_peak_bytes"]
+            print(f"{name}: dry-run argument + temp bytes per device {est} "
+                  f"against the prefill's peak {peak} ({est / peak:.4f}; "
+                  f"allocated before it {got['allocated_bytes']})")
+            check(abs(est - peak) <= MESH_MEMORY_RTOL * peak,
+                  f"{name}: dry-run argument + per-device temp bytes {est} "
+                  f"within {MESH_MEMORY_RTOL:.0%} of the rank's "
+                  f"max_memory_allocated over the prefill {peak}")
 
 
 # ---------------------------------------------------------------- main

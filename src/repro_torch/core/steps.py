@@ -33,7 +33,9 @@ tensor parallel layers over "model", and each rank of "data" takes its
 rows of each tier's batch; see :func:`make_hetero_train_step`.
 
 ``make_serve_step`` / ``make_prefill_step`` run the model AS DEPLOYED on
-a device tier, with params compressed once by ``compress_for_serving``.
+a device tier, with params compressed once by ``compress_for_serving``;
+on a mesh of several ranks on each rank's blocks of the params and of
+the cache, each data rank its rows of the batch.
 """
 from __future__ import annotations
 
@@ -201,17 +203,61 @@ def compress_for_serving(params: dict, plan: CompressionPlan) -> dict:
     return compress_params(params, plan)[0]
 
 
+def _serve_rows(batch: dict) -> tuple[dict, bool]:
+    """(this data rank's rows of each leaf of a serve batch, the rows
+    first; whether they split): over the data axes (``parallel.DATA``,
+    row-major) where the batch divides over them, as the reference's
+    setups split it (``launch.specs._batch_spec``), else the whole batch
+    (replicated there)."""
+    n, d = parallel.size(parallel.DATA), parallel.rank(parallel.DATA)
+    rows = next(iter(batch.values())).shape[0]
+    if n == 1 or rows % n:
+        return batch, False
+    return {k: v[d * rows // n:(d + 1) * rows // n]
+            for k, v in batch.items()}, True
+
+
+def _on_ranks(run, batch: dict):
+    """``run(rows)`` on this rank's rows of ``batch`` (a whole batch
+    replicated over the data axes where it does not divide: the layers
+    then run as without them, ``parallel.rows_whole``), its logits
+    gathered over the data axes whole on every rank, as the reference's
+    setups return them (replicated)."""
+    rows, split = _serve_rows(batch)
+    with parallel.rows_whole(not split):
+        logits, cache = run(rows)
+    if split:
+        logits = parallel.all_gather(logits, parallel.DATA, 0)
+    return logits, cache
+
+
 def make_serve_step(model, *, window: int = 0, num_groups: int = 1):
+    """The decode step. On a mesh of several ranks (inside
+    ``parallel.using``) ``params`` and ``cache`` are this rank's blocks
+    (``param_spec_tree`` with no FSDP; ``cache_spec_tree``), ``tokens``
+    (B, 1) the whole batch, of which the step takes this data rank's
+    rows, and the logits come back whole on every rank."""
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
+        if parallel.multi_rank():
+            return _on_ranks(lambda rows: model.decode_step(
+                params, cache, rows["tokens"], pos, window=window,
+                num_groups=num_groups), {"tokens": tokens})
         return model.decode_step(params, cache, tokens, pos, window=window,
                                  num_groups=num_groups)
     return serve_step
 
 
 def make_prefill_step(model, *, window: int = 0, num_groups: int = 1):
+    """The prefill step. On a mesh of several ranks ``params`` are this
+    rank's blocks, ``batch`` whole, of which the step takes this data
+    rank's rows; the cache comes back as this rank's block
+    (``cache_spec_tree``), the logits whole on every rank."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        if parallel.multi_rank():
+            return _on_ranks(lambda rows: model.prefill(
+                params, rows, window=window, num_groups=num_groups), batch)
         return model.prefill(params, batch, window=window,
                              num_groups=num_groups)
     return prefill_step

@@ -16,9 +16,10 @@ The LM dry run writes one JSON per (arch, shape, mesh) under ``--out``
 runs on fake tensors (``launch/specs.py``, ``launch/analysis.py``): no
 tensor storage is allocated and no GPU is touched, so full-scale configs
 run on a host. It is the reference's proof that the distribution config
-is coherent: a train record traces one rank's step of the port's own
-sharded program at the production mesh's size (256 or 512 ranks), so a
-layout mismatch or an unsupported split fails the record. A record keeps
+is coherent: every record (train, prefill, decode) traces one rank's
+step of the port's own sharded program at the production mesh's size
+(256 or 512 ranks), so a layout mismatch or an unsupported split fails
+the record. A record keeps
 the reference's keys where the port has a counterpart:
 
   - ``status``, ``error`` / ``traceback``, ``wall_s``, ``params``,
@@ -34,29 +35,28 @@ the reference's keys where the port has a counterpart:
     arguments, with ``temp_exact`` False when a scan (the sLSTM's loop
     over time, the mLSTM's and Mamba2's chunk loops) was counted by its
     multiplier, whose two traced steps hold what the loop's N would, so
-    the peak is then a lower bound. A train record's is PER DEVICE
+    the peak is then a lower bound. It is PER DEVICE
     (``temp_scope: "device"``): the peak of rank 0's trace
-    (``launch.specs.rank_traced``: its blocks of the FSDP train state,
-    its rows of the batch, the FSDP leaves gathered where a layer uses
-    them and gathered again in the backward);
+    (``launch.specs.rank_traced``: of a train step, its blocks of the
+    FSDP train state and its rows of the batch, the FSDP leaves gathered
+    where a layer uses them and gathered again in the backward; of a
+    prefill, its blocks of the deployed params and its rows; of a decode
+    step, its blocks of the deployed params and of the cache as
+    ``cache_spec_tree`` places it);
   - ``trace_s`` where the reference has ``lower_s`` (the global trace),
-    and in a train record ``rank_trace_s``, the rank's trace;
-  - ``collectives`` of a train record: the reference's
-    ``collective_bytes`` keys, ``bytes_by_op``, ``count_by_op`` and
-    ``total_bytes``, PER DEVICE: every collective rank 0's step runs
-    (``models/parallel.py``'s, counted where it runs, op names in the
-    reference's vocabulary: ``all-reduce``, ``all-gather``,
-    ``reduce-scatter``), its bytes those of the rank's result, and a
-    collective inside a scan counted times the scan's length, as the
-    reference counts a while body times its trip count. The reference
-    reads its census from the HLO that GSPMD partitioned; the port's
-    collectives are its own layers', so the two differ op by op.
+    and ``rank_trace_s``, the rank's trace;
+  - ``collectives``: the reference's ``collective_bytes`` keys,
+    ``bytes_by_op``, ``count_by_op`` and ``total_bytes``, PER DEVICE:
+    every collective rank 0's step runs (``models/parallel.py``'s,
+    counted where it runs, op names in the reference's vocabulary:
+    ``all-reduce``, ``all-gather``, ``reduce-scatter``), its bytes those
+    of the rank's result, and a collective inside a scan counted times
+    the scan's length, as the reference counts a while body times its
+    trip count. The reference reads its census from the HLO that GSPMD
+    partitioned; the port's collectives are its own layers', so the two
+    differ op by op.
 
-Prefill and decode records keep ``temp_scope: "global"`` and
-``collectives: {"measured": false}``: the reference's dry run shards
-them, but the port's prefill and decode do not run over ranks yet
-(ROADMAP item 20f), so there is no rank program to trace. Left out,
-with no counterpart: ``compile_s``,
+Left out, with no counterpart: ``compile_s``,
 ``memory.generated_code_size_in_bytes``, ``xla_flops_raw`` and
 ``xla_bytes_raw`` (XLA's compiler and its cost analysis). The global
 step is traced once per (arch, shape, num_groups as the step uses it),
@@ -125,35 +125,29 @@ def tokens_per_step(cfg, shape) -> int:
 def dry_run_step(cfg, shape, mesh, setup_kw: dict | None = None) -> dict:
     """The measured fields of a record: ``cfg``'s step at ``shape`` on
     ``mesh`` (``launch.specs.setup_for``), traced on fake tensors once
-    for every mesh that shares the trace (``launch.specs.traced``); a
-    train record's temp bytes and collectives per device, from rank 0's
-    trace of the sharded step (``launch.specs.rank_traced``)."""
+    for every mesh that shares the trace (``launch.specs.traced``); its
+    temp bytes and collectives per device, from rank 0's trace of the
+    sharded step (``launch.specs.rank_traced``)."""
     from repro_torch.launch.specs import rank_traced, setup_for, traced
     from repro_torch.models.sharding import shard_bytes
     setup_kw = setup_kw or {}
     step, args, in_sh, out_sh = setup_for(cfg, shape, mesh, **setup_kw)
     counts, out, trace_s = traced(cfg, shape, mesh, step, args, setup_kw)
-    rec = {"trace_s": trace_s,
-           "memory": {
-               "argument_size_in_bytes": shard_bytes(args, in_sh),
-               "output_size_in_bytes": shard_bytes(out, out_sh),
-               "temp_size_in_bytes": counts["temp_bytes"],
-               # one program's peak, not a device's; a lower bound when
-               # a scan was counted by its multiplier
-               "temp_scope": "global",
-               "temp_exact": counts["temp_exact"]},
-           "flops": counts["flops"],                   # global
-           "traffic_bytes": counts["traffic_bytes"],   # global, estimate
-           "matmul_traffic_bytes": counts["matmul_traffic_bytes"],
-           "collectives": {"measured": False}}
-    if shape.mode == "train":       # one rank's sharded program
-        dev, _, rank_s = rank_traced(cfg, shape, mesh, setup_kw)
-        rec["rank_trace_s"] = rank_s
-        rec["memory"].update(temp_size_in_bytes=dev["temp_bytes"],
-                             temp_scope="device",
-                             temp_exact=dev["temp_exact"])
-        rec["collectives"] = dev["collectives"]
-    return rec
+    dev, _, rank_s = rank_traced(cfg, shape, mesh, setup_kw)
+    return {"trace_s": trace_s,
+            "rank_trace_s": rank_s,
+            "memory": {
+                "argument_size_in_bytes": shard_bytes(args, in_sh),
+                "output_size_in_bytes": shard_bytes(out, out_sh),
+                # one rank's peak; a lower bound when a scan was counted
+                # by its multiplier
+                "temp_size_in_bytes": dev["temp_bytes"],
+                "temp_scope": "device",
+                "temp_exact": dev["temp_exact"]},
+            "flops": counts["flops"],                   # global
+            "traffic_bytes": counts["traffic_bytes"],   # global, estimate
+            "matmul_traffic_bytes": counts["matmul_traffic_bytes"],
+            "collectives": dev["collectives"]}
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,

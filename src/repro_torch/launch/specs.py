@@ -7,11 +7,13 @@ batches are fake tensors of :func:`fake_mode` (the counterpart of the
 reference's ``jax.eval_shape`` and ``ShapeDtypeStruct``), so full-scale
 (34B-param) configs set up on a laptop-class host.
 
-A step is traced twice for a train record: once whole (:func:`traced`,
-the global flops and traffic, shared across meshes) and once as one
-rank of the mesh runs it (:func:`rank_traced`): the sharded program of
+A step is traced twice for a record: once whole (:func:`traced`, the
+global flops and traffic, shared across meshes) and once as one rank of
+the mesh runs it (:func:`rank_traced`): the sharded program of
 ``models/parallel.py`` on a census mesh of the mesh's shape, from that
-rank's blocks of the train state, its collectives counted and none sent.
+rank's blocks of the train state (train), of the deployed params
+(prefill) or of the deployed params and the cache (decode), its
+collectives counted and none sent.
 """
 from __future__ import annotations
 
@@ -72,30 +74,36 @@ def traced(cfg: ModelConfig, shape: ShapeConfig, mesh, step, args,
 def rank_traced(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 setup_kw: dict | None = None,
                 rank: int = 0) -> tuple[dict, object, float]:
-    """(counts, fake outputs, seconds) of ``rank``'s train step on
-    ``mesh``'s shape (:func:`train_setup` over
-    ``launch.mesh.census_mesh(mesh, rank)``), traced on fake tensors
-    inside ``parallel.using`` that mesh: the rank's blocks of the FSDP
-    train state (``sharding.blocks``) and the batch, of which the step
-    reads the rank's rows, as every rank of a real mesh does. Its counts'
-    ``collectives`` and ``temp_bytes`` are the rank's; its flops and
-    traffic are the rank's share, not the reference's global ones. Traced
-    once per key of ``_RANK_TRACES``; on a mesh of one device the rank's
-    trace is the global one."""
-    assert shape.mode == "train"
+    """(counts, fake outputs, seconds) of ``rank``'s step on ``mesh``'s
+    shape (:func:`setup_for` over ``launch.mesh.census_mesh(mesh,
+    rank)``), traced on fake tensors inside ``parallel.using`` that mesh.
+    A train step takes the rank's blocks of the FSDP train state
+    (``sharding.blocks``) and the batch, of which it reads the rank's
+    rows, as every rank of a real mesh does; a prefill step the rank's
+    blocks of the deployed params and the batch; a decode step the
+    rank's blocks of the deployed params and of the cache
+    (``cache_spec_tree``) and the tokens. Its counts' ``collectives`` and
+    ``temp_bytes`` are the rank's; its flops and traffic are the rank's
+    share, not the reference's global ones. Traced once per key of
+    ``_RANK_TRACES``; on a mesh of one device the rank's trace is the
+    global one."""
     key = (cfg, shape, tuple(mesh.shape.items()), rank,
            tuple(sorted((setup_kw or {}).items())))
     if key not in _RANK_TRACES:
         census = census_mesh(mesh, rank)
-        step, (state, batch), (state_sh, _), _ = train_setup(
-            cfg, shape, census, **(setup_kw or {}))
+        step, args, in_sh, _ = setup_for(cfg, shape, census,
+                                         **(setup_kw or {}))
         if not census.is_distributed:
-            return traced(cfg, shape, mesh, step, (state, batch), setup_kw)
+            return traced(cfg, shape, mesh, step, args, setup_kw)
+        # the state, params and cache as the rank's blocks; the batch and
+        # the tokens whole (the step reads the rank's rows)
+        cut = (0,) if shape.mode != "decode" else (0, 1)
         with fake_mode():
-            state = blocks(state, state_sh)
+            args = tuple(blocks(a, sh) if i in cut else a
+                         for i, (a, sh) in enumerate(zip(args, in_sh)))
         t0 = time.time()
         with parallel.using(census):
-            counts, out = trace_step(step, state, batch)
+            counts, out = trace_step(step, *args)
         _RANK_TRACES[key] = counts, out, round(time.time() - t0, 1)
     return _RANK_TRACES[key]
 

@@ -38,7 +38,11 @@ reference's dry run lays out its train state (``launch/specs.py``'s
 ``train_setup``): ``param_spec_tree(state, M, fsdp=(("data",), world /
 M))``, each leaf's largest dim left after the "model" one split over
 "data" too, every leaf gathered where a layer uses it and its gradient
-reduce-scattered (``layers.Blocks``). Serving over ranks is item 20f.
+reduce-scattered (``layers.Blocks``). Prefill and decode run over
+ranks through ``launch/specs.py``'s ``prefill_setup`` and
+``decode_setup`` steps (each rank its blocks of the deployed params and
+of the cache); the serve launcher, as the reference's, serves on one
+device.
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ every family here runs on each rank's blocks of the leaves, split over
 (``moe.moe_apply``), the projector's output columns, the embedding and
 ``lm_head`` on the vocabulary or d_model (:func:`vocab_layout`). Each
 layer finds its layout from its leaves' shapes against ``cfg``. Prefill
-and decode refuse such a mesh (ROADMAP item 20f).
+and decode run there too, on each rank's blocks of the deployed params
+and of the cache (:func:`prefill`, :func:`decode_step`).
 """
 from __future__ import annotations
 
@@ -192,32 +193,59 @@ def loss_fn(params: dict, batch: dict, cfg, *, num_groups: int = 1):
 
 # ---------------------------------------------------------------- prefill
 
+def serve_logits(params, x, cfg):
+    """:func:`unembed_head` of ``x`` by the head's vocabulary layout, the
+    logits whole on every rank (this rank's block of the vocabulary
+    gathered where the head splits it): what a prefill and a decode step
+    return on a mesh of several ranks."""
+    layout = head_layout(params, cfg)
+    logits = unembed_head(params, x, cfg, layout)
+    return (parallel.gather_from_model(logits, -1) if layout == L.VOCAB
+            else logits)
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
             window: int = 0, num_groups: int = 1):
     """Full-sequence forward that also fills the KV cache, patches (VLM)
     first: the cache covers P + T positions. Returns (last-token logits
     (B, 1, V), cache). Always the chunked attention, whatever
-    ``cfg.use_flash`` says, as in the reference."""
-    parallel.refuse("prefill", "20f")
+    ``cfg.use_flash`` says, as in the reference.
+
+    On a mesh of several ranks ``params`` are this rank's blocks
+    (``param_spec_tree`` with no FSDP) and ``tokens`` its rows
+    (``core.steps.make_prefill_step``): the attention runs as
+    ``layers.attn_prefill_ranks`` says, and each layer's k and v, whole
+    on every rank, are cut to this rank's block of the cache as
+    ``sharding.cache_spec_tree`` places it (``layers.cache_block``: the
+    sequence axis on "model", else the kv heads, else head_dim). The
+    logits are whole (``serve_logits``)."""
+    ranks = parallel.multi_rank()
     x = _embed_inputs(params, tokens, cfg, patches)
     b, t = x.shape[0], x.shape[1]
     pos = torch.arange(t, device=x.device)
     ks, vs = [], []
     for lp in _layers(params):
         h_in = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = L.rope(L.proj(lp["attn"], "wq", h_in), pos, cfg.rope_theta)
-        k = L.rope(L.proj(lp["attn"], "wk", h_in), pos, cfg.rope_theta)
-        v = L.proj(lp["attn"], "wv", h_in)
-        o = L.chunked_attention(q, k, v, causal=True, window=window)
-        x, _ = _ffn(lp, x + L.proj(lp["attn"], "wo", o.reshape(b, t, -1)),
-                    cfg, num_groups)
+        if ranks:
+            h, k, v = L.attn_prefill_ranks(lp["attn"], h_in, cfg,
+                                           window=window)
+            x, _ = _ffn(lp, x + h, cfg, num_groups)
+            k, v = L.cache_block(k, "k"), L.cache_block(v, "v")
+        else:
+            q = L.rope(L.proj(lp["attn"], "wq", h_in), pos, cfg.rope_theta)
+            k = L.rope(L.proj(lp["attn"], "wk", h_in), pos, cfg.rope_theta)
+            v = L.proj(lp["attn"], "wv", h_in)
+            o = L.chunked_attention(q, k, v, causal=True, window=window)
+            x, _ = _ffn(lp, x + L.proj(lp["attn"], "wo",
+                                       o.reshape(b, t, -1)),
+                        cfg, num_groups)
         ks.append(k)
         vs.append(v)
     cache = {"layers": {
         "k": torch.stack(ks), "v": torch.stack(vs),
         "slot_pos": torch.arange(t, dtype=torch.int32, device=x.device)
         .expand(cfg.num_layers, t).contiguous()}}
-    return unembed_head(params, x[:, -1:, :], cfg), cache
+    return serve_logits(params, x[:, -1:, :], cfg), cache
 
 
 # ----------------------------------------------------------------- decode
@@ -239,13 +267,15 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
     batch). Writes the cache in place and returns (logits (B, 1, V),
     cache). A sliding window needs no mask here: the ring of
     ``cache_len`` slots keeps only the newest positions, so ``window``
-    passes to the attention, which ignores it, as in the reference."""
-    parallel.refuse("decode", "20f")
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    passes to the attention, which ignores it, as in the reference. On a
+    mesh of several ranks ``cache`` is this rank's block of it, as
+    :func:`prefill` returns it (``layers.attn_decode``)."""
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     c = cache["layers"]
     for i, lp in enumerate(_layers(params)):
         cl = {"k": c["k"][i], "v": c["v"][i], "slot_pos": c["slot_pos"][i]}
         h, _ = L.attn_decode(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                              cl, int(pos), cfg, window=window)
         x, _ = _ffn(lp, x + h, cfg, num_groups)
-    return unembed_head(params, x, cfg), cache
+    return serve_logits(params, x, cfg), cache

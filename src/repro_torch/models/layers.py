@@ -18,6 +18,7 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import parallel
+from repro_torch.models.sharding import cache_model_dim, slot_range
 
 
 def init_dense(generator: torch.Generator, d_in: int, d_out, *,
@@ -219,16 +220,38 @@ def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
     }
 
 
+def _model_block(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (whole) cut to this rank's block over "model" along each dim
+    past the first two where ``like`` (a block of the same leaf) is
+    smaller: a cache block's kv heads or head_dim. ``t`` itself where
+    none is."""
+    for d in range(2, t.dim()):
+        if like.shape[d] != t.shape[d]:
+            t = parallel.block(t, "model", d)
+    return t
+
+
 def kv_cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                     pos: int) -> dict:
     """Insert one step (B, 1, Hkv, hd) at slot pos % W, in place. The
     reference writes the slot with a masked select over the whole cache
     (an elementwise op that partitions across a sharded sequence axis);
     on one card the in-place slot write gives the same values and moves
-    only the slot's bytes."""
-    slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    only the slot's bytes. On a mesh of several ranks ``cache`` is this
+    rank's block, as ``sharding.cache_spec_tree`` places it, and
+    ``k_new`` / ``v_new`` are whole: where the block is a block of the
+    slots (the sequence axis on "model") the rank that holds the slot
+    writes it, where it is a block of the kv heads or of head_dim every
+    rank writes its block of the step; ``slot_pos`` (whole on every rank)
+    is written everywhere."""
+    n = cache["slot_pos"].shape[0]
+    slot = pos % n
+    lo, hi = slot_range(cache["k"].shape[1], n)
+    if lo <= slot < hi:
+        cache["k"][:, slot - lo] = _model_block(
+            k_new, cache["k"])[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - lo] = _model_block(
+            v_new, cache["v"])[:, 0].to(cache["v"].dtype)
     cache["slot_pos"][slot] = pos
     return cache
 
@@ -249,6 +272,86 @@ def decode_attention(q: torch.Tensor, cache: dict, *,
         ~valid[None, None, None, :], -1e30)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor | None, n_slots: int,
+                   kv_heads: int) -> torch.Tensor:
+    """One query step's attention on a mesh of several ranks, against
+    this rank's block of a cache of ``n_slots`` slots and ``kv_heads``
+    kv heads (``sharding.cache_spec_tree``'s rule: the slots over
+    "model", else the kv heads, else head_dim; or whole). q: (B, 1, H,
+    hd) whole; k, v: the block (B, S', Hkv', hd'); ``valid``: which of
+    the block's slots are written (None: all). Returns the output (B, 1,
+    H, hd) whole on every rank, as :func:`decode_attention` (masked) or
+    ``cross_attn_decode`` (unmasked) computes it on one card.
+
+    - Slots: flash-decoding. Each rank scores every head against its
+      slots; the softmax takes the max and the sum of exponentials over
+      the ranks (``parallel.softmax_over``), and the ranks' partial
+      ``p @ v`` are summed (``parallel.sum_over``).
+    - kv heads: each rank runs the q heads that read its kv heads, a
+      whole softmax, and the heads' outputs are gathered.
+    - head_dim: each rank's partial dot products over its block of
+      head_dim are summed into the whole scores, and the outputs' blocks
+      of head_dim gathered."""
+    hd = q.shape[-1]
+    rep = q.shape[2] // kv_heads
+    heads = k.shape[2] != kv_heads
+    dims = k.shape[3] != hd
+    if heads:                   # the q heads of this rank's kv heads
+        hl = k.shape[2] * rep
+        q = q.narrow(2, parallel.rank("model") * hl, hl)
+    elif dims:
+        q = q.narrow(3, parallel.rank("model") * k.shape[3], k.shape[3])
+    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if dims:
+        scores = parallel.sum_over(scores, "model")
+    scores = (scores * (1.0 / math.sqrt(hd))).to(torch.float32)
+    if valid is not None:
+        scores = scores.masked_fill(~valid[None, None, None, :], -1e30)
+    slots = k.shape[1] != n_slots
+    p = (parallel.softmax_over(scores, "model") if slots
+         else torch.softmax(scores, dim=-1)).to(v.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    if slots:
+        return parallel.sum_over(o, "model")
+    if heads or dims:
+        return parallel.gather_from_model(o, -2 if heads else -1)
+    return o
+
+
+def cache_block(x: torch.Tensor, name: str, whole=None) -> torch.Tensor:
+    """This rank's block over "model" of the cache leaf ``name`` (one
+    layer's, or stacked; its batch rows already this rank's): the dim
+    that ``sharding.cache_spec_tree``'s rule puts on "model" for the
+    leaf's ``whole`` shape (default: ``x``'s own), cut where ``x`` is
+    whole along it, and ``x`` itself where it already holds a block (a
+    recurrent state computed on this rank's heads), on one rank, or
+    where the rule splits nothing. The block is a tensor of its own."""
+    if parallel.group("model") is None:
+        return x
+    whole = tuple(x.shape) if whole is None else tuple(whole)
+    m = parallel.size("model")
+    dim = cache_model_dim(name, whole, m)
+    if dim is None or x.shape[dim] != whole[dim]:
+        return x
+    n = x.shape[dim] // m
+    # a copy of its own: a view would keep the whole leaf alive (a block of
+    # the slots of one row is contiguous, so .contiguous() would not copy)
+    return x.narrow(dim, parallel.rank("model") * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+def cache_whole(x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """A cache leaf's block ``x`` gathered whole along ``dim`` (of size
+    ``full`` whole) where it is a block there, ``x`` itself elsewhere: a
+    recurrent state that a decode step runs whole where its heads do not
+    split (the rule's fallback dim), kept as the block between steps."""
+    if x.shape[dim] == full:
+        return x
+    return parallel.all_gather(x, "model", dim)
 
 
 def init_attn(generator: torch.Generator, cfg) -> dict:
@@ -327,12 +430,10 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     its columns, gathered whole."""
     b, t, _ = x.shape
     src = x if kv_src is None else kv_src
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
     lay = {n: _qkv_layout(p[n + ".w"], h if n == "wq" else hkv, cfg)
            for n in ("wq", "wk", "wv")}
-    wo = p["wo.w"]
-    wo_rows, wo_cols = wo.shape[-2] != h * hd, wo.shape[-1] != cfg.d_model
-    forms = {}                   # each input's split forms, made once
+    forms = {}                  # each input's split forms, made once
 
     def form(inp, kind):
         key = (id(inp), kind == D_MODEL)
@@ -374,7 +475,17 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     attend = (flash_attention if getattr(cfg, "use_flash", False)
               else chunked_attention)
     o = attend(q, k, v, causal=causal and kv_src is None, window=window)
-    o = o.reshape(b, t, -1)
+    return _attn_out(p, o.reshape(b, t, -1), cfg, local)
+
+
+def _attn_out(p: dict, o: torch.Tensor, cfg, local: bool) -> torch.Tensor:
+    """``wo`` of the attention's output ``o`` (..., H * hd): ``local``,
+    ``o`` holds this rank's q heads, else every head. ``wo``'s rows may
+    be this rank's block (a partial output, summed), its columns a block
+    (gathered whole), or it is whole."""
+    wo = p["wo.w"]
+    wo_rows = wo.shape[-2] != cfg.num_heads * cfg.head_dim
+    wo_cols = wo.shape[-1] != cfg.d_model
     if local and not wo_rows:    # wo whole or on d_model: every head
         o, local = parallel.gather_from_model(o, -1), False
     if wo_rows:                  # this rank's rows: a partial output
@@ -389,11 +500,83 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     return _with_bias(p, "wo", y)
 
 
+def qkv_whole(p: dict, name: str, x: torch.Tensor, heads: int,
+               cfg) -> torch.Tensor:
+    """The projection ``name`` (q, k or v: ``heads`` heads) of ``x``
+    (replicated over "model"), whole on every rank, whatever block of
+    its leaf this rank holds (:func:`_qkv_layout`): a block of the heads
+    or of head_dim is gathered, a block of d_model's partial sums summed.
+    No gradient is taken (prefill and decode)."""
+    w = p[name + ".w"]
+    kind = _qkv_layout(w, heads, cfg)
+    if kind is None:
+        return proj(p, name, x)
+    if kind == D_MODEL:
+        y = dense(w.reshape(w.shape[0], -1), None,
+                  parallel.split_to_model(x, -1))
+        y = parallel.reduce_from_model(y).reshape(*x.shape[:-1],
+                                                  *w.shape[1:])
+        return _with_bias(p, name, y)
+    return parallel.gather_from_model(proj(p, name, x),
+                                      -2 if kind == HEADS else -1)
+
+
+def attn_prefill_ranks(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
+                       use_rope: bool = True):
+    """A prefill's causal self-attention over x (B, T, D) on a mesh of
+    several ranks, each rank its blocks of the leaves: (y, k, v), where k
+    and v (B, T, Hkv, hd) are whole on every rank for the cache (the
+    caller keeps its block, :func:`cache_block`). Where q's leaf is split
+    on its heads each rank attends with its own q heads over the kv heads
+    they read, and ``wo``'s rows of those heads give a partial output,
+    summed; otherwise every rank attends with every head. Always the
+    chunked attention, as the one-card prefill."""
+    b, t, _ = x.shape
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    local = _qkv_layout(p["wq.w"], h, cfg) == HEADS
+    q = proj(p, "wq", x) if local else qkv_whole(p, "wq", x, h, cfg)
+    k = qkv_whole(p, "wk", x, hkv, cfg)
+    v = qkv_whole(p, "wv", x, hkv, cfg)
+    if use_rope:
+        pos = torch.arange(t, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    kq, vq = k, v
+    if local:
+        hl = q.shape[2]
+        h0 = parallel.rank("model") * hl
+        kq, vq = (_kv_heads(t_, h0, hl, h // hkv) for t_ in (k, v))
+    o = chunked_attention(q, kq, vq, causal=True, window=window)
+    return _attn_out(p, o.reshape(b, t, -1), cfg, local), k, v
+
+
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,
                 window: int = 0, use_rope: bool = True):
     """Single-step decode. x: (B, 1, D); pos: int. Returns (y, cache).
-    ``window`` passes to :func:`decode_attention` (no effect there)."""
+    ``window`` passes to :func:`decode_attention` (no effect there).
+
+    On a mesh of several ranks ``cache`` is this rank's block
+    (``sharding.cache_spec_tree``) and the leaves its blocks: q, k and v
+    are made whole on every rank (their blocks gathered, or their
+    partial sums over d_model summed), the step's k and v written into
+    the block (:func:`kv_cache_update`), the attention run against it
+    (:func:`_attend_blocks`) and ``wo`` takes the whole output."""
     b = x.shape[0]
+    if parallel.multi_rank():
+        q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
+        k = qkv_whole(p, "wk", x, cfg.num_kv_heads, cfg)
+        if use_rope:
+            ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+            q = rope(q, ppos, cfg.rope_theta)
+            k = rope(k, ppos, cfg.rope_theta)
+        cache = kv_cache_update(cache, k, qkv_whole(
+            p, "wv", x, cfg.num_kv_heads, cfg), pos)
+        n = cache["slot_pos"].shape[0]
+        lo, hi = slot_range(cache["k"].shape[1], n)
+        o = _attend_blocks(q, cache["k"], cache["v"],
+                          cache["slot_pos"][lo:hi] >= 0, n,
+                          cfg.num_kv_heads)
+        return _attn_out(p, o.reshape(b, 1, -1), cfg, False), cache
     q, k = proj(p, "wq", x), proj(p, "wk", x)
     if use_rope:
         ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -408,10 +591,18 @@ def cross_attn_decode(p: dict, x: torch.Tensor,
                       enc_kv: tuple[torch.Tensor, torch.Tensor],
                       cfg) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V
-    (B, S, Hkv, hd): softmax in f32, probabilities cast to v's dtype."""
+    (B, S, Hkv, hd): softmax in f32, probabilities cast to v's dtype. On
+    a mesh of several ranks ``enc_kv`` is this rank's block of the cache's
+    cross-KV (its ``encoder_seq`` rows, kv heads or head_dim over "model",
+    as ``sharding.cache_spec_tree`` places it): :func:`_attend_blocks`,
+    unmasked."""
     b = x.shape[0]
-    q = proj(p, "wq", x)
     k, v = enc_kv
+    if parallel.multi_rank():
+        q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
+        o = _attend_blocks(q, k, v, None, cfg.encoder_seq, cfg.num_kv_heads)
+        return _attn_out(p, o.reshape(b, x.shape[1], -1), cfg, False)
+    q = proj(p, "wq", x)
     scale = 1.0 / math.sqrt(q.shape[-1])
     n_rep = q.shape[2] // k.shape[2]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, repeat_kv(k, n_rep)) * scale

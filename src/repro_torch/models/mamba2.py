@@ -7,8 +7,9 @@ as in the reference.
 Params of one layer are a flat name -> tensor dict (``in_proj.w``,
 ``conv_w``, ``a_log``, ...). The scan and the state are f32 whatever the
 compute dtype; ``softplus`` is JAX's form (``layers.softplus``). On a
-mesh of several ranks :func:`mamba_forward` runs on each rank's blocks
-of the leaves (its docstring says how).
+mesh of several ranks :func:`mamba_forward` and :func:`mamba_decode` run
+on each rank's blocks of the leaves and of the decode state (their
+docstrings say how).
 """
 from __future__ import annotations
 
@@ -163,25 +164,39 @@ def init_mamba_state(cfg, batch: int, device) -> dict:
 
 
 def mamba_decode(p: dict, u: torch.Tensor, state: dict, cfg):
-    """One recurrent step. u: (B, 1, D). Returns (out (B, 1, D), state)."""
+    """One recurrent step. u: (B, 1, D). Returns (out (B, 1, D), state).
+
+    On a mesh of several ranks ``state`` is this rank's block of the
+    cache (``sharding.cache_spec_tree``: ``conv`` (B, W-1, C) on its
+    channels, ``ssm`` (B, H, P, N) on its heads) and the leaves its
+    blocks (:func:`mamba_forward`): the input projection is gathered
+    whole, the depthwise conv runs on this rank's channels (its block of
+    ``conv_w`` and ``conv_b``) and its output is gathered whole, then
+    the SSM step runs on this rank's heads and the gated norm and
+    ``out_proj`` on its block of d_in (``layers.norm_proj_rows``)."""
     b = u.shape[0]
-    d_in, nheads, _ = dims(cfg)
+    d_in, nheads, conv_dim = dims(cfg)
     z, x, bmat, cmat, dt = _split_proj(p, u, cfg)
-    window = torch.cat([state["conv"], torch.cat([x, bmat, cmat], dim=-1)],
-                       dim=1)                          # (B, W, C)
-    xbc1 = L.causal_conv_step(window, p["conv_w"], p["conv_b"])
+    new = torch.cat([x, bmat, cmat], dim=-1)
+    if state["conv"].shape[-1] != conv_dim:     # this rank's channels
+        new = parallel.block(new, "model", -1)
+    window = torch.cat([state["conv"], new], dim=1)    # (B, W, C)
+    xbc1 = _whole(L.causal_conv_step(window, p["conv_w"], p["conv_b"]), -1,
+                  conv_dim)
     x, bmat, cmat = xbc1.split([d_in, cfg.ssm_state, cfg.ssm_state], dim=-1)
+    if p["a_log"].shape[-1] != nheads:          # this rank's heads
+        x, z, dt = (parallel.split_to_model(y, -1) for y in (x, z, dt))
     dt = _dt(dt, p)[:, 0]                              # (B, H)
     a = -torch.exp(p["a_log"])
     decay = torch.exp(dt * a[None, :])
     acc = L.acc_dtype(x.dtype)
-    xh = x.reshape(b, nheads, cfg.ssm_headdim).to(acc)
+    xh = x.reshape(b, -1, cfg.ssm_headdim).to(acc)
     bn, cn = bmat.to(acc), cmat.to(acc)                # (B, N)
     new_ssm = decay[:, :, None, None] * state["ssm"] \
         + torch.einsum("bhp,bn->bhpn", xh * dt[..., None], bn)
     y = torch.einsum("bn,bhpn->bhp", cn, new_ssm)     # (B, H, P)
     y = y + xh * p["d_skip"][None, :, None]
-    y = y.reshape(b, 1, d_in).to(u.dtype)
-    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return L.proj(p, "out_proj", y), {"conv": window[:, 1:, :],
-                                      "ssm": new_ssm}
+    y = y.reshape(b, 1, -1).to(u.dtype)
+    return L.norm_proj_rows(p, "out_proj", y * F.silu(z), p["gate_norm"],
+                            d_in, cfg.norm_eps), {"conv": window[:, 1:, :],
+                                                  "ssm": new_ssm}

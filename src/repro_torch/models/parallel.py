@@ -1,5 +1,6 @@
-"""The collectives that GSPMD inserts into the reference's sharded train
-step, written out for a mesh of ``torch.distributed`` ranks.
+"""The collectives that GSPMD inserts into the reference's sharded train,
+prefill and decode steps, written out for a mesh of ``torch.distributed``
+ranks.
 
 The reference places each leaf by its PartitionSpec and lets the
 partitioner insert the communication; here every rank holds its own
@@ -17,6 +18,9 @@ gathers of leaves split over the data axes too.
 - :func:`gather_to_ranks`: all-gather forward, all-reduce then this
   rank's block backward (a whole tensor of which each rank uses its own
   part, as attention's kv heads under the head_dim fallback);
+- :func:`softmax_over`: the softmax of scores split along their last
+  dim (flash-decoding's max and sum of exponentials over the ranks;
+  the partial ``p @ v`` are summed by :func:`sum_over`);
 - :func:`mean_over_data`: the mean over the data axes (:data:`DATA`)
   forward, the gradient passed through whole (the MoE layer's expert
   load over a batch split by rows, whose step averages the gradients
@@ -32,6 +36,10 @@ holds the current mesh, as ``sharding.set_rules`` holds the hints.
 Outside it, or on a mesh of one process, or along an axis of size 1,
 every function returns its input itself, so the one-process path runs
 exactly the operations it ran before.
+
+:func:`rows_whole` runs a block as if the data axes had one rank each
+(a serve step whose batch does not divide over them holds it whole on
+every rank).
 
 Every collective passes through one place that counts it into the
 active :class:`Census` (:func:`counting`), with the bytes of its result
@@ -56,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 _MESH = None
+_WHOLE_ROWS = False
 # the axes a batch is split over by rows, row-major (the multi-pod mesh's
 # "pod" outermost); a mesh without "pod" has "data" alone
 DATA = ("pod", "data")
@@ -81,14 +90,19 @@ def multi_rank() -> bool:
     return _MESH is not None and _MESH.is_distributed
 
 
-def refuse(what: str, item: str) -> None:
-    """Raises ``NotImplementedError`` for ``what`` on a mesh of several
-    ranks, naming the ROADMAP item that holds it: every family's train
-    step runs split over ranks, its prefill and decode do not."""
-    if multi_rank():
-        raise NotImplementedError(
-            f"{what} on a mesh of several ranks ({dict(_MESH.shape)}) is "
-            f"not ported: ROADMAP queue 1, item {item}")
+@contextlib.contextmanager
+def rows_whole(whole: bool = True):
+    """Runs the block (where ``whole``) as if the data axes
+    (:data:`DATA`) had one rank each: every rank holds the whole batch,
+    as a serve step's ranks do where its rows do not divide over those
+    axes (the reference then replicates the batch over them), so the
+    layers take no data rank's rows and run no collective there."""
+    global _WHOLE_ROWS
+    before, _WHOLE_ROWS = _WHOLE_ROWS, _WHOLE_ROWS or whole
+    try:
+        yield
+    finally:
+        _WHOLE_ROWS = before
 
 
 def group(axis: str, mesh=None):
@@ -97,7 +111,8 @@ def group(axis: str, mesh=None):
     communicate (no mesh, one process, size 1)."""
     mesh = _MESH if mesh is None else mesh
     if mesh is None or not mesh.is_distributed \
-            or mesh.shape.get(axis, 1) == 1:
+            or mesh.shape.get(axis, 1) == 1 \
+            or (_WHOLE_ROWS and axis in DATA):
         return None
     return mesh.groups[axis]
 
@@ -112,7 +127,8 @@ def size(axis) -> int:
     several ranks."""
     if not multi_rank():
         return 1
-    return math.prod(_MESH.shape.get(a, 1) for a in _axes(axis))
+    return math.prod(_MESH.shape.get(a, 1) for a in _axes(axis)
+                     if not (_WHOLE_ROWS and a in DATA))
 
 
 def rank(axis) -> int:
@@ -122,7 +138,7 @@ def rank(axis) -> int:
         return 0
     coords, idx = _MESH.coords(), 0
     for a in _axes(axis):
-        if a in coords:
+        if a in coords and not (_WHOLE_ROWS and a in DATA):
             idx = idx * _MESH.shape[a] + coords[a]
     return idx
 
@@ -222,6 +238,22 @@ def sum_over(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
             and mesh.shape[axis] > 2:
         return all_reduce(x.to(torch.float32), axis, mesh=mesh).to(x.dtype)
     return all_reduce(x, axis, mesh=mesh)
+
+
+def softmax_over(scores: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """This rank's block of the softmax along the last dim of f32
+    ``scores``, whose last dim is split over ``axis``'s ranks (each rank
+    its block; flash-decoding's partial scores over its block of the
+    cached positions): the max over the ranks' blocks (an all-reduce of
+    the rows' maxima), then the sum of the exponentials over them (an
+    all-reduce of the rows' partial sums). The probabilities are
+    ``exp(s - max) / sum`` as one rank's softmax computes them; the sum
+    of their products with each rank's values is the caller's
+    (:func:`sum_over`)."""
+    m = all_reduce(scores.amax(dim=-1, keepdim=True), axis,
+                   dist.ReduceOp.MAX, mesh)
+    e = torch.exp(scores - m)
+    return e / all_reduce(e.sum(dim=-1, keepdim=True), axis, mesh=mesh)
 
 
 def all_gather(x: torch.Tensor, axis, dim: int,

@@ -260,7 +260,11 @@ _CACHE_RULES: list[tuple[re.Pattern, tuple | None]] = [
 
 def cache_spec_tree(cache, batch_axes, model_size: int = 16) -> Any:
     """PartitionSpec tree for decode caches: shard batch + the first
-    divisible heads/channels dim; anything unmatched is replicated."""
+    divisible heads/channels dim; anything unmatched is replicated. A
+    cache's leaves are stacked over layers (and Zamba's over its shared
+    block's applications, xLSTM's over superblocks): the rule reads the
+    trailing dims. :func:`place`, :func:`blocks` and :func:`shard_bytes`
+    take the cache tree and these specs as they take the params'."""
     def spec(p, leaf):
         shape = tuple(leaf.shape)
         nd = len(shape)
@@ -281,6 +285,37 @@ def cache_spec_tree(cache, batch_axes, model_size: int = 16) -> Any:
         return P(*((None,) * nd))
 
     return map_named(spec, cache)
+
+
+def cache_model_dim(name: str, shape, model_size: int) -> int | None:
+    """The dim of the cache leaf ``name`` of ``shape`` that
+    :func:`cache_spec_tree`'s rule puts on "model" over ``model_size``
+    shards (None: none). The rule reads trailing dims, so a leaf stacked
+    over layers and one layer's slice of it (as a family's prefill makes
+    it, layer by layer) name the same dim of their trailing ones."""
+    nd = len(shape)
+    for pat, s in _CACHE_RULES:
+        if pat.search(name):
+            if s is None:
+                return None
+            for c in s[2]:
+                dim = nd + c
+                if shape[dim] % model_size == 0 \
+                        and shape[dim] >= model_size:
+                    return dim
+            return None
+    return None
+
+
+def slot_range(n_local: int, n_whole: int) -> tuple[int, int]:
+    """The slots [lo, hi) of a ring cache of ``n_whole`` slots that this
+    rank holds where its block has ``n_local`` of them: its block of the
+    sequence axis over "model" (the reference's flash-decoding layout),
+    or all of them."""
+    if n_local == n_whole:
+        return 0, n_whole
+    lo = parallel.rank("model") * n_local
+    return lo, lo + n_local
 
 
 def _is_spec(x) -> bool:

@@ -19,7 +19,8 @@ self- and cross-attention through ``layers.attn_forward`` (heads, else
 head_dim), the MLPs on d_ff (``layers.gelu_mlp(split=True)``), the tied
 embedding on the vocabulary, or on d_model where the vocabulary does
 not divide (whisper-tiny's 51865); the LayerNorms stay whole. Prefill
-and decode refuse such a mesh (ROADMAP item 20f).
+and decode run there on each rank's blocks of the deployed params and of
+the cache (:func:`prefill`, :func:`decode_step`).
 
 ``cfg.use_flash`` routes the encoder's self-attention, the decoder's
 self-attention in training and every cross-attention of training and
@@ -135,12 +136,16 @@ def _dec_block(lp: dict, x: torch.Tensor, enc_x: torch.Tensor, cfg,
     return x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
 
 
-def _logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _logits(params: dict, x: torch.Tensor, cfg,
+            whole: bool = False) -> torch.Tensor:
     """f32 logits through the tied embedding: this rank's block of the
-    vocabulary where the embedding splits it, else whole."""
+    vocabulary where the embedding splits it (``whole``: gathered), else
+    whole."""
     x = _ln(L.subtree(params, "dec_norm."), x, cfg.norm_eps)
-    return L.unembed(x, params["embed"], vocab_layout(params["embed"], cfg,
-                                                      0))
+    layout = vocab_layout(params["embed"], cfg, 0)
+    logits = L.unembed(x, params["embed"], layout)
+    return (parallel.gather_from_model(logits, -1)
+            if whole and layout == L.VOCAB else logits)
 
 
 def decode_train(params: dict, enc_x: torch.Tensor, tokens: torch.Tensor,
@@ -168,25 +173,48 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
             num_groups: int = 1):
     """Encode the frames and run the decoder over the whole token prefix,
     filling the self-KV caches (slot_pos = arange(T), cache length T) and
-    the cross-KV. Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper prefill", "20f")
+    the cross-KV. Returns (last-token logits (B, 1, V), cache).
+
+    On a mesh of several ranks the encoder and the cross-attention run as
+    in training, the self-attention as ``layers.attn_prefill_ranks``, and
+    each layer's self- and cross-KV, whole on every rank, are cut to this
+    rank's block of the cache as ``sharding.cache_spec_tree`` places them
+    (``layers.cache_block``: the rows over "model", else the kv heads,
+    else head_dim; the 1500 encoder rows do not split 16 ways, so the
+    production mesh's cross-KV falls back to head_dim). The logits are
+    whole."""
+    ranks = parallel.multi_rank()
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     x = _add_positions(x, torch.arange(t, device=x.device), cfg)
     kv = {"k": [], "v": [], "enc_k": [], "enc_v": []}
     for lp in _layers(params, "dec_layers."):
         a = lp["attn"]
         h_in = _ln(lp["ln1"], x, cfg.norm_eps)
-        k, v = L.proj(a, "wk", h_in), L.proj(a, "wv", h_in)
-        o = L.chunked_attention(L.proj(a, "wq", h_in), k, v, causal=True,
-                                window=window)
-        x = x + L.proj(a, "wo", o.reshape(b, t, -1))
+        if ranks:
+            h, k, v = L.attn_prefill_ranks(a, h_in, cfg, window=window,
+                                           use_rope=False)
+            x = x + h
+        else:
+            k, v = L.proj(a, "wk", h_in), L.proj(a, "wv", h_in)
+            o = L.chunked_attention(L.proj(a, "wq", h_in), k, v,
+                                    causal=True, window=window)
+            x = x + L.proj(a, "wo", o.reshape(b, t, -1))
         x = x + L.attn_forward(lp["xattn"], _ln(lp["ln_x"], x, cfg.norm_eps),
                                cfg, kv_src=enc_x, use_rope=False,
                                causal=False)
-        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps))
+        x = x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
+        if ranks:
+            hkv = cfg.num_kv_heads
+            enc = {n: L.qkv_whole(lp["xattn"], n, enc_x, hkv, cfg)
+                   for n in ("wk", "wv")}
+            for name, val in (("k", k), ("v", v), ("enc_k", enc["wk"]),
+                              ("enc_v", enc["wv"])):
+                kv[name].append(L.cache_block(val, name))
+            continue
         for name, val in (("k", k), ("v", v),
                           ("enc_k", L.proj(lp["xattn"], "wk", enc_x)),
                           ("enc_v", L.proj(lp["xattn"], "wv", enc_x))):
@@ -194,7 +222,7 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
     cache = {k: torch.stack(v) for k, v in kv.items()}
     cache["slot_pos"] = torch.arange(t, dtype=torch.int32, device=x.device) \
         .expand(cfg.num_layers, t).clone()
-    return _logits(params, x[:, -1:, :], cfg), {"layers": cache}
+    return _logits(params, x[:, -1:, :], cfg, whole=True), {"layers": cache}
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
@@ -220,9 +248,12 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)) against the cached cross-KV; the
-    self-KV is written in place. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Whisper decode_step", "20f")
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    self-KV is written in place. Returns (logits (B, 1, V), cache). On a
+    mesh of several ranks the cache is this rank's block (:func:`prefill`):
+    ``layers.attn_decode`` and ``layers.cross_attn_decode`` run against
+    it, the MLPs on d_ff."""
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     x = _add_positions(x, torch.full((1,), int(pos), dtype=torch.int32,
                                      device=x.device), cfg)
     cl = cache["layers"]
@@ -235,5 +266,5 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
         x = x + L.cross_attn_decode(lp["xattn"],
                                     _ln(lp["ln_x"], x, cfg.norm_eps),
                                     (cl["enc_k"][i], cl["enc_v"][i]), cfg)
-        x = x + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps))
-    return _logits(params, x, cfg), cache
+        x = x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
+    return _logits(params, x, cfg, whole=True), cache

@@ -20,8 +20,9 @@ compute dtype. Decode writes the cache in place.
 On a mesh of several ranks the train loss runs on each rank's blocks of
 the leaves, split over "model" by the reference's ``param_spec_tree``
 (:func:`mlstm_forward`, :func:`slstm_forward`; the embedding and
-``lm_head`` on the vocabulary). Prefill and decode refuse such a mesh
-(ROADMAP item 20f).
+``lm_head`` on the vocabulary), and so do prefill and decode, on each
+rank's blocks of the deployed params and of the cache
+(:func:`mlstm_decode`, :func:`slstm_decode`).
 
 One departure (ROADMAP queue 3): the reference builds the intra-chunk
 decay as ``where(tri, exp(seg), 0)``, whose ``exp`` overflows above the
@@ -42,8 +43,8 @@ from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import parallel
 from repro_torch.models.decoder import (compute_dtype, head_layout,
-                                        make_generator, unembed_head,
-                                        vocab_layout)
+                                        make_generator, serve_logits,
+                                        unembed_head, vocab_layout)
 
 CHUNK = 256
 
@@ -190,32 +191,58 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
 
 def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
     """x: (B, 1, D); state: {conv (B, W-1, d_in), mC (B, H, hd, hd),
-    mn (B, H, hd)}. Returns (x + out, new state)."""
+    mn (B, H, hd)}. Returns (x + out, new state).
+
+    On a mesh of several ranks ``state`` is this rank's block of the
+    cache (``sharding.cache_spec_tree``: ``conv`` on its d_in channels,
+    ``mC`` / ``mn`` on its heads, else on their last dim) and the leaves
+    its blocks, as :func:`mlstm_forward` takes them: ``up``, ``qkv`` and
+    ``gates`` are gathered whole, the depthwise conv runs on this rank's
+    channels (the whole ``conv_w`` and ``conv_b``'s block of them) and is
+    gathered whole, and the cell runs on this rank's heads, or, where the
+    heads do not split, on every head with ``mC`` and ``mn`` gathered
+    whole for the step and cut to their blocks after; then the norm, the
+    skip, the gate and ``down`` as in the forward."""
     b = x.shape[0]
     d_in, hd, _ = dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    xc, z = L.proj(p, "up", h).chunk(2, dim=-1)
+    xc, z = L.proj_whole(p, "up", h, 2 * d_in).chunk(2, dim=-1)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if state["conv"].shape[-1] != d_in:         # this rank's channels
+        xc = parallel.block(xc, "model", -1)
+        conv_w = parallel.block(conv_w, "model", 0)
+        conv_b = parallel.block(conv_b, "model", -1)
     window = torch.cat([state["conv"], xc], dim=1)
-    xc1 = L.causal_conv_step(window, p["conv_w"], p["conv_b"])[:, None, :]
-    q, k, v = L.proj(p, "qkv", xc1).chunk(3, dim=-1)
-    gates = L.proj(p, "gates", xc1)
+    xc1 = L.cache_whole(L.causal_conv_step(window, conv_w, conv_b), -1,
+                        d_in)[:, None, :]
+    xm = parallel.copy_to_model(xc1)
+    q, k, v = L.proj_whole(p, "qkv", xc1, 3 * d_in, xm).chunk(3, dim=-1)
+    gates = L.proj_whole(p, "gates", xc1, 2 * cfg.num_heads, xm)
     acc = L.acc_dtype(gates.dtype)
     i_raw, f_raw = gates.to(acc).chunk(2, dim=-1)
+    width = p["mnorm"].shape[-1]
+    if width != d_in and width % hd == 0:       # this rank's heads
+        q, k, v, i_raw, f_raw = (parallel.split_to_model(y, -1)
+                                 for y in (q, k, v, i_raw, f_raw))
     ig = torch.sigmoid(i_raw)[:, 0]                            # (B, H)
     fg = torch.sigmoid(f_raw)[:, 0]
-    qh, kh, vh = (y.reshape(b, cfg.num_heads, hd).to(acc) for y in (q, k, v))
-    cmat = fg[..., None, None] * state["mC"] + ig[..., None, None] \
-        * torch.einsum("bhv,bhk->bhvk", vh, kh)
-    nvec = fg[..., None] * state["mn"] + ig[..., None] * kh
+    qh, kh, vh = (y.reshape(b, -1, hd).to(acc) for y in (q, k, v))
+    cmat = fg[..., None, None] * L.cache_whole(state["mC"], -1, hd) \
+        + ig[..., None, None] * torch.einsum("bhv,bhk->bhvk", vh, kh)
+    nvec = fg[..., None] * L.cache_whole(state["mn"], -1, hd) \
+        + ig[..., None] * kh
     scale = 1.0 / math.sqrt(hd)
     y = torch.einsum("bhk,bhvk->bhv", qh, cmat) * scale
     qn = torch.einsum("bhk,bhk->bh", qh, nvec) * scale
     y = y / torch.clamp_min(torch.abs(qn), 1.0)[..., None]
-    hout = y.reshape(b, 1, d_in).to(x.dtype)
-    hout = L.rms_norm(hout, p["mnorm"], cfg.norm_eps) \
-        + p["skip"].to(x.dtype) * xc1
-    out = L.proj(p, "down", hout * F.silu(z))
-    return x + out, {"conv": window[:, 1:, :], "mC": cmat, "mn": nvec}
+    out = L.norm_proj_rows(
+        p, "down", y.reshape(b, 1, -1).to(x.dtype), p["mnorm"], d_in,
+        cfg.norm_eps, lambda h, local: (h + p["skip"].to(x.dtype)
+                                        * local(xc1)) * F.silu(local(z)))
+    whole = (b, cfg.num_heads, hd)
+    return x + out, {"conv": window[:, 1:, :],
+                     "mC": L.cache_block(cmat, "mC", (*whole, hd)),
+                     "mn": L.cache_block(nvec, "mn", whole)}
 
 
 # ----------------------------------------------------------------- sLSTM
@@ -332,15 +359,33 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
+    """One sLSTM step. On a mesh of several ranks ``state`` is this rank's
+    block of the cache (``sc`` / ``sn`` / ``sh`` on its heads, else on
+    their last dim) and the leaves its blocks, as :func:`slstm_forward`
+    takes them: ``gates_x``'s output and ``r_gates`` gathered whole, the
+    step on this rank's heads, or, where the heads do not split, on every
+    head with the state gathered whole for the step and cut to its block
+    after; then the norm over this rank's block and ``down``'s rows."""
     b, _, d = x.shape
     hds = d // cfg.num_heads
     xin = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    gx = L.proj(p, "gates_x", xin).reshape(b, 4, cfg.num_heads, hds)
-    st = _slstm_step(p, gx, (state["sc"], state["sn"], state["sh"]), cfg)
-    hout = st[2].reshape(b, 1, d).to(x.dtype)
-    hout = L.rms_norm(hout, p["gnorm"], cfg.norm_eps)
-    return x + L.proj(p, "down", hout), {"sc": st[0], "sn": st[1],
-                                         "sh": st[2]}
+    gx = L.proj_whole(p, "gates_x", xin, 4 * d).reshape(b, 4, cfg.num_heads,
+                                                         hds)
+    r = p["r_gates"]
+    if r.shape[-1] != hds:
+        r = parallel.gather_from_model(r, -1)
+    width = p["gnorm"].shape[-1]
+    if width != d and width % hds == 0:         # this rank's heads
+        gx = parallel.split_to_model(gx, 2)
+        r = r.narrow(1, parallel.rank("model") * gx.shape[2], gx.shape[2])
+    st = tuple(L.cache_whole(state[k], -1, hds) for k in ("sc", "sn", "sh"))
+    st = _slstm_cell(_r_matrix(r, torch.promote_types(st[2].dtype, r.dtype)),
+                     _gates_ifoz(gx), st)
+    out = L.norm_proj_rows(p, "down", st[2].reshape(b, 1, -1).to(x.dtype),
+                           p["gnorm"], d, cfg.norm_eps)
+    whole = (b, cfg.num_heads, hds)
+    return x + out, {k: L.cache_block(v, k, whole)
+                     for k, v in zip(("sc", "sn", "sh"), st)}
 
 
 # ------------------------------------------------------------------ model
@@ -397,22 +442,32 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
             num_groups: int = 1):
     """Full-sequence forward that fills the recurrent state. Returns
     (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM prefill", "20f")
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
+    b = tokens.shape[0]
+    d_in, hd, hds = dims(cfg)
     mstates, sstates = [], []
     for mls, sp in _superblocks(params):
         per = []
         for lp in mls:
             x, st = mlstm_forward(lp, x, cfg)
+            if parallel.multi_rank():
+                whole = (b, cfg.num_heads, hd)
+                st = {"conv": L.cache_block(st["conv"], "conv"),
+                      "mC": L.cache_block(st["mC"], "mC", (*whole, hd)),
+                      "mn": L.cache_block(st["mn"], "mn", whole)}
             per.append(st)
         x, st = slstm_forward(sp, x, cfg)
+        if parallel.multi_rank():
+            st = {k: L.cache_block(v, k, (b, cfg.num_heads, hds))
+                  for k, v in st.items()}
         mstates.append({k: torch.stack([s[k] for s in per]) for k in per[0]})
         sstates.append(st)
     cache = {"mlstm": {k: torch.stack([s[k] for s in mstates])
                        for k in mstates[0]},
              "slstm": {k: torch.stack([s[k] for s in sstates])
                        for k in sstates[0]}}
-    return unembed_head(params, x[:, -1:, :], cfg), cache
+    return serve_logits(params, x[:, -1:, :], cfg), cache
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
@@ -441,8 +496,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)): every layer's state updated in
     place in ``cache``. Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the xLSTM decode_step", "20f")
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     mc, sc = cache["mlstm"], cache["slstm"]
     for s, (mls, sp) in enumerate(_superblocks(params)):
         for i, lp in enumerate(mls):
@@ -453,4 +508,4 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
         x, new = slstm_decode(sp, x, {k: v[s] for k, v in sc.items()}, cfg)
         for k, v in new.items():
             sc[k][s].copy_(v)
-    return unembed_head(params, x, cfg), cache
+    return serve_logits(params, x, cfg), cache

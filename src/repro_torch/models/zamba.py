@@ -17,7 +17,8 @@ the leaves, split over "model" by the reference's ``param_spec_tree``:
 the Mamba2 layers as ``mamba2.mamba_forward`` says, the shared block's
 attention and MLP as the decoder's (``layers.attn_forward``,
 ``layers.swiglu``), the embedding and ``lm_head`` on the vocabulary.
-Prefill and decode refuse such a mesh (ROADMAP item 20f).
+Prefill and decode run there on each rank's blocks of the deployed
+params and of the cache (:func:`prefill`, :func:`decode_step`).
 
 As in the reference, ``init_cache`` fills the applications' ``slot_pos``
 with 0, not -1: a decode step before the cache is full also attends to
@@ -32,8 +33,9 @@ from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import parallel
 from repro_torch.models.decoder import (compute_dtype, head_layout,
-                                        make_generator, unembed_head,
-                                        vocab_layout)
+                                        make_generator, serve_logits,
+                                        unembed_head, vocab_layout)
+from repro_torch.models.mamba2 import dims as mamba_dims
 from repro_torch.models.mamba2 import (init_mamba, init_mamba_state,
                                        mamba_decode, mamba_forward)
 
@@ -132,28 +134,52 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     """Full-sequence forward that fills the mamba states and the shared
     block's KV caches (one per application, slot_pos = arange(T), cache
     length T). Always the chunked attention, as in the reference.
-    Returns (last-token logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba prefill", "20f")
+    Returns (last-token logits (B, 1, V), cache).
+
+    On a mesh of several ranks each state is cut to this rank's block of
+    the cache as ``sharding.cache_spec_tree`` places it
+    (``layers.cache_block``): a layer's ``conv`` on its channels, its
+    ``ssm`` on its heads (already so where the scan ran this rank's
+    heads), the applications' k and v on the sequence axis, else the kv
+    heads, else head_dim (``layers.attn_prefill_ranks``)."""
+    ranks = parallel.multi_rank()
     b, t = tokens.shape
     dt = compute_dtype(cfg)
-    x = L.embed(params["embed"], tokens, dt)
+    x = L.embed(params["embed"], tokens, dt,
+                vocab_layout(params["embed"], cfg, 0))
     layers, sp = _views(params)
     apps = n_attn_apps(cfg)
-    kv0 = L.init_kv_cache(b, t, cfg.num_kv_heads, cfg.head_dim, dt, x.device)
-    attn = {k: torch.zeros((apps, *v.shape), dtype=v.dtype, device=x.device)
-            for k, v in kv0.items()}
+    if ranks:
+        kvs = {"k": [], "v": []}
+        _, nheads, _ = mamba_dims(cfg)
+        ssm_whole = (b, nheads, cfg.ssm_headdim, cfg.ssm_state)
+    else:
+        kv0 = L.init_kv_cache(b, t, cfg.num_kv_heads, cfg.head_dim, dt,
+                              x.device)
+        attn = {k: torch.zeros((apps, *v.shape), dtype=v.dtype,
+                               device=x.device) for k, v in kv0.items()}
     pos = torch.arange(t, device=x.device)
     mstates = []
     for idx, lp in enumerate(layers):
         y, mstate = mamba_forward(lp["mamba"], L.rms_norm(x, lp["ln"],
                                                           cfg.norm_eps), cfg)
         x = x + y
+        if ranks:
+            mstate = {"conv": L.cache_block(mstate["conv"], "conv"),
+                      "ssm": L.cache_block(mstate["ssm"], "ssm", ssm_whole)}
         mstates.append(mstate)
         if not _is_app(idx, cfg):
             continue
+        h_in = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+        if ranks:
+            h, k, v = L.attn_prefill_ranks(sp["attn"], h_in, cfg,
+                                           window=window)
+            x = _mlp(sp, x + h, cfg)
+            kvs["k"].append(L.cache_block(k.to(dt), "k"))
+            kvs["v"].append(L.cache_block(v.to(dt), "v"))
+            continue
         app = (idx + 1) // cfg.attn_every - 1
         a = sp["attn"]
-        h_in = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
         q = L.rope(L.proj(a, "wq", h_in), pos, cfg.rope_theta)
         k = L.rope(L.proj(a, "wk", h_in), pos, cfg.rope_theta)
         v = L.proj(a, "wv", h_in)
@@ -162,9 +188,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
         attn["k"][app] = k.to(dt)
         attn["v"][app] = v.to(dt)
         attn["slot_pos"][app] = pos.to(torch.int32)
+    if ranks:
+        attn = {k: torch.stack(v) for k, v in kvs.items()}
+        attn["slot_pos"] = pos.to(torch.int32).expand(apps, t).contiguous()
     mamba = {k: torch.stack([s[k] for s in mstates]) for k in mstates[0]}
-    return unembed_head(params, x[:, -1:, :], cfg), {"mamba": mamba,
-                                                 "attn": attn}
+    return serve_logits(params, x[:, -1:, :], cfg), {"mamba": mamba,
+                                                     "attn": attn}
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
@@ -186,9 +215,12 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
                 cfg, *, window: int = 0, num_groups: int = 1):
     """One decode step (tokens (B, 1)); the cache is written in place.
-    Returns (logits (B, 1, V), cache)."""
-    parallel.refuse("the Zamba decode_step", "20f")
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg))
+    Returns (logits (B, 1, V), cache). On a mesh of several ranks the
+    cache is this rank's block (:func:`prefill`): the Mamba2 layers run
+    as ``mamba2.mamba_decode`` says, the shared block's attention as
+    ``layers.attn_decode``."""
+    x = L.embed(params["embed"], tokens, compute_dtype(cfg),
+                vocab_layout(params["embed"], cfg, 0))
     layers, sp = _views(params)
     mc, ac = cache["mamba"], cache["attn"]
     for idx, lp in enumerate(layers):
@@ -203,4 +235,4 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
             x, _ = _shared_block_decode(sp, x, {k: v[app] for k, v in
                                                 ac.items()}, int(pos), cfg,
                                         window)
-    return unembed_head(params, x, cfg), cache
+    return serve_logits(params, x, cfg), cache

@@ -97,6 +97,11 @@ def config(name: str):
             num_heads=3, num_kv_heads=1, head_dim=32)
     if name == "xlstm-h2":
         return get_smoke_config("xlstm-1.3b").replace(num_heads=2)
+    if name == "xlstm-h1":
+        return get_smoke_config("xlstm-1.3b").replace(num_heads=1)
+    if name.startswith("whisper-enc15"):
+        return get_smoke_config("whisper-tiny").replace(
+            encoder_seq=15, num_kv_heads=1 if name.endswith("kv1") else 2)
     if name == "zamba-hd128":
         return get_smoke_config("zamba2-2.7b").replace(ssm_headdim=128)
     if name.startswith("llama-d-model"):
@@ -484,8 +489,7 @@ RECURRENT = ("xlstm-1.3b", "zamba2-2.7b", "whisper-tiny")
 
 def _family_losses(world: int) -> dict:
     """Each family's ``loss_fn`` on each rank's blocks at mesh (1, world)
-    (the MoE and VLM decoders, xLSTM, Zamba and Whisper), and whether
-    ``prefill`` still refuses there."""
+    (the MoE and VLM decoders, xLSTM, Zamba and Whisper)."""
     mesh = make_host_mesh(world, devices=[CPU])
     out = {}
     for arch in FAMILIES:
@@ -494,13 +498,145 @@ def _family_losses(world: int) -> dict:
         params = model.init(0, device=CPU)
         placed = place(params, named(mesh, param_spec_tree(params, world)))
         with parallel.using(mesh):
-            loss = model.loss_fn(placed, family_batch(cfg)).item()
-            try:
-                model.prefill(placed, family_batch(cfg))
-                refused = ""
-            except NotImplementedError as e:
-                refused = str(e)
-        out[arch] = {"loss": loss, "prefill": refused}
+            out[arch] = {"loss": model.loss_fn(placed,
+                                               family_batch(cfg)).item()}
+    return out
+
+
+# ------------------------------------------- prefill and decode over ranks
+
+SERVE_ARCHS = ("llama3.2-3b", *FAMILIES)
+SERVE_B, SERVE_T, SERVE_STEPS = 4, 8, 3
+# the model-parallel widths of each world's meshes: (1, 2) and (2, 1) on
+# 2 ranks, (2, 2) and (1, 4) on 4
+SERVE_MPS = {2: (2, 1), 4: (2, 4)}
+
+
+def serve_shapes(t: int = SERVE_T, b: int = SERVE_B) -> tuple:
+    """The prefill shape (b x t, a VLM's patches among the t) and the
+    decode shape (one token into the prefill's t slots) of
+    :func:`serve_run`, as ``launch.specs``'s setups take them."""
+    return (ShapeConfig("p", t, b, "prefill"),
+            ShapeConfig("d", t, b, "decode"))
+
+
+def serve_inputs(cfg, t: int = SERVE_T, b: int = SERVE_B,
+                 seed: int = 5) -> tuple[dict, list]:
+    """A seeded prefill batch of ``serve_shapes(t, b)`` (tokens, and
+    patches for VLM or frames for audio) and ``SERVE_STEPS`` decode
+    tokens (b, 1), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    text = t - (cfg.num_patches if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, text), dtype=np.int32))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model), dtype=np.float32))
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1),
+                                          dtype=np.int32))
+            for _ in range(SERVE_STEPS)]
+    return batch, toks
+
+
+def _clone(tree):
+    return ({k: _clone(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.clone())
+
+
+def serve_run(cfg, params: dict, batch: dict, toks: list, mesh=None,
+              dp: int = 1) -> dict:
+    """``launch.specs``'s prefill step, then a decode step per token of
+    ``toks`` (positions T, T + 1, ...), ``num_groups`` ``dp`` as the
+    setups thread it; with ``mesh`` (of ranks) on this rank's blocks of
+    ``params`` (placed by ``param_spec_tree``), the steps inside
+    ``parallel.using`` it: each call's logits, the cache after the
+    prefill and after the last step, and the collectives each call
+    counted."""
+    from repro_torch.core.steps import make_prefill_step, make_serve_step
+    model = get_model(cfg)
+    prefill = make_prefill_step(model, num_groups=dp)
+    decode = make_serve_step(model, num_groups=dp)
+    t = next(iter(batch.values())).shape[1] + (
+        cfg.num_patches if cfg.family == "vlm" else 0)
+    if mesh is not None:
+        params = place(params, named(mesh, param_spec_tree(
+            params, mesh.shape["model"])))
+    out = {"logits": [], "census": []}
+    with parallel.using(mesh):
+        with parallel.counting() as c:
+            logits, cache = prefill(params, batch)
+        out["logits"].append(logits)
+        out["census"].append(c.record())
+        out["prefill_cache"] = _clone(cache)
+        for i, tok in enumerate(toks):
+            with parallel.counting() as c:
+                logits, cache = decode(params, cache, tok, t + i)
+            out["logits"].append(logits)
+            out["census"].append(c.record())
+    out["cache"] = cache
+    return out
+
+
+# 2-rank runs whose layouts fall back, (config, prompt, rows, model
+# ranks): on (1, 2) a prompt of 9 (odd) puts a self-attention cache on its
+# 2 kv heads, or with one kv head on head_dim; the xLSTM states of one
+# head go on their last dim; Whisper's 15 encoder frames put the cross-KV
+# on its kv heads, or with one kv head on head_dim; on (2, 1) 3 rows do
+# not split over the 2 data ranks, so each holds the whole batch (the
+# MoE layer then groups it whole)
+SERVE_FALLBACKS = {"kv heads": ("llama3.2-3b", 9, SERVE_B, 2),
+                   "head_dim": ("llama-kv1", 9, SERVE_B, 2),
+                   "xlstm last dim": ("xlstm-h1", 8, SERVE_B, 2),
+                   "cross kv heads": ("whisper-enc15", 8, SERVE_B, 2),
+                   "cross head_dim": ("whisper-enc15-kv1", 8, SERVE_B, 2),
+                   "rows whole": ("granite-moe-1b-a400m", 8, 3, 1)}
+
+
+def _serve_runs(world: int) -> dict:
+    """:func:`serve_run` of every family (:data:`SERVE_ARCHS`) on each
+    mesh of :data:`SERVE_MPS` of ``world`` ranks, from each config's
+    seed-0 params and :func:`serve_inputs`; on 2 ranks also the
+    :data:`SERVE_FALLBACKS`."""
+    out = {}
+    if world == 2:
+        for case, (name, t, b, mp) in SERVE_FALLBACKS.items():
+            cfg = config(name)
+            mesh = make_host_mesh(mp, devices=[CPU])
+            out[case] = serve_run(cfg, get_model(cfg).init(0, device=CPU),
+                                  *serve_inputs(cfg, t, b), mesh,
+                                  mesh.shape["data"])
+    for arch in SERVE_ARCHS:
+        cfg = config(arch)
+        params = get_model(cfg).init(0, device=CPU)
+        batch, toks = serve_inputs(cfg)
+        for mp in SERVE_MPS[world]:
+            mesh = make_host_mesh(mp, devices=[CPU])
+            out[f"{arch} {mp}"] = serve_run(cfg, params, batch, toks, mesh,
+                                            mesh.shape["data"])
+    return out
+
+
+def reference_serve(arch: str, ref_dir: str) -> dict:
+    """:func:`serve_run` of ``arch``'s smoke config from the reference's
+    deployed params (``tests/_reference_serve_step.py``'s checkpoint in
+    ``ref_dir``) on its inputs, on the (world / M, M) mesh of ranks for
+    each M of its meshes."""
+    cfg = get_smoke_config(arch)
+    params, _ = Checkpointer(ref_dir).restore(
+        get_model(cfg).init(0, device=CPU), 0)
+    with np.load(os.path.join(ref_dir, "inputs.npz")) as z:
+        batch = {k[6:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("batch/")}
+        toks = [torch.from_numpy(z[f"toks/{i}"]) for i in range(
+            sum(k.startswith("toks/") for k in z.files))]
+    out = {}
+    for mp in (2, 4):
+        mesh = make_host_mesh(mp, devices=[CPU])
+        out[mp] = serve_run(cfg, params, batch, toks, mesh,
+                            mesh.shape["data"])
     return out
 
 
@@ -832,14 +968,20 @@ def _fsdp_steps(name: str, mp: int, fsdp: bool, ckpt: str | None) -> dict:
                 ("v", state["opt"]["v"]))}}
 
 
-def dry_run_census(name: str, shape, dp: int, mp: int) -> dict:
-    """The LM dry run's collective census of ``name``'s train step at
-    ``shape`` on an abstract (dp, mp) mesh: rank 0's trace on fake tensors
-    (``launch.specs.rank_traced``), no process group behind it."""
+def abstract_mesh(dp: int, mp: int) -> Mesh:
+    """A (dp, mp) mesh of ``meta`` slots, as the production meshes."""
     devices = np.empty((dp, mp), dtype=object)
     devices.fill(torch.device("meta"))
+    return Mesh(devices, ("data", "model"))
+
+
+def dry_run_census(name: str, shape, dp: int, mp: int) -> dict:
+    """The LM dry run's collective census of ``name``'s step at ``shape``
+    (train, prefill or decode) on an abstract (dp, mp) mesh: rank 0's
+    trace on fake tensors (``launch.specs.rank_traced``), no process
+    group behind it."""
     counts, _, _ = specs_mod.rank_traced(config(name), shape,
-                                         Mesh(devices, ("data", "model")))
+                                         abstract_mesh(dp, mp))
     return counts["collectives"]
 
 
@@ -1108,6 +1250,12 @@ def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
                    os.path.join(out, f"rank{rank}.pt"))
         dist.destroy_process_group()
         return
+    if "serve_ref" in extra:    # against the reference's sharded serve
+        res = {arch: reference_serve(arch, d)
+               for arch, d in extra["serve_ref"].items()}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return
     if "bf16" in extra:         # the reference's bf16 step on (1, 2) alone
         res = {arch: bf16_step(arch, ckpt)
                for arch, ckpt in extra["bf16"].items()}
@@ -1129,6 +1277,7 @@ def run(rank: int, world: int, store: str, out: str, extra: dict) -> None:
                     for name, mp in extra["steps"]}
     res["launcher"] = _launcher(world, 2)
     res["families"] = _family_losses(world)
+    res["serve"] = _serve_runs(world)
     for name, (src, dst) in extra.get("ckpt", {}).items():
         res["ckpt" if name == "qwen-h8" else f"ckpt {name}"] = \
             _restore_and_save(src, dst, name)

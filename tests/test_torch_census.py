@@ -1,11 +1,13 @@
 """The LM dry run's per-device census (``launch.mesh.census_mesh``,
-``models.parallel.Census``, ``launch.specs.rank_traced``): a train
-record traces one rank's step of the sharded program at the production
-meshes' size on fake tensors, with no process group, and records the
-reference's ``collectives`` keys and that rank's temp bytes.
+``models.parallel.Census``, ``launch.specs.rank_traced``): a record
+(train, prefill, decode) traces one rank's step of the sharded program
+at the production meshes' size on fake tensors, with no process group,
+and records the reference's ``collectives`` keys and that rank's temp
+bytes.
 
-At smoke widths, no JAX: every arch's train record on both production
-meshes (16 x 16 and 2 x 16 x 16), its keys, argument and output bytes
+At smoke widths, no JAX: every arch's train, prefill and decode record
+on both production meshes (16 x 16 and 2 x 16 x 16), its keys, argument
+and output bytes
 against the rank's own blocks and outputs, and no ``torch.distributed``
 call on the way; the rank's arguments plus temp against the global
 trace's on (2, 2); a collective inside a scan counted times its length;
@@ -86,6 +88,41 @@ def test_train_record_is_one_ranks_trace(arch, multi_pod, tmp_path,
         own = blocks(state, state_sh)
     assert nbytes(own) + shard_bytes(batch, batch_sh) \
         == mem["argument_size_in_bytes"]
+
+
+# a prompt of 64 at 32 rows: the rows split over the multi-pod mesh's 32
+# data ranks, the cache's 64 slots over the 16 model ranks
+SERVE_SHAPES = {"prefill": ShapeConfig("p", 64, 32, "prefill"),
+                "decode": ShapeConfig("d", 64, 32, "decode")}
+
+
+@pytest.mark.parametrize("mode", list(SERVE_SHAPES))
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_record_is_one_ranks_trace(arch, multi_pod, mode, tmp_path,
+                                         monkeypatch):
+    """Each arch's smoke prefill and decode records on both production
+    meshes: ``ok``, ``collectives`` with the reference's keys and the
+    temp per device from rank 0's trace (``rank_trace_s`` beside
+    ``trace_s``), with no ``torch.distributed`` call; the rank's outputs
+    are the record's output bytes: the logits whole and its block of the
+    cache as ``cache_spec_tree`` places it."""
+    shape = SERVE_SHAPES[mode]
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    monkeypatch.setitem(dryrun.SHAPES, shape.name, shape)
+    _no_process_group(monkeypatch)
+    rec = dryrun.run_one(arch, shape.name, multi_pod, str(tmp_path))
+    assert rec["status"] == "ok", rec.get("traceback")
+    coll = rec["collectives"]
+    assert set(coll) == KEYS
+    assert set(coll["count_by_op"]) == set(coll["bytes_by_op"])
+    assert coll["total_bytes"] == sum(coll["bytes_by_op"].values()) > 0
+    mem = rec["memory"]
+    assert mem["temp_scope"] == "device" and mem["temp_size_in_bytes"] > 0
+    assert rec["rank_trace_s"] >= 0 and rec["trace_s"] >= 0
+    _, out, _ = specs.rank_traced(get_smoke_config(arch), shape,
+                                  make_production_mesh(multi_pod=multi_pod))
+    assert nbytes(out) == mem["output_size_in_bytes"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -146,19 +146,22 @@ def test_lm_dry_run_is_not_ported(tmp_path, monkeypatch, capsys):
     rec = json.loads(fn.read_text())
     assert [r["status"] for r in recs] == ["ok"] and rec == recs[0]
     assert set(rec) == {"arch", "shape", "mesh", "mode", "status", "trace_s",
-                        "memory", "flops", "traffic_bytes",
+                        "rank_trace_s", "memory", "flops", "traffic_bytes",
                         "matmul_traffic_bytes", "collectives",
                         "params", "tokens_per_step", "wall_s"}
     assert set(rec["memory"]) == {"argument_size_in_bytes",
                                   "output_size_in_bytes",
                                   "temp_size_in_bytes", "temp_scope",
                                   "temp_exact"}
-    assert rec["memory"]["temp_scope"] == "global"
+    assert rec["memory"]["temp_scope"] == "device"
     assert rec["memory"]["temp_exact"]
-    assert rec["collectives"] == {"measured": False}
+    coll = rec["collectives"]
+    assert set(coll) == {"bytes_by_op", "count_by_op", "total_bytes"}
+    assert coll["total_bytes"] == sum(coll["bytes_by_op"].values()) > 0
+    assert set(coll["count_by_op"]) == set(coll["bytes_by_op"])
     assert rec["flops"] > 0 and rec["memory"]["temp_size_in_bytes"] > 0
     out = capsys.readouterr().out
-    assert "OK  llama3.2-3b" in out and "coll=n/a" in out
+    assert "OK  llama3.2-3b" in out and "coll=n/a" not in out
     assert dryrun.main(argv) == []
     assert "SKIP llama3.2-3b decode_32k 16x16" in capsys.readouterr().out
 
@@ -229,24 +232,32 @@ def test_dry_run_on_a_host_mesh_matches_a_real_step():
 
 def test_a_step_is_traced_once_for_both_meshes(monkeypatch):
     """A prefill's setup (its cache's shardings) and its record share one
-    trace, and the two production meshes share it too: one trace for the
-    two records."""
+    global trace, and the two production meshes share it too: one global
+    trace for the two records, beside one trace of rank 0's sharded step
+    per mesh (its collectives and temp bytes per device)."""
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import parallel
     calls = []
     trace = specs.trace_step
 
     def counted(*a, **k):
-        calls.append(1)
+        mesh = parallel.current()
+        calls.append(None if mesh is None else dict(mesh.shape))
         return trace(*a, **k)
     monkeypatch.setattr(specs, "trace_step", counted)
     monkeypatch.setattr(specs, "_TRACES", {})
+    monkeypatch.setattr(specs, "_RANK_TRACES", {})
     cfg = get_smoke_config("llama3.2-3b")
     shape = ShapeConfig("p", 64, 32, "prefill")
     recs = [dryrun.dry_run_step(cfg, shape, make_production_mesh(
         multi_pod=mp)) for mp in (False, True)]
-    assert len(calls) == 1
+    assert calls == [None, {"data": 16, "model": 16},
+                     {"pod": 2, "data": 16, "model": 16}]
     assert recs[0]["flops"] == recs[1]["flops"] > 0
     # the batch shards 16 and 32 ways
     assert recs[0]["memory"]["argument_size_in_bytes"] > \
         recs[1]["memory"]["argument_size_in_bytes"]
+    for rec in recs:
+        assert rec["memory"]["temp_scope"] == "device"
+        assert rec["collectives"]["count_by_op"]

@@ -1,18 +1,22 @@
 """Tensor, expert and data parallel training of the decoder (dense, MoE,
-VLM) over ``torch.distributed`` ranks, and the loss of every family there
-(``launch/mesh.py``, ``models/parallel.py``, ``models/sharding.place`` /
+VLM) over ``torch.distributed`` ranks, the loss of every family there,
+and every family's prefill and decode on each rank's blocks of the
+params and of the cache (``launch/mesh.py``, ``models/parallel.py``,
+``models/sharding.place`` /
 ``gather``, the split layers, attention's head_dim and d_model
 fallbacks, the MoE layer's experts and batch rows, the projector, the
 pruning's reduced bisection, the train step's data rows, the
 checkpointer, the train launcher under ``torchrun``), on the CPU over
 gloo.
 
-Pure tests first (the backend rule, rank coordinates, the refusals, the
+Pure tests first (the backend rule, rank coordinates, placement, the
 identity outside a mesh). Then 2 and 4 ranks run every rank-side check
 of ``tests/_parallel_workers.py`` once each, and the tests read their
 results against one process on the same inputs: layers rtol 1e-5 / atol
 1e-6 with their gradients, masks bitwise, two AdamW steps' losses rtol
-1e-4 and params atol 1e-5. Last, the train launcher on 4 ranks resumes
+1e-4 and params atol 1e-5, prefill and decode logits and caches 1e-5
+(recurrent 5e-5), every rank's collectives the dry run's census. Last,
+the train launcher on 4 ranks resumes
 the reference's own 4-device checkpoint and holds its losses and final
 checkpoint (``tests/test_torch_parallel_bf16.py`` holds the bf16 step
 on 2 and 4 ranks to the reference's own sharded one;
@@ -29,9 +33,12 @@ from _parallel_workers import spawn as _spawn
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as train_mod
-from repro_torch.launch.mesh import Mesh, backend_for
+from repro_torch.checkpoint.checkpointer import named_leaves
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import Mesh, backend_for, census_mesh
 from repro_torch.models import get_model, parallel
-from repro_torch.models.sharding import P, named, param_spec_tree, place
+from repro_torch.models.sharding import (P, blocks, cache_spec_tree, named,
+                                         param_spec_tree, place)
 
 CPU = torch.device("cpu")
 STEPS = {2: [("llama3.2-3b", 2), ("llama3.2-3b", 1), ("qwen2.5-32b", 2),
@@ -171,45 +178,145 @@ def test_place_refuses_outside_the_slice(case, item, monkeypatch):
         place(params, sh)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llava-next-34b",
-                                  "xlstm-1.3b", "zamba2-2.7b",
-                                  "whisper-tiny"])
+def test_place_takes_a_cache_tree(monkeypatch):
+    """A decode cache is placed, cut and counted as params are: each leaf
+    stacked over layers is this rank's block by ``cache_spec_tree``
+    (batch rows over "data", the slots over "model"), ``slot_pos``
+    whole; ``shard_bytes`` is the placed bytes; ``slot_range`` names the
+    rank's slots."""
+    from repro_torch.models.sharding import shard_bytes, slot_range
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 3)
+    mesh = _fake_mesh(2, 4)                 # rank 3 at (data 1, model 1)
+    cfg = get_smoke_config("llama3.2-3b")
+    cache = get_model(cfg).init_cache(4, 8, device=CPU)
+    cache["layers"]["k"].normal_(generator=torch.Generator().manual_seed(0))
+    sh = named(mesh, cache_spec_tree(cache, ("data",), 2))
+    assert sh["layers"]["k"].spec == P(None, "data", "model", None, None)
+    assert sh["layers"]["slot_pos"].spec == P(None, None)
+    placed = place(cache, sh)
+    assert torch.equal(placed["layers"]["k"],
+                       cache["layers"]["k"][:, 2:4, 4:8])
+    assert torch.equal(placed["layers"]["slot_pos"],
+                       cache["layers"]["slot_pos"])
+    assert shard_bytes(cache, sh) == sum(
+        x.numel() * x.element_size() for x in placed["layers"].values())
+    for k, x in placed["layers"].items():
+        assert torch.equal(blocks(cache, sh)["layers"][k], x), k
+    with parallel.using(mesh):
+        assert slot_range(4, 8) == (4, 8) and slot_range(8, 8) == (0, 8)
+
+
+_SERVE_ONE: dict = {}
+
+
+def _one_rank_serve(name: str, t: int = W.SERVE_T, dp: int = 1,
+                    b: int = W.SERVE_B) -> dict:
+    """``W.serve_run`` of ``name`` in one process, num_groups ``dp``."""
+    key = (name, t, dp, b)
+    if key not in _SERVE_ONE:
+        cfg = W.config(name)
+        _SERVE_ONE[key] = W.serve_run(cfg, get_model(cfg).init(0, device=CPU),
+                                      *W.serve_inputs(cfg, t, b), None, dp)
+    return _SERVE_ONE[key]
+
+
+def _cache_shardings(cache, dp: int, mp: int, rank: int,
+                     b: int = W.SERVE_B) -> dict:
+    """``cache_spec_tree``'s shardings of ``cache`` (``b`` rows) on the
+    (dp, mp) mesh, answering for ``rank`` (a census mesh: no process
+    group)."""
+    mesh = W.abstract_mesh(dp, mp)
+    bspec = specs._batch_spec(mesh, b)
+    return named(census_mesh(mesh, rank), cache_spec_tree(cache, bspec, mp))
+
+
+def check_serve(got: dict, one: dict, dp: int, mp: int, rank: int,
+                bar: float, b: int = W.SERVE_B) -> None:
+    """A rank's prefill and decode (``W.serve_run``) against one rank's:
+    every call's logits (whole on every rank) within ``bar``; the cache
+    after the prefill and after the last step within ``bar`` of the
+    one-rank cache's blocks as ``cache_spec_tree`` places them, its
+    ``slot_pos`` exact."""
+    assert len(got["logits"]) == len(one["logits"]) == 1 + W.SERVE_STEPS
+    for mine, want in zip(got["logits"], one["logits"]):
+        torch.testing.assert_close(mine, want, rtol=0, atol=bar)
+    for key in ("prefill_cache", "cache"):
+        want = blocks(one[key], _cache_shardings(one[key], dp, mp, rank, b))
+        for (name, x), (_, w) in zip(named_leaves(got[key]),
+                                     named_leaves(want)):
+            assert x.shape == w.shape, (key, name)
+            if name.endswith("slot_pos"):
+                assert torch.equal(x, w), (key, name)
+            else:
+                torch.testing.assert_close(x, w, rtol=0, atol=bar,
+                                           msg=f"{key} {name}")
+
+
+@pytest.mark.parametrize("arch", W.SERVE_ARCHS)
 def test_other_families_refuse_a_mesh_of_ranks(ranks, arch):
-    """Every family's loss runs on each rank's blocks at (1, 2) and
-    (1, 4), the one-rank loss at rtol 1e-5: the MoE and VLM decoders,
-    xLSTM, Zamba and Whisper. Their prefill refuses a mesh of ranks
-    (ROADMAP item 20f)."""
-    cfg = get_smoke_config(arch)
-    model = get_model(cfg)
-    params = model.init(0, device=CPU)
-    batch = {"tokens": torch.zeros((2, 9), dtype=torch.int64)}
-    if cfg.family == "vlm":
-        batch["patches"] = torch.zeros((2, cfg.num_patches, cfg.d_model))
-    if cfg.family == "audio":
-        batch["frames"] = torch.zeros((2, cfg.encoder_seq, cfg.d_model))
-    one = model.loss_fn(params, W.family_batch(cfg)).item()
+    """(Named for what these families once did: refuse to serve over a
+    mesh of ranks; now they all serve there.) Every family's loss runs
+    on each rank's blocks at (1, 2) and (1, 4), the one-rank loss at
+    rtol 1e-5 (the MoE and VLM decoders, xLSTM, Zamba and Whisper); and
+    every family's prefill then three decode
+    steps (``launch.specs``' setups' steps, num_groups the data ranks)
+    run on each rank's blocks of the params and of the cache on (1, 2),
+    (2, 1), (2, 2) and (1, 4): logits within 1e-5 of one rank's (the
+    recurrent families 5e-5), each rank's cache within that of the
+    one-rank cache's block placed by ``cache_spec_tree``, ``slot_pos``
+    exact."""
+    cfg = W.config(arch)
+    bar = 5e-5 if arch in W.RECURRENT else 1e-5
+    if arch in W.FAMILIES:
+        one = get_model(cfg).loss_fn(get_model(cfg).init(0, device=CPU),
+                                     W.family_batch(cfg)).item()
     for world in (2, 4):
-        for res in ranks(world):
-            got = res["families"][arch]
-            np.testing.assert_allclose(got["loss"], one, rtol=1e-5)
-            assert "prefill" in got["prefill"]
-            assert "item 20f" in got["prefill"]
-    with parallel.using(_fake_mesh()):
-        with pytest.raises(NotImplementedError, match="item 20f"):
-            model.prefill(params, batch)
-    model.loss_fn(params, batch)            # no mesh: as before
+        for mp in W.SERVE_MPS[world]:
+            dp = world // mp
+            for r, res in enumerate(ranks(world)):
+                check_serve(res["serve"][f"{arch} {mp}"],
+                            _one_rank_serve(arch, dp=dp), dp, mp, r, bar)
+                if arch in W.FAMILIES and mp == world:
+                    np.testing.assert_allclose(
+                        res["families"][arch]["loss"], one, rtol=1e-5)
 
 
-def test_dense_serve_refuses_a_mesh_of_ranks():
-    model = get_model(get_smoke_config("llama3.2-3b"))
-    params = model.init(0, device=CPU)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with parallel.using(_fake_mesh()):
-        with pytest.raises(NotImplementedError, match="prefill"):
-            model.prefill(params, {"tokens": tokens})
-        with pytest.raises(NotImplementedError, match="decode"):
-            model.decode_step(params, model.init_cache(1, 4, device=CPU),
-                              tokens[:, :1], 0)
+@pytest.mark.parametrize("case", list(W.SERVE_FALLBACKS))
+def test_decode_attention_cache_fallbacks(ranks, case):
+    """At 2 ranks, with a shape that does not divide, each fallback of
+    ``cache_spec_tree``'s rule on (1, 2): a prompt of 9 puts the
+    self-attention cache on its kv heads (llama's 2) or, with one kv
+    head, on head_dim; one xLSTM head puts ``mC`` on dk, ``mn`` and the
+    sLSTM states on their last dim; 15 encoder frames put Whisper's
+    cross-KV on its kv heads or, with one, on head_dim. And on (2, 1) 3
+    rows that do not split over the data ranks: the batch whole on each
+    (granite-moe, its MoE layer grouping it whole). Prefill and decode
+    against one rank under ``check_serve``'s bars."""
+    name, t, b, mp = W.SERVE_FALLBACKS[case]
+    cfg = W.config(name)
+    dp = 2 // mp
+    one = _one_rank_serve(name, t, dp, b)
+    sh = _cache_shardings(one["cache"], dp, mp, 0, b)
+    split = {k: tuple(s.spec).index("model") - len(s.spec)
+             for k, s in named_leaves(sh) if "model" in tuple(s.spec)}
+    want = {"kv heads": {"layers/k": -2, "layers/v": -2},
+            "head_dim": {"layers/k": -1, "layers/v": -1},
+            "xlstm last dim": {"mlstm/conv": -1, "mlstm/mC": -1,
+                               "mlstm/mn": -1, "slstm/sc": -1,
+                               "slstm/sn": -1, "slstm/sh": -1},
+            "cross kv heads": {"layers/enc_k": -2, "layers/enc_v": -2,
+                               "layers/k": -3, "layers/v": -3},
+            "cross head_dim": {"layers/enc_k": -1, "layers/enc_v": -1,
+                               "layers/k": -3, "layers/v": -3},
+            # "model" has one rank: the slots name it, and split nothing
+            "rows whole": {"layers/k": -3, "layers/v": -3}}[case]
+    assert split == want
+    if case == "rows whole":
+        assert all(s.spec[-4] is None for k, s in named_leaves(sh)
+                   if k.endswith(("/k", "/v")))
+    bar = 5e-5 if cfg.family in ("ssm", "audio") else 1e-5
+    for r, res in enumerate(ranks(2)):
+        check_serve(res["serve"][case], one, dp, mp, r, bar, b)
 
 
 def test_outside_a_mesh_every_function_is_the_identity():
@@ -228,7 +335,6 @@ def test_outside_a_mesh_every_function_is_the_identity():
             assert parallel.all_reduce(x, "data") is x
             assert parallel.all_gather(x, "data", 0) is x
             assert parallel.size("model") == 1 and parallel.rank("model") == 0
-            parallel.refuse("anything", "20f")
     assert parallel.current() is None
 
 
@@ -455,3 +561,24 @@ def test_census_equals_every_rank(ranks, world, name, mp):
     assert want["count_by_op"]["all-reduce"] > 0
     for res in ranks(world):
         assert res["steps"][f"{name} {mp}"]["census"] == want
+
+
+SERVE_CENSUS = [(w, mp) for w in (2, 4) for mp in W.SERVE_MPS[w]]
+
+
+@pytest.mark.parametrize("arch", W.SERVE_ARCHS)
+@pytest.mark.parametrize("world,mp", SERVE_CENSUS)
+def test_census_equals_every_serving_rank(ranks, world, mp, arch):
+    """The dry run's census of each family's prefill and decode step
+    (rank 0's trace of ``launch.specs``' setups on an abstract (world /
+    mp, mp) mesh) is, op by op, in count and bytes, exactly what every
+    rank counted in its prefill and in each of its decode steps, on
+    (1, 2), (2, 1), (2, 2) and (1, 4)."""
+    prefill, decode = W.serve_shapes()
+    want_p = W.dry_run_census(arch, prefill, world // mp, mp)
+    want_d = W.dry_run_census(arch, decode, world // mp, mp)
+    assert want_p["total_bytes"] > 0 and want_d["total_bytes"] > 0
+    for res in ranks(world):
+        got = res["serve"][f"{arch} {mp}"]["census"]
+        assert got[0] == want_p
+        assert got[1:] == [want_d] * W.SERVE_STEPS
