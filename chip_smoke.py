@@ -4378,15 +4378,16 @@ def _mesh_bf16_rank(device, cfg, profiled: bool) -> dict:
 # (d6): prefill and decode over the same two ranks on (1, 2), each rank
 # its blocks of the deployed params (the tier's compression of the whole
 # params, then placed) and of the cache as cache_spec_tree places it:
-# (tag, arch, layers (None: whole), dtype, the f32 runs' atol against one
-# rank, beside rtol MESH_SERVE_RTOL). Zamba's is the recurrent families'
-# bar of the CPU tests: six Mamba2 layers carry f32 noise of that size
-# (on an H100 80GB HBM3 at 700 W its ranks read 1.58e-5 from one rank in
-# the logits and 1.79e-5 in the shared block's k; at smoke width on the
-# CPU one rank's own f32 k sits 9.1e-6 from its f64 twin)
+# (tag, arch, layers (None: whole), dtype, the f32 runs' bar against one
+# rank). A number is an atol beside rtol MESH_SERVE_RTOL; "f64" holds the
+# ranks' logits and each cache leaf within MESH_F64_SLACK x the one-rank
+# f32 run's own distance from its f64 twin on the same deployed params
+# (Zamba: six Mamba2 layers' f32 rounding exceeds a fixed 1e-5 at full
+# width; (d2)'s argument with f64 for f32 and f32 for bf16).
 MESH_SERVE = (("d6 llama", LM_ARCH, 2, "float32", 1e-5),
-              ("d6 zamba", ZAMBA, 6, "float32", 5e-5),  # one application
+              ("d6 zamba", ZAMBA, 6, "float32", "f64"),  # one application
               ("d6 llama whole", LM_ARCH, None, "bfloat16", None))
+MESH_F64_SLACK = 3.0
 MESH_SERVE_TIER = "mid"
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT = 4, 64
 MESH_SERVE_GEN = 8                  # decode steps after the prefill
@@ -4458,13 +4459,13 @@ def _serve_run(cfg, params, device, mesh=None) -> dict:
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
         out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
-        out["logits"].append(logits.float().cpu())
+        out["logits"].append(_wide(logits).cpu())
         out["census"].append(c.record())
         t0 = time.perf_counter()
         for i, tok in enumerate(toks):
             with parallel.counting() as c:
                 logits, cache = decode(params, cache, tok, t + i)
-            out["logits"].append(logits.float().cpu())
+            out["logits"].append(_wide(logits).cpu())
             out["census"].append(c.record())
         torch.cuda.synchronize()
     out["decode_tokens_per_s"] = MESH_SERVE_GEN * b / (time.perf_counter()
@@ -4474,20 +4475,38 @@ def _serve_run(cfg, params, device, mesh=None) -> dict:
     return out
 
 
+def _wide(x):
+    """``x`` in f32, or in its own dtype where that is wider (f64)."""
+    import torch
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _to_host(tree):
     return ({k: _to_host(v) for k, v in tree.items()}
             if isinstance(tree, dict) else tree.cpu())
 
 
+DIGEST_CHUNK = 1 << 24
+
+
 def _digests(tree: dict) -> dict:
-    """name -> the sum of each leaf's bit patterns as integers (int64): a
-    placed block against the one-rank deployed leaf's block."""
+    """name -> a position-weighted digest of each leaf's bit patterns:
+    sum_i bits[i] * (2 i + 1) modulo 2**64 (int64 sums wrap, exactly, in
+    any order), so that a permutation or offsetting changes of elements
+    show, unlike a plain sum. Chunked, to bound the index's memory."""
     import torch
     out = {}
     for k, v in tree.items():
         ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
                 8: torch.int64}[v.element_size()]
-        out[k] = int(v.contiguous().view(ints).to(torch.int64).sum())
+        flat = v.contiguous().view(ints).reshape(-1)
+        h = 0
+        for lo in range(0, flat.numel(), DIGEST_CHUNK):
+            x = flat[lo:lo + DIGEST_CHUNK].to(torch.int64)
+            i = torch.arange(lo, lo + x.numel(), device=x.device,
+                             dtype=torch.int64)
+            h += int((x * (2 * i + 1)).sum())
+        out[k] = h % (1 << 64)
     return out
 
 
@@ -4496,7 +4515,9 @@ def _serve_one_rank(device, d: Path) -> dict:
     ``MESH_SERVE`` deployed and served on the card (its logits and cache
     saved to ``d`` for the ranks), the deployed leaves' blocks' digests
     for each rank of (1, MESH_RANKS), its fake_quant launches; for the
-    bf16 run also its f32 twin, whose logits give the bar."""
+    bf16 run also its f32 twin, whose logits give the bar, and for a run
+    of bar "f64" its f64 twin on the same deployed params, whose
+    distances (logits, each cache leaf) give the bars."""
     import numpy as np
     import torch
     from repro_torch.launch.mesh import Mesh, census_mesh
@@ -4515,12 +4536,15 @@ def _serve_one_rank(device, d: Path) -> dict:
             digests.append(_digests({k: sh[k].block(v)
                                      for k, v in params.items()}))
         run = _serve_run(cfg, params, device)
-        del params
-        torch.cuda.empty_cache()
         rec = {"launches": launches, "digests": digests,
                "prefill_s": run["prefill_s"],
                "decode_tokens_per_s": run["decode_tokens_per_s"],
                "peak_bytes": run["peak_bytes"]}
+        if atol == "f64":           # the same deployed params, in f64
+            f64 = _serve_run(cfg.replace(dtype="float64"), params, device)
+            rec["f32_f64"] = _distances(run, f64)
+        del params
+        torch.cuda.empty_cache()
         if dtype == "bfloat16":
             twin, _ = _deploy(cfg.replace(dtype="float32"), device)
             f32 = _serve_run(cfg.replace(dtype="float32"), twin, device)
@@ -4539,8 +4563,24 @@ def _serve_one_rank(device, d: Path) -> dict:
               f"{run['peak_bytes']} fake_quant {launches}"
               + (f" bf16-vs-f32 logits {rec['bf16_f32']:.6g}"
                  if "bf16_f32" in rec else "")
+              + (f" f32-vs-f64 (logits, cache leaves) "
+                 f"{json.dumps(rec['f32_f64'])}" if "f32_f64" in rec else "")
               + f" ({time.perf_counter() - t0:.1f} s)")
     return out
+
+
+def _distances(run: dict, ref: dict) -> dict:
+    """The max abs distance of ``run``'s logits (over the prefill and
+    every decode step) and of each leaf of its final cache from
+    ``ref``'s, both on the host."""
+    from repro_torch.checkpoint.checkpointer import named_leaves
+    return {"logits": max((a - b).abs().max().item()
+                          for a, b in zip(run["logits"], ref["logits"])),
+            "cache": {n: (_wide(x) - _wide(w)).abs().max().item()
+                      for (n, x), (_, w) in zip(
+                          named_leaves(run["cache"]),
+                          named_leaves(ref["cache"]))
+                      if not n.endswith("slot_pos")}}
 
 
 def _serve_dry_runs() -> dict:
@@ -4612,7 +4652,7 @@ def _mesh_serve_rank(device, directory: Path) -> dict:
             one["cache"], _batch_spec(mesh, MESH_SERVE_BATCH), MESH_RANKS))
         logit_err = [(a - b).abs().max().item()
                      for a, b in zip(run["logits"], one["logits"])]
-        atol = atol or 0.0
+        atol = atol if isinstance(atol, float) else 0.0
         logits_close = all(torch.allclose(a, b, rtol=MESH_SERVE_RTOL,
                                           atol=atol)
                            for a, b in zip(run["logits"], one["logits"]))
@@ -4645,11 +4685,12 @@ def _mesh_serve_rank(device, directory: Path) -> dict:
 
 def _check_serve(ranks: list, one_rank: dict, dry: dict) -> None:
     """(d6)'s bars: each rank's deployed blocks bitwise the one-rank
-    deployed leaves' blocks (digests), its fake_quant launches the
-    one-rank count; the f32 runs' logits within ``MESH_SERVE_RTOL`` and
-    the run's atol of one rank's and its cache of the one-rank cache's
-    block, ``slot_pos``
-    exact; the bf16 run's logits within ``MESH_BF16_SLACK`` x the
+    deployed leaves' blocks (position-weighted digests), its fake_quant
+    launches the one-rank count; the f32 runs' logits within
+    ``MESH_SERVE_RTOL`` and the run's atol of one rank's and its cache of
+    the one-rank cache's block, or (bar "f64") within ``MESH_F64_SLACK``
+    x the one-rank run's distance from its f64 twin, logits and each
+    cache leaf; ``slot_pos`` exact; the bf16 run's logits within ``MESH_BF16_SLACK`` x the
     one-rank bf16-vs-f32 distance; every call's collectives the dry
     run's census exactly; argument + temp bytes of the prefill within
     ``MESH_MEMORY_RTOL`` of the rank's peak over it."""
@@ -4668,13 +4709,30 @@ def _check_serve(ranks: list, one_rank: dict, dry: dict) -> None:
                   f"{got['cache_shapes']}, (max_abs_err, max|one rank|) "
                   f"per leaf {json.dumps(got['cache_err'])}")
             check(got["digests"] == one["digests"][r],
-                  f"{name}: the placed params are bitwise the one-rank "
-                  f"deployed leaves' blocks ({len(got['digests'])} leaves)")
+                  f"{name}: the placed params' position-weighted digests "
+                  f"equal the one-rank deployed leaves' blocks' "
+                  f"({len(got['digests'])} leaves)")
             check(got["launches"] == one["launches"],
                   f"{name}: fake_quant launched {got['launches']} times "
                   f"deploying the tier, the one-rank count "
                   f"{one['launches']}")
-            if dtype == "float32":
+            if atol == "f64":
+                ref = one["f32_f64"]
+                bar = MESH_F64_SLACK * ref["logits"]
+                check(max(got["logit_err"]) <= bar,
+                      f"{name}: the prefill's and {MESH_SERVE_GEN} decode "
+                      f"steps' logits within {MESH_F64_SLACK} x the one-rank "
+                      f"f32-vs-f64 distance {ref['logits']:.6g} (max "
+                      f"{max(got['logit_err']):.6g})")
+                far = {n: (e, ref["cache"][n]) for n, (e, _) in
+                       got["cache_err"].items()
+                       if e > MESH_F64_SLACK * ref["cache"][n]}
+                check(not far and got["slots_exact"],
+                      f"{name}: each cache leaf after the last step within "
+                      f"{MESH_F64_SLACK} x its one-rank f32-vs-f64 distance "
+                      f"of the one-rank cache's block (beyond: "
+                      f"{json.dumps(far)}), slot_pos exact")
+            elif dtype == "float32":
                 check(got["logits_close"],
                       f"{name}: the prefill's and {MESH_SERVE_GEN} decode "
                       f"steps' logits within rtol {MESH_SERVE_RTOL} / atol "

@@ -214,31 +214,21 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, patches=None,
     On a mesh of several ranks ``params`` are this rank's blocks
     (``param_spec_tree`` with no FSDP) and ``tokens`` its rows
     (``core.steps.make_prefill_step``): the attention runs as
-    ``layers.attn_prefill_ranks`` says, and each layer's k and v, whole
-    on every rank, are cut to this rank's block of the cache as
+    ``layers.attn_prefill`` says, and each layer's k and v, whole on
+    every rank, are cut to this rank's block of the cache as
     ``sharding.cache_spec_tree`` places it (``layers.cache_block``: the
     sequence axis on "model", else the kv heads, else head_dim). The
     logits are whole (``serve_logits``)."""
-    ranks = parallel.multi_rank()
     x = _embed_inputs(params, tokens, cfg, patches)
-    b, t = x.shape[0], x.shape[1]
+    t = x.shape[1]
     pos = torch.arange(t, device=x.device)
     ks, vs = [], []
     for lp in _layers(params):
-        h_in = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if ranks:
-            h, k, v = L.attn_prefill_ranks(lp["attn"], h_in, cfg,
-                                           window=window)
-            x, _ = _ffn(lp, x + h, cfg, num_groups)
-            k, v = L.cache_block(k, "k"), L.cache_block(v, "v")
-        else:
-            q = L.rope(L.proj(lp["attn"], "wq", h_in), pos, cfg.rope_theta)
-            k = L.rope(L.proj(lp["attn"], "wk", h_in), pos, cfg.rope_theta)
-            v = L.proj(lp["attn"], "wv", h_in)
-            o = L.chunked_attention(q, k, v, causal=True, window=window)
-            x, _ = _ffn(lp, x + L.proj(lp["attn"], "wo",
-                                       o.reshape(b, t, -1)),
-                        cfg, num_groups)
+        h, k, v = L.attn_prefill(lp["attn"],
+                                 L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                 window=window, positions=pos)
+        x, _ = _ffn(lp, x + h, cfg, num_groups)
+        k, v = L.cache_block(k, "k"), L.cache_block(v, "v")
         ks.append(k)
         vs.append(v)
     cache = {"layers": {

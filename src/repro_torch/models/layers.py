@@ -256,22 +256,21 @@ def kv_cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def decode_attention(q: torch.Tensor, cache: dict, *,
-                     window: int = 0) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, cache: dict, *, window: int = 0,
+                     kv_heads: int | None = None) -> torch.Tensor:
     """Single-token attention against the ring cache. q: (B, 1, H, hd).
     Empty slots (slot_pos < 0) are masked; the ring overwrites slots
     older than W, so every written slot is in-window by construction:
-    ``window`` is taken and, as in the reference, has no effect."""
-    n_rep = q.shape[2] // cache["k"].shape[2]
-    k = repeat_kv(cache["k"], n_rep)
-    v = repeat_kv(cache["v"], n_rep)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    valid = cache["slot_pos"] >= 0
-    scores = scores.to(torch.float32).masked_fill(
-        ~valid[None, None, None, :], -1e30)
-    p = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    ``window`` is taken and, as in the reference, has no effect. On a
+    mesh of several ranks ``cache`` is this rank's block of a cache of
+    ``kv_heads`` kv heads (default: the block's own), as
+    ``sharding.cache_spec_tree`` places it, and q is whole
+    (:func:`_attend_blocks`)."""
+    n = cache["slot_pos"].shape[0]
+    lo, hi = slot_range(cache["k"].shape[1], n)
+    return _attend_blocks(q, cache["k"], cache["v"],
+                          cache["slot_pos"][lo:hi] >= 0, n,
+                          kv_heads or cache["k"].shape[2])
 
 
 def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -283,8 +282,8 @@ def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     "model", else the kv heads, else head_dim; or whole). q: (B, 1, H,
     hd) whole; k, v: the block (B, S', Hkv', hd'); ``valid``: which of
     the block's slots are written (None: all). Returns the output (B, 1,
-    H, hd) whole on every rank, as :func:`decode_attention` (masked) or
-    ``cross_attn_decode`` (unmasked) computes it on one card.
+    H, hd) whole on every rank; off a mesh of ranks the plain attention
+    with the softmax in f32, probabilities cast to v's dtype.
 
     - Slots: flash-decoding. Each rank scores every head against its
       slots; the softmax takes the max and the sum of exponentials over
@@ -297,8 +296,9 @@ def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       of head_dim gathered."""
     hd = q.shape[-1]
     rep = q.shape[2] // kv_heads
-    heads = k.shape[2] != kv_heads
-    dims = k.shape[3] != hd
+    split = parallel.group("model") is not None
+    heads = split and k.shape[2] != kv_heads
+    dims = split and k.shape[3] != hd
     if heads:                   # the q heads of this rank's kv heads
         hl = k.shape[2] * rep
         q = q.narrow(2, parallel.rank("model") * hl, hl)
@@ -311,7 +311,7 @@ def _attend_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = (scores * (1.0 / math.sqrt(hd))).to(torch.float32)
     if valid is not None:
         scores = scores.masked_fill(~valid[None, None, None, :], -1e30)
-    slots = k.shape[1] != n_slots
+    slots = split and k.shape[1] != n_slots
     p = (parallel.softmax_over(scores, "model") if slots
          else torch.softmax(scores, dim=-1)).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v)
@@ -521,26 +521,30 @@ def qkv_whole(p: dict, name: str, x: torch.Tensor, heads: int,
                                       -2 if kind == HEADS else -1)
 
 
-def attn_prefill_ranks(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
-                       use_rope: bool = True):
-    """A prefill's causal self-attention over x (B, T, D) on a mesh of
-    several ranks, each rank its blocks of the leaves: (y, k, v), where k
-    and v (B, T, Hkv, hd) are whole on every rank for the cache (the
-    caller keeps its block, :func:`cache_block`). Where q's leaf is split
-    on its heads each rank attends with its own q heads over the kv heads
-    they read, and ``wo``'s rows of those heads give a partial output,
-    summed; otherwise every rank attends with every head. Always the
-    chunked attention, as the one-card prefill."""
+def attn_prefill(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
+                 positions: torch.Tensor | None = None,
+                 use_rope: bool = True):
+    """A prefill's causal self-attention over x (B, T, D): (y, k, v),
+    where k and v (B, T, Hkv, hd) are whole for the cache (RoPE, when on,
+    at ``positions``, default arange(T)). Always the chunked attention,
+    as in the reference. On a mesh of several ranks each rank holds its
+    blocks of the leaves and k and v are whole on every rank (the caller
+    keeps its block, :func:`cache_block`): where q's leaf is split on its
+    heads each rank attends with its own q heads over the kv heads they
+    read, and ``wo``'s rows of those heads give a partial output, summed;
+    otherwise every rank attends with every head."""
     b, t, _ = x.shape
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     local = _qkv_layout(p["wq.w"], h, cfg) == HEADS
-    q = proj(p, "wq", x) if local else qkv_whole(p, "wq", x, h, cfg)
-    k = qkv_whole(p, "wk", x, hkv, cfg)
+    if use_rope and positions is None:
+        positions = torch.arange(t, device=x.device)
+
+    def rot(y):
+        return rope(y, positions, cfg.rope_theta) if use_rope else y
+
+    q = rot(proj(p, "wq", x) if local else qkv_whole(p, "wq", x, h, cfg))
+    k = rot(qkv_whole(p, "wk", x, hkv, cfg))
     v = qkv_whole(p, "wv", x, hkv, cfg)
-    if use_rope:
-        pos = torch.arange(t, device=x.device)
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
     kq, vq = k, v
     if local:
         hl = q.shape[2]
@@ -560,31 +564,18 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,
     are made whole on every rank (their blocks gathered, or their
     partial sums over d_model summed), the step's k and v written into
     the block (:func:`kv_cache_update`), the attention run against it
-    (:func:`_attend_blocks`) and ``wo`` takes the whole output."""
+    and ``wo`` takes the whole output."""
     b = x.shape[0]
-    if parallel.multi_rank():
-        q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
-        k = qkv_whole(p, "wk", x, cfg.num_kv_heads, cfg)
-        if use_rope:
-            ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-            q = rope(q, ppos, cfg.rope_theta)
-            k = rope(k, ppos, cfg.rope_theta)
-        cache = kv_cache_update(cache, k, qkv_whole(
-            p, "wv", x, cfg.num_kv_heads, cfg), pos)
-        n = cache["slot_pos"].shape[0]
-        lo, hi = slot_range(cache["k"].shape[1], n)
-        o = _attend_blocks(q, cache["k"], cache["v"],
-                          cache["slot_pos"][lo:hi] >= 0, n,
-                          cfg.num_kv_heads)
-        return _attn_out(p, o.reshape(b, 1, -1), cfg, False), cache
-    q, k = proj(p, "wq", x), proj(p, "wk", x)
+    q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
+    k = qkv_whole(p, "wk", x, cfg.num_kv_heads, cfg)
     if use_rope:
         ppos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         q = rope(q, ppos, cfg.rope_theta)
         k = rope(k, ppos, cfg.rope_theta)
-    cache = kv_cache_update(cache, k, proj(p, "wv", x), pos)
-    o = decode_attention(q, cache, window=window)
-    return proj(p, "wo", o.reshape(b, 1, -1)), cache
+    cache = kv_cache_update(cache, k, qkv_whole(
+        p, "wv", x, cfg.num_kv_heads, cfg), pos)
+    o = decode_attention(q, cache, window=window, kv_heads=cfg.num_kv_heads)
+    return _attn_out(p, o.reshape(b, 1, -1), cfg, False), cache
 
 
 def cross_attn_decode(p: dict, x: torch.Tensor,
@@ -596,19 +587,10 @@ def cross_attn_decode(p: dict, x: torch.Tensor,
     cross-KV (its ``encoder_seq`` rows, kv heads or head_dim over "model",
     as ``sharding.cache_spec_tree`` places it): :func:`_attend_blocks`,
     unmasked."""
-    b = x.shape[0]
     k, v = enc_kv
-    if parallel.multi_rank():
-        q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
-        o = _attend_blocks(q, k, v, None, cfg.encoder_seq, cfg.num_kv_heads)
-        return _attn_out(p, o.reshape(b, x.shape[1], -1), cfg, False)
-    q = proj(p, "wq", x)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    n_rep = q.shape[2] // k.shape[2]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, repeat_kv(k, n_rep)) * scale
-    pr = torch.softmax(scores.to(torch.float32), dim=-1).to(v.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", pr, repeat_kv(v, n_rep))
-    return proj(p, "wo", o.reshape(b, x.shape[1], -1))
+    q = qkv_whole(p, "wq", x, cfg.num_heads, cfg)
+    o = _attend_blocks(q, k, v, None, cfg.encoder_seq, cfg.num_kv_heads)
+    return _attn_out(p, o.reshape(x.shape[0], x.shape[1], -1), cfg, False)
 
 
 def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,

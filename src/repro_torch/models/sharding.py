@@ -258,52 +258,50 @@ _CACHE_RULES: list[tuple[re.Pattern, tuple | None]] = [
     ]]
 
 
+def _cache_rule(name: str):
+    """``_CACHE_RULES``' entry for the cache leaf ``name``: (trailing
+    ndim, batch dim from end, model candidates from end), or None where
+    the leaf is replicated (``slot_pos``, or no rule matches)."""
+    for pat, s in _CACHE_RULES:
+        if pat.search(name):
+            return s
+    return None
+
+
 def cache_spec_tree(cache, batch_axes, model_size: int = 16) -> Any:
     """PartitionSpec tree for decode caches: shard batch + the first
-    divisible heads/channels dim; anything unmatched is replicated. A
-    cache's leaves are stacked over layers (and Zamba's over its shared
-    block's applications, xLSTM's over superblocks): the rule reads the
-    trailing dims. :func:`place`, :func:`blocks` and :func:`shard_bytes`
-    take the cache tree and these specs as they take the params'."""
+    divisible heads/channels dim (:func:`cache_model_dim`); anything
+    unmatched is replicated. A cache's leaves are stacked over layers
+    (and Zamba's over its shared block's applications, xLSTM's over
+    superblocks): the rule reads the trailing dims. :func:`place`,
+    :func:`blocks` and :func:`shard_bytes` take the cache tree and these
+    specs as they take the params'."""
     def spec(p, leaf):
         shape = tuple(leaf.shape)
-        nd = len(shape)
-        for pat, s in _CACHE_RULES:
-            if pat.search(p):
-                out = [None] * nd
-                if s is None:
-                    return P(*out)
-                _, bdim, cands = s
-                if batch_axes:
-                    out[nd + bdim] = batch_axes
-                for c in cands:
-                    dim = nd + c
-                    if shape[dim] % model_size == 0 and shape[dim] >= model_size:
-                        out[dim] = "model"
-                        break
-                return P(*out)
-        return P(*((None,) * nd))
+        out = [None] * len(shape)
+        rule = _cache_rule(p)
+        if rule is not None:
+            if batch_axes:
+                out[len(shape) + rule[1]] = batch_axes
+            dim = cache_model_dim(p, shape, model_size)
+            if dim is not None:
+                out[dim] = "model"
+        return P(*out)
 
     return map_named(spec, cache)
 
 
 def cache_model_dim(name: str, shape, model_size: int) -> int | None:
-    """The dim of the cache leaf ``name`` of ``shape`` that
-    :func:`cache_spec_tree`'s rule puts on "model" over ``model_size``
-    shards (None: none). The rule reads trailing dims, so a leaf stacked
+    """The dim of the cache leaf ``name`` of ``shape`` that the rule puts
+    on "model" over ``model_size`` shards: its first candidate that
+    divides (None: none). The rule reads trailing dims, so a leaf stacked
     over layers and one layer's slice of it (as a family's prefill makes
     it, layer by layer) name the same dim of their trailing ones."""
-    nd = len(shape)
-    for pat, s in _CACHE_RULES:
-        if pat.search(name):
-            if s is None:
-                return None
-            for c in s[2]:
-                dim = nd + c
-                if shape[dim] % model_size == 0 \
-                        and shape[dim] >= model_size:
-                    return dim
-            return None
+    rule = _cache_rule(name)
+    for c in () if rule is None else rule[2]:
+        dim = len(shape) + c
+        if shape[dim] % model_size == 0 and shape[dim] >= model_size:
+            return dim
     return None
 
 

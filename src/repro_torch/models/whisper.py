@@ -176,48 +176,34 @@ def prefill(params: dict, batch: dict, cfg, *, window: int = 0,
     the cross-KV. Returns (last-token logits (B, 1, V), cache).
 
     On a mesh of several ranks the encoder and the cross-attention run as
-    in training, the self-attention as ``layers.attn_prefill_ranks``, and
-    each layer's self- and cross-KV, whole on every rank, are cut to this
+    in training, the self-attention as ``layers.attn_prefill``, and each
+    layer's self- and cross-KV, whole on every rank, are cut to this
     rank's block of the cache as ``sharding.cache_spec_tree`` places them
     (``layers.cache_block``: the rows over "model", else the kv heads,
     else head_dim; the 1500 encoder rows do not split 16 ways, so the
     production mesh's cross-KV falls back to head_dim). The logits are
     whole."""
-    ranks = parallel.multi_rank()
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
-    b, t = tokens.shape
+    t = tokens.shape[1]
     x = L.embed(params["embed"], tokens, compute_dtype(cfg),
                 vocab_layout(params["embed"], cfg, 0))
     x = _add_positions(x, torch.arange(t, device=x.device), cfg)
     kv = {"k": [], "v": [], "enc_k": [], "enc_v": []}
+    hkv = cfg.num_kv_heads
     for lp in _layers(params, "dec_layers."):
-        a = lp["attn"]
-        h_in = _ln(lp["ln1"], x, cfg.norm_eps)
-        if ranks:
-            h, k, v = L.attn_prefill_ranks(a, h_in, cfg, window=window,
-                                           use_rope=False)
-            x = x + h
-        else:
-            k, v = L.proj(a, "wk", h_in), L.proj(a, "wv", h_in)
-            o = L.chunked_attention(L.proj(a, "wq", h_in), k, v,
-                                    causal=True, window=window)
-            x = x + L.proj(a, "wo", o.reshape(b, t, -1))
+        h, k, v = L.attn_prefill(lp["attn"], _ln(lp["ln1"], x, cfg.norm_eps),
+                                 cfg, window=window, use_rope=False)
+        x = x + h
         x = x + L.attn_forward(lp["xattn"], _ln(lp["ln_x"], x, cfg.norm_eps),
                                cfg, kv_src=enc_x, use_rope=False,
                                causal=False)
         x = x + _mlp(lp["mlp"], _ln(lp["ln2"], x, cfg.norm_eps), cfg)
-        if ranks:
-            hkv = cfg.num_kv_heads
-            enc = {n: L.qkv_whole(lp["xattn"], n, enc_x, hkv, cfg)
-                   for n in ("wk", "wv")}
-            for name, val in (("k", k), ("v", v), ("enc_k", enc["wk"]),
-                              ("enc_v", enc["wv"])):
-                kv[name].append(L.cache_block(val, name))
-            continue
-        for name, val in (("k", k), ("v", v),
-                          ("enc_k", L.proj(lp["xattn"], "wk", enc_x)),
-                          ("enc_v", L.proj(lp["xattn"], "wv", enc_x))):
+        k, v = L.cache_block(k, "k"), L.cache_block(v, "v")
+        enc = [L.cache_block(L.qkv_whole(lp["xattn"], w, enc_x, hkv, cfg),
+                             name) for w, name in (("wk", "enc_k"),
+                                                   ("wv", "enc_v"))]
+        for name, val in zip(kv, (k, v, *enc)):
             kv[name].append(val)
     cache = {k: torch.stack(v) for k, v in kv.items()}
     cache["slot_pos"] = torch.arange(t, dtype=torch.int32, device=x.device) \

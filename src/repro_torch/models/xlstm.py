@@ -445,22 +445,20 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     x = L.embed(params["embed"], tokens, compute_dtype(cfg),
                 vocab_layout(params["embed"], cfg, 0))
     b = tokens.shape[0]
-    d_in, hd, hds = dims(cfg)
+    _, hd, hds = dims(cfg)
+    whole = (b, cfg.num_heads, hd)
     mstates, sstates = [], []
     for mls, sp in _superblocks(params):
         per = []
         for lp in mls:
             x, st = mlstm_forward(lp, x, cfg)
-            if parallel.multi_rank():
-                whole = (b, cfg.num_heads, hd)
-                st = {"conv": L.cache_block(st["conv"], "conv"),
-                      "mC": L.cache_block(st["mC"], "mC", (*whole, hd)),
-                      "mn": L.cache_block(st["mn"], "mn", whole)}
+            st = {"conv": L.cache_block(st["conv"], "conv"),
+                  "mC": L.cache_block(st["mC"], "mC", (*whole, hd)),
+                  "mn": L.cache_block(st["mn"], "mn", whole)}
             per.append(st)
         x, st = slstm_forward(sp, x, cfg)
-        if parallel.multi_rank():
-            st = {k: L.cache_block(v, k, (b, cfg.num_heads, hds))
-                  for k, v in st.items()}
+        st = {k: L.cache_block(v, k, (b, cfg.num_heads, hds))
+              for k, v in st.items()}
         mstates.append({k: torch.stack([s[k] for s in per]) for k in per[0]})
         sstates.append(st)
     cache = {"mlstm": {k: torch.stack([s[k] for s in mstates])

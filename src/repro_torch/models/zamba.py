@@ -31,7 +31,6 @@ import torch
 
 from repro_torch.core.scenario import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import parallel
 from repro_torch.models.decoder import (compute_dtype, head_layout,
                                         make_generator, serve_logits,
                                         unembed_head, vocab_layout)
@@ -141,56 +140,37 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     (``layers.cache_block``): a layer's ``conv`` on its channels, its
     ``ssm`` on its heads (already so where the scan ran this rank's
     heads), the applications' k and v on the sequence axis, else the kv
-    heads, else head_dim (``layers.attn_prefill_ranks``)."""
-    ranks = parallel.multi_rank()
+    heads, else head_dim (``layers.attn_prefill``)."""
     b, t = tokens.shape
     dt = compute_dtype(cfg)
     x = L.embed(params["embed"], tokens, dt,
                 vocab_layout(params["embed"], cfg, 0))
     layers, sp = _views(params)
-    apps = n_attn_apps(cfg)
-    if ranks:
-        kvs = {"k": [], "v": []}
-        _, nheads, _ = mamba_dims(cfg)
-        ssm_whole = (b, nheads, cfg.ssm_headdim, cfg.ssm_state)
-    else:
-        kv0 = L.init_kv_cache(b, t, cfg.num_kv_heads, cfg.head_dim, dt,
-                              x.device)
-        attn = {k: torch.zeros((apps, *v.shape), dtype=v.dtype,
-                               device=x.device) for k, v in kv0.items()}
+    _, nheads, _ = mamba_dims(cfg)
+    ssm_whole = (b, nheads, cfg.ssm_headdim, cfg.ssm_state)
     pos = torch.arange(t, device=x.device)
-    mstates = []
+    mstates, kvs = [], {"k": [], "v": []}
     for idx, lp in enumerate(layers):
         y, mstate = mamba_forward(lp["mamba"], L.rms_norm(x, lp["ln"],
                                                           cfg.norm_eps), cfg)
         x = x + y
-        if ranks:
-            mstate = {"conv": L.cache_block(mstate["conv"], "conv"),
-                      "ssm": L.cache_block(mstate["ssm"], "ssm", ssm_whole)}
-        mstates.append(mstate)
+        mstates.append({"conv": L.cache_block(mstate["conv"], "conv"),
+                        "ssm": L.cache_block(mstate["ssm"], "ssm",
+                                             ssm_whole)})
         if not _is_app(idx, cfg):
             continue
-        h_in = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-        if ranks:
-            h, k, v = L.attn_prefill_ranks(sp["attn"], h_in, cfg,
-                                           window=window)
-            x = _mlp(sp, x + h, cfg)
-            kvs["k"].append(L.cache_block(k.to(dt), "k"))
-            kvs["v"].append(L.cache_block(v.to(dt), "v"))
-            continue
-        app = (idx + 1) // cfg.attn_every - 1
-        a = sp["attn"]
-        q = L.rope(L.proj(a, "wq", h_in), pos, cfg.rope_theta)
-        k = L.rope(L.proj(a, "wk", h_in), pos, cfg.rope_theta)
-        v = L.proj(a, "wv", h_in)
-        o = L.chunked_attention(q, k, v, causal=True, window=window)
-        x = _mlp(sp, x + L.proj(a, "wo", o.reshape(b, t, -1)), cfg)
-        attn["k"][app] = k.to(dt)
-        attn["v"][app] = v.to(dt)
-        attn["slot_pos"][app] = pos.to(torch.int32)
-    if ranks:
-        attn = {k: torch.stack(v) for k, v in kvs.items()}
-        attn["slot_pos"] = pos.to(torch.int32).expand(apps, t).contiguous()
+        h, k, v = L.attn_prefill(sp["attn"],
+                                 L.rms_norm(x, sp["ln1"], cfg.norm_eps), cfg,
+                                 window=window, positions=pos)
+        x = _mlp(sp, x + h, cfg)
+        k, v = L.cache_block(k.to(dt), "k"), L.cache_block(v.to(dt), "v")
+        kvs["k"].append(k)
+        kvs["v"].append(v)
+    apps = n_attn_apps(cfg)
+    attn = {k: torch.stack(v) if v else torch.zeros(
+        (0, b, t, cfg.num_kv_heads, cfg.head_dim), dtype=dt, device=x.device)
+        for k, v in kvs.items()}
+    attn["slot_pos"] = pos.to(torch.int32).expand(apps, t).contiguous()
     mamba = {k: torch.stack([s[k] for s in mstates]) for k in mstates[0]}
     return serve_logits(params, x[:, -1:, :], cfg), {"mamba": mamba,
                                                      "attn": attn}
