@@ -29,8 +29,8 @@ checkpoint reads faults') needs that one named too.
      format with e > 0, at every compressible leaf shape of llama3.2-3b
      and of granite-moe-1b-a400m (full configs; the MoE expert leaves are
      4-D, (24, 32, 1024, 512) and (24, 32, 512, 1024)), of qwen3-moe-30b-a3b
-     and llava-next-34b at full width and the 4 layers the MoE serve phase
-     runs (expert leaves up to (4, 128, 2048, 768); llava's projector
+     and llava-next-34b at full width and the one layer the MoE serve
+     phase runs (expert leaves (1, 128, 2048, 768); llava's projector
      (7168, 7168)), of xlstm-1.3b and zamba2-2.7b at their full configs
      (xLSTM's 5-D r_gates (6, 4, 4, 512, 512) and its (6, 7, 4096, 12288)
      qkv of 2.11e9 elements; Zamba's stacked (54, 80) vectors; a leaf past
@@ -204,7 +204,7 @@ checkpoint reads faults') needs that one named too.
    compressible leaf (10, the router
    excluded) per quantized tier, and a profiled window of 8 decode
    steps on the low tier; then qwen3-moe-30b-a3b and llava-next-34b at
-   full width cut to 4 layers (of 48 and 60), tiers hub (2 tokens) and
+   full width cut to 1 layer (of 48 and 60), tiers hub (2 tokens) and
    low (llava's
    prefill covers 1152 patches + 64 tokens). In f32 at 2 layers of full
    width the decode replay must agree with prefill: granite-moe at
@@ -249,11 +249,12 @@ checkpoint reads faults') needs that one named too.
    attention calls x 4 tiers) all on the wgmma kernel, fake_quant 93 per
    step; one step profiled; the same run without flash gives the same
    losses to rtol 1e-3.
-12. Phase "mesh": (a) whisper-tiny whole through ``launch.train`` at
+12. Phase "mesh": (a) whisper-tiny at full width, 2 of its 4 decoder and
+   4 encoder layers, through ``launch.train`` at
    --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on
    one card, the state placed by ``param_spec_tree``) and at 1, bf16,
    flash, 4 tiers, AdamW, 8 x 1024 over 1500 frames, 2 steps each: flash
-   48 and fake_quant 93 per step, losses and final params bitwise
+   24 and fake_quant 93 per step, losses and final params bitwise
    between the two; (b) the LM dry run (``launch.dryrun.dry_run_step``,
    fake tensors on the host) of the same config and shape on that mesh,
    flash off, against a fresh real state, batch and step on the card:
@@ -268,7 +269,7 @@ checkpoint reads faults') needs that one named too.
    (``chip_smoke.py --mesh-rank R``, started and waited for by the phase
    with a time limit; a rank's nonzero exit fails the phase), through
    ``launch.train`` with ``WORLD_SIZE`` 2: (d1) llama3.2-3b at full
-   width, 2 layers, f32, flash (simt), 4 tiers, 8 x 256, 2 steps under
+   width, 1 layer, f32, flash (simt), 4 tiers, 8 x 128, 2 steps under
    the launcher's warmup, on meshes (1, 2) and (2, 1) against the
    one-rank launcher from the same seed: losses and tier losses rtol
    1e-4, params (below), each rank's masks at densities 0.5
@@ -311,7 +312,15 @@ checkpoint reads faults') needs that one named too.
    one rank's, and the params within atol 1e-5; in (d4) alone a param
    whose first moment flips sign at most 1e-3 of its leaf's largest may
    pass it by up to 2 lr (a gradient at f32 noise, whose sign AdamW's
-   step turns into +-lr; counted and printed).
+   step turns into +-lr; counted and printed). (d6) prefill (4 x 64)
+   and 8 decode steps on (1, 2) in the same rank processes, each rank
+   its blocks of the deployed params and of the cache, against one rank
+   and the dry run's census and bytes; (d7) the same in a second spawn
+   of eight ranks on (1, 8) for whisper-tiny whole (6 heads: the
+   prefill's attention on each rank's query rows) and xlstm-1.3b at 8
+   layers over a 768-token prompt (4 heads: the mLSTM cell on each
+   rank's block of dk), each rank's prefill s, decode tokens/s and peak
+   printed beside the card's name and power limit.
 
 Prints the card's name and power limit, per-kernel times, launches per
 round and per step, ms per round and per window (clean and under
@@ -338,6 +347,7 @@ import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CARD = ""       # the card's name and power limit, as nvidia-smi gives them
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 rate outside the tensor cores
@@ -1000,10 +1010,10 @@ def phase_lm_kernels(device) -> dict:
         check(not bad, f"fake_quant {label} {shape} == quantize_em (bitwise) "
                        f"for {sorted(fmts)}{' slice by slice' * huge}; "
                        f"mismatched: {bad}, max_abs_err {err}")
-        # the recurrent and audio families' leaves are timed only where
-        # they are new in kind: past HUGE elements, or 5-D
-        if label.startswith(("xlstm", "zamba", "whisper")) and not huge \
-                and x.dim() < 5:
+        # timed: the kernel row's leaf (llama's embedding) and the leaves
+        # new in kind, past HUGE elements or 5-D (every leaf until phase
+        # mesh (d7) came: phase budget)
+        if label != "llama embed" and not huge and x.dim() < 5:
             del x
             continue
         big = x.numel() > 10_000_000
@@ -3011,8 +3021,8 @@ def phase_train(device) -> dict:
 
 QWEN_MOE = "qwen3-moe-30b-a3b"
 LLAVA = "llava-next-34b"
-WIDE_LAYERS = 2     # qwen3-moe (of 48) and llava (of 60) at full width (4
-                    # until phase mesh (d6) came: phase budget)
+WIDE_LAYERS = 1     # qwen3-moe (of 48) and llava (of 60) at full width (4
+                    # until phase mesh (d6) came, 2 until (d7): phase budget)
 DECODE_STEPS = 8    # the profiled MoE decode window
 HUB_GEN = 2         # tokens of the MoE, VLM and Zamba hubs' checked serve
 
@@ -3459,9 +3469,13 @@ def phase_audio_train(device) -> dict:
 # ------------------------------------------------------ meshes, dry run
 
 MESH_STEPS = 2                      # (a)'s steps (phase budget)
+# (a)'s and (b)'s depth, 2 of whisper-tiny's 4 decoder and 4 encoder
+# layers (whole until phase mesh (d7) came: phase budget)
+MESH_WHISPER_DEPTH = dict(num_layers=2, encoder_layers=2)
 MESH_MEMORY_RTOL = 0.25             # dry-run bytes vs the card's peak
 MESH_RANKS = 2                      # (d): two ranks share the card over gloo
-MESH_F32 = dict(layers=2, batch=8, seq=256, steps=2)    # (d1), warmup 20
+# (d1), warmup 20; 2 layers and 8 x 256 until (d7) came (phase budget)
+MESH_F32 = dict(layers=1, batch=8, seq=128, steps=2)
 MESH_BF16 = dict(layers=4, batch=8, seq=1024, steps=2)  # (d2), warmup 2
 # (d2): its losses within this x the one rank's bf16-vs-f32 distance D: 2 D
 # by the triangle inequality through the f32 losses, and one D more for the
@@ -3484,7 +3498,7 @@ MESH_PARTS = (("d1", "d2", LM_ARCH, None, (MESH_RANKS, 1)),
 
 
 def phase_mesh(device) -> dict:
-    """(a) whisper-tiny trained whole through ``launch.train`` at
+    """(a) whisper-tiny (2 + 2 layers) trained through ``launch.train`` at
     --model-parallel 2 (the host mesh over every CUDA device: (1, 1) on a
     one-card host) and at 1: losses and final params bitwise; (b) the LM
     dry run of the same config and shape on that host mesh against the
@@ -3508,10 +3522,11 @@ def phase_mesh(device) -> dict:
     from repro_torch.models import get_model
 
     # (a) the launcher at --model-parallel 2 and 1
-    cfg = get_config(WHISPER).replace(use_flash=True)
+    cfg = get_config(WHISPER).replace(use_flash=True, **MESH_WHISPER_DEPTH)
     runs, got = {}, {"fake_quant": 0, "flash_attention_wgmma": 0}
     for mp in (2, 1):
-        print(f"mesh: train {WHISPER} --model-parallel {mp}: bf16 "
+        print(f"mesh: train {WHISPER} {MESH_WHISPER_DEPTH} --model-parallel "
+              f"{mp}: bf16 "
               f"use_flash=True tiers=4 batch=8 seq=1024 steps={MESH_STEPS}")
         runs[mp], launches = _train_run(cfg, f"{WHISPER} mp{mp}", MESH_STEPS,
                                         8, 1024, "wgmma", device, lr=AUDIO_LR,
@@ -3734,8 +3749,8 @@ def _one_rank_runs(part: tuple, device, d: Path) -> dict:
 def _mesh_ranks(device) -> dict:
     """(d) the decoder over ``MESH_RANKS`` ranks on the one card (gloo:
     NCCL refuses two ranks on one device), each rank a process of its
-    own (``--mesh-rank``). (d1) llama3.2-3b at full width, 2 layers, f32,
-    flash (simt), 4 tiers, 8 x 256, 2 steps under the launcher's warmup:
+    own (``--mesh-rank``). (d1) llama3.2-3b at full width, 1 layer, f32,
+    flash (simt), 4 tiers, 8 x 128, 2 steps under the launcher's warmup:
     meshes (1, 2) and (2, 1) against the one-rank launcher from the same
     seed (losses rtol 1e-4, gathered params atol 1e-5), each rank's masks
     bitwise the one-rank masks' blocks, its fake_quant launches the
@@ -3755,49 +3770,27 @@ def _mesh_ranks(device) -> dict:
     run's per-device census and bytes (:func:`_check_census`). (d6)
     prefill and decode on (1, 2) of ``MESH_SERVE``'s runs, each rank its
     blocks of the deployed params and of the cache, against one rank and
-    the dry run (:func:`_check_serve`). Returns the ranks' launches."""
+    the dry run (:func:`_check_serve`). (d7) the same on (1, 8) for
+    :data:`MESH_ROWS`, in ``MESH_ROWS_RANKS`` rank processes of their
+    own. Returns the ranks' launches."""
     import shutil
-    import socket
 
     d = Path(_ckpt_dir())
     try:
         # the one-rank runs, here, and (d2)'s and (d5)'s dry-run records
         parts = [_one_rank_runs(part, device, d) for part in MESH_PARTS]
-        serve_one = _serve_one_rank(device, d)
+        serve_one = {p: _serve_one_rank(device, d, p) for p in SERVE_PARTS}
         dry = _rank_dry_runs()
-        serve_dry = _serve_dry_runs()
-
-        # the ranks
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
-             str(r), "--mesh-dir", str(d), "--mesh-port", str(port)],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(MESH_RANKS)]
-        logs = [""] * MESH_RANKS
+        serve_dry = {p: _serve_dry_runs(p) for p in SERVE_PARTS}
+        # (d7)'s ranks start beside (d)'s, so that their start-up overlaps
+        # (d)'s run, and wait for its end (the go file) before they work
+        rows = _start_ranks(d, MESH_ROWS_RANKS)
         try:
-            for r, p in enumerate(procs):
-                left = MESH_RANK_TIMEOUT - (time.perf_counter() - t0)
-                logs[r] = p.communicate(timeout=max(left, 1))[0]
-        except subprocess.TimeoutExpired:
-            pass
+            ranks = _join_ranks(d, "d", _start_ranks(d, MESH_RANKS))
+            (d / "d7.go").touch()
+            rows = _join_ranks(d, "d7", rows)
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, log in enumerate(logs):
-            for line in log.splitlines():
-                print(f"mesh rank {r}: {line}")
-        check(all(p.returncode == 0 for p in procs),
-              f"mesh (d): every rank exits 0 within {MESH_RANK_TIMEOUT} s "
-              f"(exit codes {[p.returncode for p in procs]}, "
-              f"{time.perf_counter() - t0:.1f} s)")
-        ranks = [json.loads((d / f"rank{r}.json").read_text())
-                 for r in range(MESH_RANKS)]
+            _stop(rows)
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -3814,10 +3807,68 @@ def _mesh_ranks(device) -> dict:
             launches[k] += got[k]
     _check_fsdp(ranks, dry["d5"]["argument_size_in_bytes"])
     _check_census(ranks, dry)
-    _check_serve(ranks, serve_one, serve_dry)
-    launches["fake_quant"] += sum(rk["d6"][tag]["launches"] for rk in ranks
-                                  for tag, *_ in MESH_SERVE)
+    _check_serve(ranks, serve_one["d6"], serve_dry["d6"], "d6")
+    _check_serve(rows, serve_one["d7"], serve_dry["d7"], "d7")
+    launches["fake_quant"] += sum(
+        rk[p][tag]["launches"] for p, rks in (("d6", ranks), ("d7", rows))
+        for rk in rks for tag, *_ in SERVE_PARTS[p][0])
     return launches
+
+
+def _start_ranks(d: Path, world: int) -> tuple:
+    """Starts ``world`` rank processes on the card (``chip_smoke.py
+    --mesh-rank R``, gloo over a free port), each writing its log to
+    ``d/w{world}_rank{R}.log``; returns (the processes, their start
+    time)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for r in range(world):
+        with open(d / f"w{world}_rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), "--mesh-world", str(world), "--mesh-dir", str(d),
+                 "--mesh-port", str(port)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True))
+    return procs, time.perf_counter()
+
+
+def _stop(started) -> None:
+    """Kills the processes of :func:`_start_ranks` still running."""
+    if isinstance(started, tuple):
+        for p in started[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _join_ranks(d: Path, what: str, started: tuple) -> list:
+    """Waits for the rank processes of :func:`_start_ranks` with a time
+    limit from their start; prints their logs, and returns each rank's
+    results (``d/w{world}_rank{R}.json``). A rank's nonzero exit fails
+    the phase."""
+    procs, t0 = started
+    world = len(procs)
+    try:
+        for p in procs:
+            left = MESH_RANK_TIMEOUT - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        _stop(started)
+    for r in range(world):
+        for line in (d / f"w{world}_rank{r}.log").read_text().splitlines():
+            print(f"mesh ({what}) rank {r}: {line}")
+    check(all(p.returncode == 0 for p in procs),
+          f"mesh ({what}): every rank of {world} exits 0 within "
+          f"{MESH_RANK_TIMEOUT} s (exit codes "
+          f"{[p.returncode for p in procs]}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return [json.loads((d / f"w{world}_rank{r}.json").read_text())
+            for r in range(world)]
 
 
 def _rank_dry_runs() -> dict:
@@ -4067,23 +4118,34 @@ def _check_ranks(one_rank: dict, f32s: list, bf16s: list,
     return launches
 
 
-def mesh_rank(rank: int, directory: str, port: int) -> int:
+def mesh_rank(rank: int, directory: str, port: int, world: int) -> int:
     """One rank of phase mesh's (d), in a process of its own: joins the
-    gloo group of ``MESH_RANKS`` on ``port``, runs each part of
-    :data:`MESH_PARTS` through ``launch.train`` (its f32 part on its
-    meshes, its bf16 part on (1, 2)), then (d6)
-    (:func:`_mesh_serve_rank`), and writes its results to
-    ``directory/rank{rank}.json``."""
+    gloo group of ``world`` ranks on ``port``; of ``MESH_RANKS``, runs
+    each part of :data:`MESH_PARTS` through ``launch.train`` (its f32
+    part on its meshes, its bf16 part on (1, 2)), then (d6), of
+    ``MESH_ROWS_RANKS`` (d7) alone (:func:`_mesh_serve_rank`); and writes
+    its results to ``directory/w{world}_rank{rank}.json``. Of
+    ``MESH_ROWS_RANKS``, it starts beside (d)'s ranks and waits for
+    ``directory/d7.go`` before it works."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(MESH_RANKS),
+                      RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(MESH_RANKS))
+                      LOCAL_WORLD_SIZE=str(world))
     device = init_distributed("cuda")           # one card for all: gloo
     print(f"rank {rank}: backend {dist.get_backend()} device {device}")
     out = {}
+    result = Path(directory) / f"w{world}_rank{rank}.json"
+    if world == MESH_ROWS_RANKS:
+        go = Path(directory) / "d7.go"
+        while not go.exists():      # (d)'s ranks run until it is written
+            time.sleep(0.2)
+        out["d7"] = _mesh_serve_rank(device, Path(directory), "d7")
+        result.write_text(json.dumps(out))
+        dist.destroy_process_group()
+        return 0
     for f32_key, bf16_key, arch, layers, mps in MESH_PARTS:
         t0 = time.perf_counter()
         out[f32_key] = {}
@@ -4106,8 +4168,8 @@ def mesh_rank(rank: int, directory: str, port: int) -> int:
             torch.cuda.empty_cache()
         print(f"rank {rank}: part {f32_key}: {time.perf_counter() - t0:.1f} s",
               flush=True)
-    out["d6"] = _mesh_serve_rank(device, Path(directory))
-    (Path(directory) / f"rank{rank}.json").write_text(json.dumps(out))
+    out["d6"] = _mesh_serve_rank(device, Path(directory), "d6")
+    result.write_text(json.dumps(out))
     dist.destroy_process_group()
     return 0
 
@@ -4392,6 +4454,19 @@ MESH_SERVE_TIER = "mid"
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT = 4, 64
 MESH_SERVE_GEN = 8                  # decode steps after the prefill
 MESH_SERVE_RTOL = 1e-4
+# (d7): where the heads do not split over the ranks, the prefill's
+# attention on each rank's query rows (whisper-tiny's 6 heads; its q, k
+# and v on head_dim) and xLSTM's mLSTM on each rank's block of dk (its 4
+# heads; mC and mn on dk) over MESH_ROWS_RANKS gloo ranks on the card,
+# (1, 8): no model takes either path at 2 ranks. Each run as (d6) runs
+# it, at (d6)'s bars; xLSTM's prompt is three mLSTM chunks.
+MESH_ROWS_RANKS = 8
+MESH_ROWS = (("d7 whisper", WHISPER, None, "float32", 1e-5),
+             ("d7 xlstm", XLSTM, 8, "float32", "f64"))   # one superblock
+MESH_SERVE_PROMPTS = {"d7 xlstm": 3 * 256}
+# the serve parts of phase mesh: part -> (its runs, its model ranks)
+SERVE_PARTS = {"d6": (MESH_SERVE, MESH_RANKS),
+               "d7": (MESH_ROWS, MESH_ROWS_RANKS)}
 
 
 def _serve_cfg(arch: str, layers, dtype: str):
@@ -4400,10 +4475,14 @@ def _serve_cfg(arch: str, layers, dtype: str):
     return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
-def _serve_shapes():
+def _prompt(tag: str) -> int:
+    return MESH_SERVE_PROMPTS.get(tag, MESH_SERVE_PROMPT)
+
+
+def _serve_shapes(prompt: int):
     from repro_torch.configs import ShapeConfig
-    return (ShapeConfig("p", MESH_SERVE_PROMPT, MESH_SERVE_BATCH, "prefill"),
-            ShapeConfig("d", MESH_SERVE_PROMPT, MESH_SERVE_BATCH, "decode"))
+    return (ShapeConfig("p", prompt, MESH_SERVE_BATCH, "prefill"),
+            ShapeConfig("d", prompt, MESH_SERVE_BATCH, "decode"))
 
 
 def _deploy(cfg, device) -> tuple[dict, int]:
@@ -4427,23 +4506,28 @@ def _deploy(cfg, device) -> tuple[dict, int]:
             for k, v in cp.items()}, launches
 
 
-def _serve_run(cfg, params, device, mesh=None) -> dict:
-    """``launch.specs``' prefill step on a seeded 4 x 64 prompt, then
-    ``MESH_SERVE_GEN`` decode steps on seeded tokens (positions 64...:
-    the ring of 64 slots wraps), on one device, or with ``mesh`` on this
-    rank's blocks (``params`` placed already), each call's collectives
-    counted: the logits, the cache after the last step (on the host),
-    the censuses, the prefill's seconds and peak, the decode's tokens/s
-    and the run's peak."""
+def _serve_run(cfg, params, device, mesh=None,
+               t: int = MESH_SERVE_PROMPT) -> dict:
+    """``launch.specs``' prefill step on a seeded 4 x ``t`` prompt (with
+    seeded frames for audio), then ``MESH_SERVE_GEN`` decode steps on
+    seeded tokens (positions t...: the ring of t slots wraps), on one
+    device, or with ``mesh`` on this rank's blocks (``params`` placed
+    already), each call's collectives counted: the logits, the cache
+    after the last step (on the host), the censuses, the prefill's
+    seconds and peak, the decode's tokens/s and the run's peak."""
     import torch
     from repro_torch.core.steps import make_prefill_step, make_serve_step
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import get_model, parallel
-    b, t = MESH_SERVE_BATCH, MESH_SERVE_PROMPT
+    b = MESH_SERVE_BATCH
     model = get_model(cfg)
-    prompt = TokenStream(cfg.vocab_size, b, t, seed=0).batch_at(0)[
-        "tokens"][:, :t].to(device)
+    batch = {"tokens": TokenStream(cfg.vocab_size, b, t, seed=0).batch_at(
+        0)["tokens"][:, :t].to(device)}
     gen = torch.Generator(device=device).manual_seed(1)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), generator=gen, device=device,
+            dtype=torch.float32).to(getattr(torch, cfg.dtype))
     toks = [torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
                           device=device, dtype=torch.int32)
             for _ in range(MESH_SERVE_GEN)]
@@ -4455,7 +4539,7 @@ def _serve_run(cfg, params, device, mesh=None) -> dict:
     with parallel.using(mesh):
         t0 = time.perf_counter()
         with parallel.counting() as c:
-            logits, cache = prefill(params, {"tokens": prompt})
+            logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
         out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -4510,44 +4594,49 @@ def _digests(tree: dict) -> dict:
     return out
 
 
-def _serve_one_rank(device, d: Path) -> dict:
-    """(d6)'s one-rank runs, here, before the ranks start: each run of
-    ``MESH_SERVE`` deployed and served on the card (its logits and cache
-    saved to ``d`` for the ranks), the deployed leaves' blocks' digests
-    for each rank of (1, MESH_RANKS), its fake_quant launches; for the
-    bf16 run also its f32 twin, whose logits give the bar, and for a run
-    of bar "f64" its f64 twin on the same deployed params, whose
-    distances (logits, each cache leaf) give the bars."""
+def _serve_one_rank(device, d: Path, part: str) -> dict:
+    """A serve part's ((d6), (d7): :data:`SERVE_PARTS`) one-rank runs,
+    here, before the ranks start: each of its runs deployed and served on
+    the card (its logits and cache saved to ``d`` for the ranks), the
+    deployed leaves' blocks' digests for each rank of (1, M), its
+    fake_quant launches; for the bf16 run also its f32 twin, whose logits
+    give the bar, and for a run of bar "f64" its f64 twin on the same
+    deployed params, whose distances (logits, each cache leaf) give the
+    bars."""
     import numpy as np
     import torch
     from repro_torch.launch.mesh import Mesh, census_mesh
     from repro_torch.models.sharding import named, param_spec_tree
-    slots = np.empty((1, MESH_RANKS), dtype=object)
+    runs, m = SERVE_PARTS[part]
+    slots = np.empty((1, m), dtype=object)
     slots.fill(torch.device("meta"))
     out = {}
-    for tag, arch, layers, dtype, atol in MESH_SERVE:
+    for tag, arch, layers, dtype, atol in runs:
         t0 = time.perf_counter()
         cfg = _serve_cfg(arch, layers, dtype)
+        t = _prompt(tag)
         params, launches = _deploy(cfg, device)
-        specs = param_spec_tree(params, MESH_RANKS)
+        specs = param_spec_tree(params, m)
         digests = []
-        for r in range(MESH_RANKS):
+        for r in range(m):
             sh = named(census_mesh(Mesh(slots, ("data", "model")), r), specs)
             digests.append(_digests({k: sh[k].block(v)
                                      for k, v in params.items()}))
-        run = _serve_run(cfg, params, device)
+        run = _serve_run(cfg, params, device, t=t)
         rec = {"launches": launches, "digests": digests,
                "prefill_s": run["prefill_s"],
                "decode_tokens_per_s": run["decode_tokens_per_s"],
                "peak_bytes": run["peak_bytes"]}
         if atol == "f64":           # the same deployed params, in f64
-            f64 = _serve_run(cfg.replace(dtype="float64"), params, device)
+            f64 = _serve_run(cfg.replace(dtype="float64"), params, device,
+                             t=t)
             rec["f32_f64"] = _distances(run, f64)
         del params
         torch.cuda.empty_cache()
         if dtype == "bfloat16":
             twin, _ = _deploy(cfg.replace(dtype="float32"), device)
-            f32 = _serve_run(cfg.replace(dtype="float32"), twin, device)
+            f32 = _serve_run(cfg.replace(dtype="float32"), twin, device,
+                             t=t)
             del twin
             torch.cuda.empty_cache()
             rec["bf16_f32"] = max((a - b).abs().max().item() for a, b in
@@ -4557,7 +4646,7 @@ def _serve_one_rank(device, d: Path) -> dict:
         out[tag] = rec
         print(f"mesh ({tag}): one rank: {cfg.name} {cfg.num_layers} layers "
               f"{dtype} tier {MESH_SERVE_TIER} prefill {MESH_SERVE_BATCH} x "
-              f"{MESH_SERVE_PROMPT} + {MESH_SERVE_GEN} decode steps: "
+              f"{t} + {MESH_SERVE_GEN} decode steps: "
               f"prefill_s {run['prefill_s']:.6f} decode_tokens_per_s "
               f"{run['decode_tokens_per_s']:.3f} peak_bytes "
               f"{run['peak_bytes']} fake_quant {launches}"
@@ -4583,9 +4672,9 @@ def _distances(run: dict, ref: dict) -> dict:
                       if not n.endswith("slot_pos")}}
 
 
-def _serve_dry_runs() -> dict:
-    """The dry run's per-device figures of each (d6) run's prefill and
-    decode step on an abstract (1, MESH_RANKS) mesh: argument bytes
+def _serve_dry_runs(part: str) -> dict:
+    """The dry run's per-device figures of each run of a serve part's
+    prefill and decode step on an abstract (1, M) mesh: argument bytes
     (the setups' shardings) and rank 0's trace (its temp bytes and
     collectives)."""
     import numpy as np
@@ -4593,14 +4682,15 @@ def _serve_dry_runs() -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.specs import rank_traced, setup_for
     from repro_torch.models.sharding import shard_bytes
-    slots = np.empty((1, MESH_RANKS), dtype=object)
+    runs, m = SERVE_PARTS[part]
+    slots = np.empty((1, m), dtype=object)
     slots.fill(torch.device("meta"))
     mesh = Mesh(slots, ("data", "model"))
     out = {}
-    for tag, arch, layers, dtype, atol in MESH_SERVE:
+    for tag, arch, layers, dtype, atol in runs:
         cfg = _serve_cfg(arch, layers, dtype)
         t0 = time.perf_counter()
-        for shape in _serve_shapes():
+        for shape in _serve_shapes(_prompt(tag)):
             _, args, in_sh, _ = setup_for(cfg, shape, mesh)
             counts, _, rank_s = rank_traced(cfg, shape, mesh)
             rec = out[f"{tag} {shape.mode}"] = {
@@ -4616,8 +4706,8 @@ def _serve_dry_runs() -> dict:
     return out
 
 
-def _mesh_serve_rank(device, directory: Path) -> dict:
-    """(d6) on this rank, (1, MESH_RANKS): each run of ``MESH_SERVE``
+def _mesh_serve_rank(device, directory: Path, part: str) -> dict:
+    """A serve part ((d6), (d7)) on this rank, (1, M): each of its runs
     deployed (the whole params compressed, then placed; the ranks in
     turns, so that one rank's whole params are on the card at a time),
     served on the
@@ -4630,26 +4720,27 @@ def _mesh_serve_rank(device, directory: Path) -> dict:
     from repro_torch.launch.specs import _batch_spec
     from repro_torch.models.sharding import (cache_spec_tree, named,
                                              param_spec_tree, place)
-    mesh = make_host_mesh(MESH_RANKS, devices=[device])
+    runs, m = SERVE_PARTS[part]
+    mesh = make_host_mesh(m, devices=[device])
     out = {}
-    for tag, arch, layers, dtype, atol in MESH_SERVE:
+    for tag, arch, layers, dtype, atol in runs:
         t0 = time.perf_counter()
         cfg = _serve_cfg(arch, layers, dtype)
-        for r in range(MESH_RANKS):     # in turns: the whole params of
+        for r in range(m):              # in turns: the whole params of
             if dist.get_rank() == r:    # two ranks do not fit one card
                 whole, launches = _deploy(cfg, device)
                 params = place(whole, named(mesh, param_spec_tree(
-                    whole, MESH_RANKS)))
+                    whole, m)))
                 del whole
                 torch.cuda.empty_cache()
             dist.barrier()
         digests = _digests(params)
-        run = _serve_run(cfg, params, device, mesh)
+        run = _serve_run(cfg, params, device, mesh, _prompt(tag))
         del params
         torch.cuda.empty_cache()
         one = torch.load(directory / f"serve_{tag.replace(' ', '_')}.pt")
         csh = named(mesh, cache_spec_tree(
-            one["cache"], _batch_spec(mesh, MESH_SERVE_BATCH), MESH_RANKS))
+            one["cache"], _batch_spec(mesh, MESH_SERVE_BATCH), m))
         logit_err = [(a - b).abs().max().item()
                      for a, b in zip(run["logits"], one["logits"])]
         atol = atol if isinstance(atol, float) else 0.0
@@ -4683,8 +4774,9 @@ def _mesh_serve_rank(device, directory: Path) -> dict:
     return out
 
 
-def _check_serve(ranks: list, one_rank: dict, dry: dict) -> None:
-    """(d6)'s bars: each rank's deployed blocks bitwise the one-rank
+def _check_serve(ranks: list, one_rank: dict, dry: dict, part: str) -> None:
+    """A serve part's bars ((d6), (d7)): each rank's deployed blocks
+    bitwise the one-rank
     deployed leaves' blocks (position-weighted digests), its fake_quant
     launches the one-rank count; the f32 runs' logits within
     ``MESH_SERVE_RTOL`` and the run's atol of one rank's and its cache of
@@ -4693,13 +4785,16 @@ def _check_serve(ranks: list, one_rank: dict, dry: dict) -> None:
     cache leaf; ``slot_pos`` exact; the bf16 run's logits within ``MESH_BF16_SLACK`` x the
     one-rank bf16-vs-f32 distance; every call's collectives the dry
     run's census exactly; argument + temp bytes of the prefill within
-    ``MESH_MEMORY_RTOL`` of the rank's peak over it."""
-    for tag, arch, layers, dtype, atol in MESH_SERVE:
+    ``MESH_MEMORY_RTOL`` of the rank's peak over it. Each rank's
+    figures are printed beside the card's name and power limit."""
+    runs, m = SERVE_PARTS[part]
+    for tag, arch, layers, dtype, atol in runs:
         one = one_rank[tag]
         for r, rk in enumerate(ranks):
-            got = rk["d6"][tag]
-            name = f"mesh ({tag}) rank {r} mesh (1, {MESH_RANKS})"
-            print(f"{name}: prefill_s {got['prefill_s']:.6f} decode_tokens_"
+            got = rk[part][tag]
+            name = f"mesh ({tag}) rank {r} mesh (1, {m})"
+            print(f"{name} on {CARD}: prefill_s {got['prefill_s']:.6f} "
+                  f"decode_tokens_"
                   f"per_s {got['decode_tokens_per_s']:.3f} peak_bytes "
                   f"{got['peak_bytes']} (one rank: prefill_s "
                   f"{one['prefill_s']:.6f} decode_tokens_per_s "
@@ -4781,6 +4876,8 @@ def main() -> int:
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-port", type=int, default=0,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=MESH_RANKS,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = args.phase
     # before CUDA starts: deterministic cuBLAS, so the bitwise checks test
@@ -4799,12 +4896,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.mesh_rank is not None:
-        return mesh_rank(args.mesh_rank, args.mesh_dir, args.mesh_port)
+        return mesh_rank(args.mesh_rank, args.mesh_dir, args.mesh_port,
+                         args.mesh_world)
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}")
+    CARD = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 

@@ -532,7 +532,8 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     keeps its block, :func:`cache_block`): where q's leaf is split on its
     heads each rank attends with its own q heads over the kv heads they
     read, and ``wo``'s rows of those heads give a partial output, summed;
-    otherwise every rank attends with every head."""
+    otherwise q is whole and each rank attends with its block of the
+    query rows (:func:`_attend_rows`)."""
     b, t, _ = x.shape
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     local = _qkv_layout(p["wq.w"], h, cfg) == HEADS
@@ -545,13 +546,38 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg, *, window: int = 0,
     q = rot(proj(p, "wq", x) if local else qkv_whole(p, "wq", x, h, cfg))
     k = rot(qkv_whole(p, "wk", x, hkv, cfg))
     v = qkv_whole(p, "wv", x, hkv, cfg)
-    kq, vq = k, v
     if local:
         hl = q.shape[2]
         h0 = parallel.rank("model") * hl
         kq, vq = (_kv_heads(t_, h0, hl, h // hkv) for t_ in (k, v))
-    o = chunked_attention(q, kq, vq, causal=True, window=window)
+        o = chunked_attention(q, kq, vq, causal=True, window=window)
+    else:
+        o = _attend_rows(q, k, v, window)
     return _attn_out(p, o.reshape(b, t, -1), cfg, local), k, v
+
+
+def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    """The prefill's causal chunked attention of the whole q (B, T, H, hd)
+    over the whole k and v, split over "model" by query rows: rank r
+    attends with rows [r n, r n + n), n = ceil(T / M) (the last block
+    short, or empty), at their own positions (``q_offset``); the blocks,
+    the short one padded to n rows, are gathered and cut to T. Each row's
+    attention is the one-rank row's: where n is a multiple of the chunk
+    the rank's chunks are the one-rank run's. The plain attention off a
+    mesh of ranks."""
+    if parallel.group("model") is None:
+        return chunked_attention(q, k, v, causal=True, window=window)
+    b, t, h, _ = q.shape
+    n = -(-t // parallel.size("model"))
+    lo = min(parallel.rank("model") * n, t)
+    rows = min(n, t - lo)
+    o = (chunked_attention(q.narrow(1, lo, rows), k, v, causal=True,
+                           window=window, q_offset=lo) if rows
+         else v.new_zeros((b, 0, h, v.shape[-1])))
+    if rows < n:
+        o = torch.cat([o, o.new_zeros((b, n - rows, *o.shape[2:]))], 1)
+    return parallel.gather_from_model(o, 1)[:, :t]
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int, cfg, *,

@@ -45,6 +45,7 @@ from repro_torch.models import parallel
 from repro_torch.models.decoder import (compute_dtype, head_layout,
                                         make_generator, serve_logits,
                                         unembed_head, vocab_layout)
+from repro_torch.models.sharding import cache_model_dim
 
 CHUNK = 256
 
@@ -90,18 +91,23 @@ def init_mlstm(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _mlstm_cell_chunked(q, k, v, igate, log_f, state=None):
-    """q, k, v: (B, T, H, hd); igate: (B, T, H) in (0, 1); log_f: (B, T, H)
-    (< 0). Returns (h (B, T, H, hd) in q's dtype, (C (B, H, hd, hd),
-    n (B, H, hd))). A length that is not a multiple of CHUNK is one
-    chunk of T, as in the reference."""
-    b, t, h, hd = q.shape
+def _mlstm_cell_chunked(q, k, v, igate, log_f, state=None, split=False):
+    """q, k: (B, T, H, dk); v: (B, T, H, hd); igate: (B, T, H) in (0, 1);
+    log_f: (B, T, H) (< 0). Returns (h (B, T, H, hd) in q's dtype,
+    (C (B, H, hd, dk), n (B, H, dk))). A length that is not a multiple of
+    CHUNK is one chunk of T, as in the reference. With ``split``, q and k
+    are this rank's block of dk (dk < hd) and so are C and n: each
+    chunk's sums over dk are partial, and its numerator and denominator
+    are summed over "model" (:func:`_sum_over_dk`) before the division;
+    the state's update is elementwise in dk, so C and n stay blocks."""
+    b, t, h, hd = v.shape
+    dk = k.shape[-1]
     qc = t if t % CHUNK else CHUNK
     scale = 1.0 / math.sqrt(hd)
     acc = L.acc_dtype(q.dtype)
     if state is None:
-        cmat = torch.zeros((b, h, hd, hd), dtype=acc, device=q.device)
-        nvec = torch.zeros((b, h, hd), dtype=acc, device=q.device)
+        cmat = torch.zeros((b, h, hd, dk), dtype=acc, device=q.device)
+        nvec = torch.zeros((b, h, dk), dtype=acc, device=q.device)
     else:
         cmat, nvec = state
     above = ~torch.ones((qc, qc), dtype=torch.bool,
@@ -122,8 +128,10 @@ def _mlstm_cell_chunked(q, k, v, igate, log_f, state=None):
         y_inter = torch.einsum("bihk,bhvk->bihv", qq, cmat) \
             * scale * dec[..., None]
         qn_inter = torch.einsum("bihk,bhk->bih", qq, nvec) * scale * dec
-        hvec = (y_intra + y_inter) / torch.clamp_min(
-            torch.abs(qn_intra + qn_inter), 1.0)[..., None]
+        num, den = y_intra + y_inter, qn_intra + qn_inter
+        if split:
+            num, den = _sum_over_dk(num, den)
+        hvec = num / torch.clamp_min(torch.abs(den), 1.0)[..., None]
         # state update
         wj = torch.exp(cum[:, -1:, :] - cum) * ii              # (B, j, H)
         cmat = dec[:, -1][:, :, None, None] * cmat + torch.einsum(
@@ -148,6 +156,32 @@ def _conv_tail(x_raw: torch.Tensor, width: int) -> torch.Tensor:
                                                   (0, 0, w1 - t, 0))
 
 
+def _dk_block(b: int, cfg) -> int:
+    """The width of this rank's block of the mLSTM state's dk: hd / M
+    where ``sharding.cache_spec_tree``'s rule puts ``mC`` (B, H, hd, hd)
+    on its dk over "model" (its heads do not split over the M ranks),
+    else hd."""
+    _, hd, _ = dims(cfg)
+    if parallel.group("model") is None:
+        return hd
+    m = parallel.size("model")
+    return (hd // m if cache_model_dim("mC", (b, cfg.num_heads, hd, hd), m)
+            == 3 else hd)
+
+
+def _narrow_dk(y: torch.Tensor, dk: int) -> torch.Tensor:
+    """This rank's block of ``dk`` of the last dim of ``y``."""
+    return y.narrow(-1, parallel.rank("model") * dk, dk)
+
+
+def _sum_over_dk(num: torch.Tensor, den: torch.Tensor):
+    """The mLSTM read-out's numerator (..., hd) and denominator (...),
+    each rank's partial sums over its block of dk, summed over "model"
+    in one all-reduce (``parallel.sum_over``)."""
+    both = parallel.sum_over(torch.cat([num, den[..., None]], -1), "model")
+    return both[..., :-1], both[..., -1]
+
+
 def mlstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
     """x: (B, T, D) -> (x + out, {conv, mC, mn}).
 
@@ -159,7 +193,12 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
     rank runs the cell on its heads (its block of q, k, v and the
     gates), then the norm, the skip and the gate on its block of d_in
     and ``down`` on its rows (``layers.norm_proj_rows``). Where the heads
-    do not split, every rank runs them all and takes its block after."""
+    do not split, every rank runs them all and takes its block after;
+    a forward that takes no gradient (the prefill) then runs the cell on
+    this rank's block of dk where the cache rule puts ``mC`` there
+    (:func:`_dk_block`), its sums over dk summed over "model" once a
+    chunk (a sum whose gradient would not flow back), and returns ``mC``
+    and ``mn`` as those blocks."""
     b, t, _ = x.shape
     d_in, hd, _ = dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -178,9 +217,13 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg, state=None):
     igate = torch.sigmoid(i_raw)
     log_f = L.log_sigmoid(f_raw)
     shape = (b, t, -1, hd)
+    q, k, v = (y.reshape(shape) for y in (q, k, v))
+    dk = hd if heads or torch.is_grad_enabled() else _dk_block(b, cfg)
+    if dk != hd:                        # this rank's block of dk
+        q, k = _narrow_dk(q, dk), _narrow_dk(k, dk)
     hout, (cmat, nvec) = _mlstm_cell_chunked(
-        q.reshape(shape), k.reshape(shape), v.reshape(shape), igate, log_f,
-        None if state is None else (state["mC"], state["mn"]))
+        q, k, v, igate, log_f,
+        None if state is None else (state["mC"], state["mn"]), dk != hd)
     out = L.norm_proj_rows(
         p, "down", hout.reshape(b, t, -1), p["mnorm"], d_in, cfg.norm_eps,
         lambda h, local: (h + p["skip"].to(x.dtype) * local(xc))
@@ -200,9 +243,11 @@ def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
     ``gates`` are gathered whole, the depthwise conv runs on this rank's
     channels (the whole ``conv_w`` and ``conv_b``'s block of them) and is
     gathered whole, and the cell runs on this rank's heads, or, where the
-    heads do not split, on every head with ``mC`` and ``mn`` gathered
-    whole for the step and cut to their blocks after; then the norm, the
-    skip, the gate and ``down`` as in the forward."""
+    heads do not split, on every head with this rank's block of dk (that
+    of ``mC`` and ``mn``; q and k cut to it): ``mC`` and ``mn`` update on
+    their blocks, and the read-out's sums over dk are summed over
+    "model"; then the norm, the skip, the gate and ``down`` as in the
+    forward."""
     b = x.shape[0]
     d_in, hd, _ = dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -227,22 +272,23 @@ def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg):
     ig = torch.sigmoid(i_raw)[:, 0]                            # (B, H)
     fg = torch.sigmoid(f_raw)[:, 0]
     qh, kh, vh = (y.reshape(b, -1, hd).to(acc) for y in (q, k, v))
-    cmat = fg[..., None, None] * L.cache_whole(state["mC"], -1, hd) \
+    dk = state["mC"].shape[-1]
+    if dk != hd:                                # this rank's block of dk
+        qh, kh = _narrow_dk(qh, dk), _narrow_dk(kh, dk)
+    cmat = fg[..., None, None] * state["mC"] \
         + ig[..., None, None] * torch.einsum("bhv,bhk->bhvk", vh, kh)
-    nvec = fg[..., None] * L.cache_whole(state["mn"], -1, hd) \
-        + ig[..., None] * kh
+    nvec = fg[..., None] * state["mn"] + ig[..., None] * kh
     scale = 1.0 / math.sqrt(hd)
     y = torch.einsum("bhk,bhvk->bhv", qh, cmat) * scale
     qn = torch.einsum("bhk,bhk->bh", qh, nvec) * scale
+    if dk != hd:
+        y, qn = _sum_over_dk(y, qn)
     y = y / torch.clamp_min(torch.abs(qn), 1.0)[..., None]
     out = L.norm_proj_rows(
         p, "down", y.reshape(b, 1, -1).to(x.dtype), p["mnorm"], d_in,
         cfg.norm_eps, lambda h, local: (h + p["skip"].to(x.dtype)
                                         * local(xc1)) * F.silu(local(z)))
-    whole = (b, cfg.num_heads, hd)
-    return x + out, {"conv": window[:, 1:, :],
-                     "mC": L.cache_block(cmat, "mC", (*whole, hd)),
-                     "mn": L.cache_block(nvec, "mn", whole)}
+    return x + out, {"conv": window[:, 1:, :], "mC": cmat, "mn": nvec}
 
 
 # ----------------------------------------------------------------- sLSTM
@@ -445,16 +491,13 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, *, window: int = 0,
     x = L.embed(params["embed"], tokens, compute_dtype(cfg),
                 vocab_layout(params["embed"], cfg, 0))
     b = tokens.shape[0]
-    _, hd, hds = dims(cfg)
-    whole = (b, cfg.num_heads, hd)
+    _, _, hds = dims(cfg)
     mstates, sstates = [], []
     for mls, sp in _superblocks(params):
         per = []
         for lp in mls:
             x, st = mlstm_forward(lp, x, cfg)
-            st = {"conv": L.cache_block(st["conv"], "conv"),
-                  "mC": L.cache_block(st["mC"], "mC", (*whole, hd)),
-                  "mn": L.cache_block(st["mn"], "mn", whole)}
+            st["conv"] = L.cache_block(st["conv"], "conv")
             per.append(st)
         x, st = slstm_forward(sp, x, cfg)
         st = {k: L.cache_block(v, k, (b, cfg.num_heads, hds))

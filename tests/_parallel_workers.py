@@ -313,6 +313,19 @@ def _other_layer_cases(world: int) -> dict:
     vdims = {"embed": 0, "projector.w": -1}
     cases["projector"] = (_run(vlm_fn, vp, patches, vdims, mesh),
                           _run(vlm_fn, vp, patches, vdims))
+    if world == 2:
+        # the prefill's attention with q on head_dim (3 heads over 2
+        # ranks) at T = 2048: each rank attends with its 1024 query rows,
+        # one of the one-rank run's two chunks; ``wo`` whole, so that y is
+        # the attention's own output through one whole product
+        pcfg, pp, pdims = _attn_case("llama-h3", world, 3)
+        pdims["wo.w"] = None
+        xp = torch.randn((1, 2048, pcfg.d_model),
+                         generator=torch.Generator().manual_seed(7))
+        with torch.no_grad():
+            with parallel.using(mesh):
+                mine = L.attn_prefill(_blocks(pp, pdims), xp, pcfg)
+            cases["attn_prefill_rows"] = (mine, L.attn_prefill(pp, xp, pcfg))
     return cases
 
 
@@ -583,15 +596,21 @@ def serve_run(cfg, params: dict, batch: dict, toks: list, mesh=None,
 # 2-rank runs whose layouts fall back, (config, prompt, rows, model
 # ranks): on (1, 2) a prompt of 9 (odd) puts a self-attention cache on its
 # 2 kv heads, or with one kv head on head_dim; the xLSTM states of one
-# head go on their last dim; Whisper's 15 encoder frames put the cross-KV
-# on its kv heads, or with one kv head on head_dim; on (2, 1) 3 rows do
-# not split over the 2 data ranks, so each holds the whole batch (the
-# MoE layer then groups it whole)
+# head go on their last dim (the mLSTM cell on its block of dk), over one
+# chunk or three; Whisper's 15 encoder frames put the cross-KV on its kv
+# heads, or with one kv head on head_dim; with 3 heads q falls back to
+# head_dim and the prefill splits its query rows (8, or 9: the last
+# rank's block short); on (2, 1) 3 rows do not split over the 2 data
+# ranks, so each holds the whole batch (the MoE layer then groups it
+# whole)
 SERVE_FALLBACKS = {"kv heads": ("llama3.2-3b", 9, SERVE_B, 2),
                    "head_dim": ("llama-kv1", 9, SERVE_B, 2),
                    "xlstm last dim": ("xlstm-h1", 8, SERVE_B, 2),
+                   "xlstm chunks": ("xlstm-h1", 3 * 256, SERVE_B, 2),
                    "cross kv heads": ("whisper-enc15", 8, SERVE_B, 2),
                    "cross head_dim": ("whisper-enc15-kv1", 8, SERVE_B, 2),
+                   "q head_dim": ("llama-h3", 8, SERVE_B, 2),
+                   "q head_dim odd": ("llama-h3", 9, SERVE_B, 2),
                    "rows whole": ("granite-moe-1b-a400m", 8, 3, 1)}
 
 

@@ -15,7 +15,10 @@ of ``tests/_parallel_workers.py`` once each, and the tests read their
 results against one process on the same inputs: layers rtol 1e-5 / atol
 1e-6 with their gradients, masks bitwise, two AdamW steps' losses rtol
 1e-4 and params atol 1e-5, prefill and decode logits and caches 1e-5
-(recurrent 5e-5), every rank's collectives the dry run's census. Last,
+(recurrent 5e-5), every rank's collectives the dry run's census; rank
+0's traced steps on a census mesh run its share where the heads do not
+split (the prefill's attention on its query rows, xLSTM's decode with
+no gather of its state). Last,
 the train launcher on 4 ranks resumes
 the reference's own 4-device checkpoint and holds its losses and final
 checkpoint (``tests/test_torch_parallel_bf16.py`` holds the bf16 step
@@ -287,11 +290,15 @@ def test_decode_attention_cache_fallbacks(ranks, case):
     ``cache_spec_tree``'s rule on (1, 2): a prompt of 9 puts the
     self-attention cache on its kv heads (llama's 2) or, with one kv
     head, on head_dim; one xLSTM head puts ``mC`` on dk, ``mn`` and the
-    sLSTM states on their last dim; 15 encoder frames put Whisper's
-    cross-KV on its kv heads or, with one, on head_dim. And on (2, 1) 3
-    rows that do not split over the data ranks: the batch whole on each
-    (granite-moe, its MoE layer grouping it whole). Prefill and decode
-    against one rank under ``check_serve``'s bars."""
+    sLSTM states on their last dim (the mLSTM cell on this rank's block
+    of dk, over a prompt of one chunk and of three); 15 encoder frames
+    put Whisper's cross-KV on its kv heads or, with one, on head_dim; 3
+    q heads put q on head_dim, so the prefill splits its query rows, 4
+    a rank at a prompt of 8 (the cache on its slots), 5 and 4 at 9 (on
+    head_dim). And on (2, 1) 3 rows that do not split over the data
+    ranks: the batch whole on each (granite-moe, its MoE layer grouping
+    it whole). Prefill and decode against one rank under
+    ``check_serve``'s bars."""
     name, t, b, mp = W.SERVE_FALLBACKS[case]
     cfg = W.config(name)
     dp = 2 // mp
@@ -299,11 +306,13 @@ def test_decode_attention_cache_fallbacks(ranks, case):
     sh = _cache_shardings(one["cache"], dp, mp, 0, b)
     split = {k: tuple(s.spec).index("model") - len(s.spec)
              for k, s in named_leaves(sh) if "model" in tuple(s.spec)}
+    xlstm = {"mlstm/conv": -1, "mlstm/mC": -1, "mlstm/mn": -1,
+             "slstm/sc": -1, "slstm/sn": -1, "slstm/sh": -1}
     want = {"kv heads": {"layers/k": -2, "layers/v": -2},
             "head_dim": {"layers/k": -1, "layers/v": -1},
-            "xlstm last dim": {"mlstm/conv": -1, "mlstm/mC": -1,
-                               "mlstm/mn": -1, "slstm/sc": -1,
-                               "slstm/sn": -1, "slstm/sh": -1},
+            "xlstm last dim": xlstm, "xlstm chunks": xlstm,
+            "q head_dim": {"layers/k": -3, "layers/v": -3},
+            "q head_dim odd": {"layers/k": -1, "layers/v": -1},
             "cross kv heads": {"layers/enc_k": -2, "layers/enc_v": -2,
                                "layers/k": -3, "layers/v": -3},
             "cross head_dim": {"layers/enc_k": -1, "layers/enc_v": -1,
@@ -317,6 +326,94 @@ def test_decode_attention_cache_fallbacks(ranks, case):
     bar = 5e-5 if cfg.family in ("ssm", "audio") else 1e-5
     for r, res in enumerate(ranks(2)):
         check_serve(res["serve"][case], one, dp, mp, r, bar, b)
+
+
+@pytest.mark.parametrize("case", list(W.SERVE_FALLBACKS))
+def test_census_equals_every_fallback_rank(ranks, case):
+    """The dry run's census of each fallback's prefill and decode step
+    (rank 0's trace on an abstract mesh of its shape; xLSTM's three
+    chunks counted by the scan's multiplier) is, op by op, in count and
+    bytes, exactly what every rank counted in its prefill and in each of
+    its decode steps."""
+    name, t, b, mp = W.SERVE_FALLBACKS[case]
+    prefill, decode = W.serve_shapes(t, b)
+    want_p = W.dry_run_census(name, prefill, 2 // mp, mp)
+    want_d = W.dry_run_census(name, decode, 2 // mp, mp)
+    for res in ranks(2):
+        got = res["serve"][case]["census"]
+        assert got[0] == want_p
+        assert got[1:] == [want_d] * W.SERVE_STEPS
+
+
+def test_prefill_attention_rows_are_bitwise_one_rank(ranks):
+    """``attn_prefill`` of 3 heads over 2 ranks (q, k and v on head_dim)
+    at T = 2048: each rank attends with its 1024 query rows, which are
+    one of the one-rank run's two chunks, so the output (``wo`` whole)
+    and the whole k and v are bitwise the one-rank ones on every rank."""
+    for res in ranks(2):
+        mine, one = res["layers"]["attn_prefill_rows"]
+        for a, w in zip(mine, one):
+            assert a.shape == w.shape and torch.equal(a, w)
+
+
+def _traced_rank(monkeypatch, name: str, shape, mod, attr: str, hook):
+    """Rank 0's trace of ``name``'s step at ``shape`` (a shape of the
+    caller's own, so traced anew) on a census mesh of (1, 2), with
+    ``mod.attr`` wrapped: ``hook(fn, *a, **k)`` runs in its place.
+    Returns the trace's counts."""
+    fn = getattr(mod, attr)
+    monkeypatch.setattr(mod, attr, lambda *a, **k: hook(fn, *a, **k))
+    counts, _, _ = specs.rank_traced(W.config(name), shape,
+                                     W.abstract_mesh(1, 2))
+    return counts
+
+
+def test_prefill_attention_runs_this_ranks_query_rows(monkeypatch):
+    """Where q falls back from its heads (3 over 2 ranks), rank 0's
+    traced prefill runs half of the one-rank trace's attention flops
+    (the chunked attention's einsums, as the dry run counts them): its
+    block of the query rows against the whole k and v, not every row."""
+    from repro_torch.launch.analysis import StepCounter
+    from repro_torch.models import layers as L
+    flops = {"rank": 0, "one": 0}
+
+    def hook(fn, *a, **k):
+        counter = L._scan_counter()
+        assert isinstance(counter, StepCounter)
+        before = counter.flops
+        out = fn(*a, **k)
+        flops["rank" if parallel.multi_rank() else "one"] += \
+            counter.flops - before
+        return out
+    _traced_rank(monkeypatch, "llama-h3",
+                 W.ShapeConfig("rows", 64, 2, "prefill"), L,
+                 "chunked_attention", hook)
+    assert flops["one"] > 0 and 2 * flops["rank"] == flops["one"]
+
+
+def test_xlstm_decode_gathers_no_mlstm_state(monkeypatch):
+    """xLSTM's one head does not split over 2 ranks, so ``mC`` (B, H, hd,
+    hd) and ``mn`` sit on their dk: rank 0's traced decode step updates
+    and reads them on that block, and its census holds no all-gather of
+    either (nor any as large as ``mC``'s block)."""
+    from repro_torch.models import xlstm as TX
+    cfg = W.config("xlstm-h1")
+    b = 4
+    _, hd, _ = TX.dims(cfg)
+    gathered = []
+
+    def hook(fn, x, *a, **k):
+        out = fn(x, *a, **k)
+        gathered.append((tuple(out.shape), out.numel() * out.element_size()))
+        return out
+    counts = _traced_rank(monkeypatch, "xlstm-h1",
+                          W.ShapeConfig("dk", 8, b, "decode"), parallel,
+                          "all_gather", hook)
+    block = b * cfg.num_heads * hd * hd // 2 * 4
+    assert counts["collectives"]["count_by_op"]["all-gather"] == len(gathered)
+    assert gathered and max(n for _, n in gathered) < block
+    whole = {(b, cfg.num_heads, hd, hd), (b, cfg.num_heads, hd)}
+    assert not whole & {s for s, _ in gathered}
 
 
 def test_outside_a_mesh_every_function_is_the_identity():
